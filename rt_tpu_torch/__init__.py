@@ -5,14 +5,17 @@ it module by module for an NVIDIA H100, with every TPU kernel on a ported
 path replaced by a hand-written CUDA kernel (built with nvcc at first use).
 Module names follow ``rt_tpu`` so each counterpart is easy to find.
 
-Ported so far (the forward render path, from TOML scene to PNG):
+Ported so far (the forward render path, from TOML scene to PNG, and the
+fused training step):
   log, colour, camera, scene, materials (class table), image,
-  ops.render (the forward megakernel), profiling, renderer, cli.
+  ops.render (the forward megakernel), diff (parameter plumbing),
+  ops.grad (the fused fwd+bwd MSE step and its two kernels), profiling,
+  renderer, cli.
 
 Importing this package needs neither CUDA nor JAX.
 """
 
-from . import camera, colour, image, log, materials, ops, profiling, renderer, scene
+from . import camera, colour, diff, image, log, materials, ops, profiling, renderer, scene
 from .scene import Scene, from_jax_scene, load, load_first_available, loads
 
 __version__ = "0.1.0"
@@ -20,6 +23,7 @@ __version__ = "0.1.0"
 __all__ = [
     "camera",
     "colour",
+    "diff",
     "image",
     "log",
     "materials",

@@ -1,5 +1,5 @@
-"""The CUDA forward kernel against its plain PyTorch version, both on the
-card, at small sizes.  Needs an NVIDIA GPU with nvcc (marker ``cuda``);
+"""The CUDA kernels (forward render, fused gradient) against their plain
+PyTorch versions, both on the card, at small sizes.  Needs an NVIDIA GPU with nvcc (marker ``cuda``);
 without one every test skips.  On the card:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -14,6 +14,8 @@ import pytest
 import torch
 
 import rt_tpu_torch
+from rt_tpu_torch import diff
+from rt_tpu_torch.ops import grad as tg
 from rt_tpu_torch.ops import render as tr
 from test_torch_common import BOX_TOML, PLANES_TOML, SCENES, assert_frames_close
 
@@ -97,3 +99,85 @@ def test_wrapper_rejects_bad_inputs(cuda):
         tr.render_tile(sp, pl, bx, cam.cpu(), seeds, **kw)
     with pytest.raises(ValueError, match="spheres"):
         tr.render_tile(sp.t(), pl, bx, cam, seeds, **kw)
+
+
+def _grad_args(cuda, name, personality, size, seed=1):
+    scene = _scene(name)
+    s_cols, p_cols = tr._flatten_primitives(scene, personality)
+    sp, pl = (torch.from_numpy(np.ascontiguousarray(c.T)).to(cuda) for c in (s_cols, p_cols))
+    cam = torch.from_numpy(tr._pack_camera(scene.camera, size)).to(cuda)
+    w, h = size
+    pix = torch.from_numpy(np.random.default_rng(seed).uniform(0, 0.5, (h, w, 3))
+                           .astype(np.float32)).to(cuda)
+    return sp, pl, cam, pix
+
+
+def _assert_within_l1(got, want, l1):
+    # same per-ray arithmetic (--fmad=false, same expression order); only
+    # the order of the sums over pixels and samples differs, and the
+    # kernel's per-primitive sums use shared-memory atomics: each entry
+    # agrees within 1e-5 of the sum of its contributions' magnitudes
+    for g, w_, l in zip(got, want, l1):
+        assert torch.isfinite(g).all()
+        assert ((g - w_).abs() <= 1e-5 * l).all(), ((g - w_).abs() / l.clamp_min(1e-30)).max()
+
+
+@pytest.mark.parametrize("name,personality,rng_mode", [
+    ("basic.toml", "mg", "reference"),
+    ("cornell_spheres.toml", "sm", "sphere"),
+    ("planes", "mg", "reference"),
+])
+def test_mono_kernel_matches_plain(cuda, name, personality, rng_mode):
+    size = (48, 32)
+    sp, pl, cam, tgt = _grad_args(cuda, name, personality, size)
+    seeds = torch.tensor([3, -8, 40000], dtype=torch.int32, device=cuda)
+    kw = dict(size=size, max_bounces=6, rng_mode=rng_mode)
+    before = tg.mse_step_tile.launches
+    got = tg.mse_step_tile(sp, pl, cam, seeds, tgt, **kw)
+    assert tg.mse_step_tile.launches == before + 1
+    want, l1 = tg.mse_step_tile_plain(sp, pl, cam, seeds, tgt, with_l1=True, **kw)
+    torch.cuda.synchronize()
+    _assert_within_l1(got, want, l1)
+
+
+@pytest.mark.parametrize("name,personality,center", [
+    ("dielectric.toml", "sm", True),
+    ("proc64", "mg", False),
+])
+def test_grad_kernel_matches_plain(cuda, name, personality, center):
+    size = (48, 32)
+    sp, pl, cam, cot = _grad_args(cuda, name, personality, size)
+    seeds = torch.tensor([77], dtype=torch.int32, device=cuda)
+    kw = dict(size=size, max_bounces=6, center_sample=center)
+    before = tg.grad_tile.launches
+    got = tg.grad_tile(sp, pl, cam, seeds, cot * 1e-4, **kw)
+    assert tg.grad_tile.launches == before + 1
+    want, l1 = tg.grad_tile_plain(sp, pl, cam, seeds, cot * 1e-4, with_l1=True, **kw)
+    torch.cuda.synchronize()
+    _assert_within_l1(got, want, l1)
+
+
+def test_make_mse_step_launches(cuda):
+    """The mono route launches its kernel once per step; the per-sample
+    route launches the render kernel and the gradient kernel once per
+    sample each."""
+    scene = _scene("dielectric.toml")
+    params = diff.extract_params(scene)
+    size = (40, 30)
+    target = torch.zeros((30, 40, 3), device=cuda)
+    counts = lambda: (tg.mse_step_tile.launches, tr.render_tile.launches, tg.grad_tile.launches)
+    mono = tg.make_mse_step(params, scene, target, size, spp=4, max_bounces=8,
+                            personality="sm", device=cuda)
+    before = counts()
+    loss, grads = mono(seed=1)
+    assert mono.mode == "mono"
+    assert counts() == (before[0] + 1, before[1], before[2])
+    multi = tg.make_mse_step(params, scene, target, size, spp=64, max_bounces=8,
+                             personality="sm", device=cuda)
+    before = counts()
+    loss64, grads64 = multi(seed=1)
+    assert multi.mode == "multi"
+    assert counts() == (before[0], before[1] + 64, before[2] + 64)
+    for g in (grads, grads64):
+        assert set(g) == set(params) and all(torch.isfinite(v).all() for v in g.values())
+    assert torch.isfinite(loss) and torch.isfinite(loss64)
