@@ -21,7 +21,17 @@ Phases (an exception in any phase exits non-zero before the result line):
    8 and again at 64x48; every output within 1e-5 of the sum of the
    magnitudes of its per-(pixel, sample) contributions (the kernels sum
    per-primitive gradients with atomics; the run-to-run spread of two
-   launches is printed).
+   launches is printed).  Blockwise forward kernel, depth 8, bit for bit:
+   4 spp on basic.toml at 800x600, cornell_spheres.toml (sm) and basic+box
+   (--boxes) at 320x240, 500 spheres at 320x180 and 1000 spheres (past the
+   render kernel's 640) at 160x90; at the main paths' shapes, 500 spheres
+   at 1920x1080 1 spp (a train-step launch) and 1000 spheres at 1920x1080
+   4 spp (a CLI chunk); and against the render kernel on basic and cornell
+   at the same seeds.  Blockwise gradient kernel, one sample, depth 8,
+   within 1e-5 x L1 with the run-to-run spread: 500 spheres at 320x180 and
+   at 1920x1080 (a train-step launch), cornell (sm) at 160x120; and the
+   blockwise step against make_mse_step(mode="multi") on basic.toml at the
+   same seeds.
 4. Main paths through the entry points, each with the launch counters
    reset just before and read just after: the CLI renders basic.toml to a
    PNG and make_render_step renders BASELINE config 4's shape (500
@@ -32,17 +42,27 @@ Phases (an exception in any phase exits non-zero before the result line):
    and 64 gradient launches); bench.py's gradient check (central finite
    difference on materials.reflectivity[0]) through mse_loss_and_grad;
    and 5 steps of gradient descent on materials.albedo towards a frame
-   rendered at perturbed albedo, which must lower the loss.
+   rendered at perturbed albedo, which must lower the loss.  The blockwise
+   route: the CLI (mg_auto) renders the procedural 1000-sphere scene at
+   1920x1080 (one blockwise launch per 4-sample chunk); 6 steps of
+   train.make_kernel_train_step at BASELINE config 4's training shape (500
+   spheres, 1920x1080, depth 8; 16 spp, cut from 128 for run time), Adam
+   on materials.albedo at lr 5e-2 as in examples/big_scene_training.py:
+   the loss must fall, each step must launch 16 forward and 16 gradient
+   kernels, copy nothing to the card but the seeds and build nothing; and
+   bench.py's gradient check through bw_mse_loss_and_grad.
 5. Timing: CUDA events around back-to-back calls
    (rt_tpu_torch.profiling.sustained) for every kernel, its plain version,
    make_render_step and make_mse_step (fwd+bwd Mrays/s), the step over the
    same-shape forward in interleaved windows (ratio_step_over_fwd, as
-   bench.py measures it), config 3's step, and a profiler trace
-   (profiling.device_times) for the kernels' device time and the card's
-   busy share within a step.  Each kernel's bound is the larger of its
-   bytes over 3.35 TB/s and its FP32 operations over 33.5 Top/s, the
-   operations counted from the kernel sources (OPS below) times the live
-   bounces of this run's inputs.
+   bench.py measures it), config 3's step, the blockwise kernels (beside
+   the render and per-sample kernels on the same 500-sphere inputs) and
+   the config-4 train step, and a profiler trace (profiling.device_times)
+   for the kernels' device time and the card's busy share within a step.
+   Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
+   FP32 operations over 33.5 Top/s, the operations counted from the kernel
+   sources (OPS below) times the live bounces of this run's inputs (the
+   scan's share grows with the table).
 
 The last two lines are the card line and {"ok": true, "device": ...};
 the line before them is the per-kernel JSON summary, and the line before
@@ -62,7 +82,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-KERNEL_SOURCES = ("render_kernel", "grad_kernel")
+KERNEL_SOURCES = ("render_kernel", "grad_kernel", "blockwise_kernel", "bw_grad_kernel")
 
 # Render kernel vs plain version on the card: the tolerance is zero.  The kernel is
 # built with --fmad=false and writes rsqrt as 1/sqrtf, and the plain version
@@ -118,7 +138,8 @@ PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 33.5e12
 
 # FP32 operations per unit of work, counted by hand from
-# rt_tpu_torch/csrc/render_kernel.cu and grad_kernel.cu (rounded; an add,
+# rt_tpu_torch/csrc/trace.cuh (the render and blockwise kernels) and
+# bounce.cuh (the gradient kernels) (rounded; an add,
 # multiply, compare, select, min/max, conversion, division or square root
 # counts one; the integer hash is not FP32 work).  Forward, per live
 # bounce: the scan of every plane and sphere, then the miss (sky) or hit
@@ -509,6 +530,344 @@ def grad_timing(scenes, step, step3, card, report):
     return {"mse_step_kernel": mono, "grad_kernel": per_sample}
 
 
+def bw_tables(scene, personality, include_boxes=False):
+    """The blockwise kernels' padded tables and counts, on the card."""
+    import torch
+    from rt_tpu_torch.ops import blockwise as BW
+
+    return BW._device_tables(scene, personality, include_boxes, torch.device("cuda"))
+
+
+def blockwise_parity(scenes, report):
+    """Phase 3 for the blockwise kernels.  Returns max |kernel - plain| per
+    kernel."""
+    import numpy as np
+    import torch
+    from rt_tpu_torch.ops import blockwise as BW
+    from rt_tpu_torch.ops import blockwise_grad as BG
+    from rt_tpu_torch.ops import grad as G
+    from rt_tpu_torch.ops import render as R
+
+    errs = {"blockwise_kernel": 0.0, "bw_grad_kernel": 0.0}
+    report["bw_parity"], report["bw_grad_parity"] = [], []
+    seeds = torch.tensor([11], dtype=torch.int32, device="cuda")
+    cases = [  # label, scene, personality, size, --boxes, spp, centre sample
+        ("basic/mg", "basic", "mg", (800, 600), False, 4, True),
+        ("cornell_spheres/sm", "cornell", "sm", (320, 240), False, 4, True),
+        ("basic+box/mg --boxes", "basic+box", "mg", (320, 240), True, 4, True),
+        ("proc500/mg", "proc500", "mg", (320, 180), False, 4, True),
+        ("proc1000/mg", "proc1000", "mg", (160, 90), False, 4, True),
+        # the main paths' launches: one sample of the config-4 train step,
+        # and one 4-sample chunk of the CLI's 1000-sphere frame
+        ("proc500/mg train-step launch", "proc500", "mg", (1920, 1080), False, 1, False),
+        ("proc1000/mg cli chunk", "proc1000", "mg", (1920, 1080), False, 4, True),
+    ]
+    for label, key, pers, size, boxes, spp, center in cases:
+        sp, pl, bx, counts = bw_tables(scenes[key], pers, boxes)
+        cam = torch.from_numpy(R._pack_camera(scenes[key].camera, size)).cuda()
+        kw = dict(size=size, spp=spp, max_bounces=8, center_sample=center)
+        got = BW.render_blockwise_tile(sp, pl, bx, counts, cam, seeds, **kw)
+        want = BW.render_blockwise_tile_plain(sp, pl, bx, counts, cam, seeds, **kw)
+        # the render kernel on the same scene, where it takes it
+        unrolled = (R.render_tile(*card_tables(scenes[key], pers, size, boxes)[:3], cam, seeds,
+                                  **kw)[0] if sum(counts) <= R.MAX_UNROLL_PRIMS else None)
+        torch.cuda.synchronize()
+        d = (got - want).abs()
+        row = {"case": label, "size": size, "spp": spp, "counts": counts,
+               "max_abs": d.max().item(),
+               "exact_share": (d.amax(-1) == 0).float().mean().item()}
+        if unrolled is not None:
+            du = (got - unrolled).abs()
+            row.update(vs_render_kernel_max_abs=du.max().item(),
+                       vs_render_kernel_exact_share=(du.amax(-1) == 0).float().mean().item())
+        report["bw_parity"].append(row)
+        log(f"[3] blockwise {label} {size[0]}x{size[1]} {spp}spp d8 ({counts} rows): max|d| "
+            f"{row['max_abs']:.3g}, exact {row['exact_share']:.5f}"
+            + (f"; vs render kernel max|d| {row['vs_render_kernel_max_abs']:.3g}, exact "
+               f"{row['vs_render_kernel_exact_share']:.5f}" if "vs_render_kernel_max_abs" in row
+               else ""))
+        check(torch.isfinite(got).all().item(), f"blockwise {label}: output not finite")
+        check(torch.equal(got, want), f"blockwise {label}: kernel differs from its plain version")
+        if "vs_render_kernel_max_abs" in row and key in ("basic", "cornell"):
+            check(row["vs_render_kernel_max_abs"] == 0.0,
+                  f"blockwise {label}: differs from the render kernel at the same seeds")
+        errs["blockwise_kernel"] = max(errs["blockwise_kernel"], row["max_abs"])
+
+    # label, scene, personality, size, centre sample, cotangent scale (that
+    # of 2 (img - target) / (3 W H spp)); the last case is one sample of the
+    # config-4 train step (16 spp), 2,073,600 rays on the same 500 rows
+    grad_cases = [("proc500/mg", "proc500", "mg", (320, 180), False, 1e-6),
+                  ("cornell_spheres/sm", "cornell", "sm", (160, 120), True, 1e-6),
+                  ("proc500/mg train-step launch", "proc500", "mg", (1920, 1080), False,
+                   2.0 / (3 * 1920 * 1080 * 16))]
+    for label, key, pers, size, center, scale in grad_cases:
+        sp, pl, _, counts = bw_tables(scenes[key], pers)
+        cam = torch.from_numpy(R._pack_camera(scenes[key].camera, size)).cuda()
+        w, h = size
+        cot = torch.from_numpy(np.random.default_rng(3).uniform(0.0, 0.5, (h, w, 3))
+                               .astype(np.float32)).cuda() * scale
+        kw = dict(size=size, max_bounces=8, center_sample=center)
+        got = BG.bw_grad_tile(sp, pl, counts[:2], cam, seeds, cot, **kw)
+        again = BG.bw_grad_tile(sp, pl, counts[:2], cam, seeds, cot, **kw)
+        want, l1 = BG.bw_grad_tile_plain(sp, pl, counts[:2], cam, seeds, cot, with_l1=True, **kw)
+        torch.cuda.synchronize()
+        outs = [(g, a, w_, l) for g, a, w_, l in zip(got, again, want, l1) if g.numel()]
+        row = {
+            "case": label, "size": size, "counts": counts, "center_sample": center,
+            "max_abs": max((g - w_).abs().max().item() for g, a, w_, l in outs),
+            "max_ratio_l1": max(((g - w_).abs() / l.clamp_min(1e-30)).max().item()
+                                for g, a, w_, l in outs),
+            "run_to_run_ratio_l1": max(((g - a).abs() / l.clamp_min(1e-30)).max().item()
+                                       for g, a, w_, l in outs),
+        }
+        report["bw_grad_parity"].append(row)
+        log(f"[3] bw_grad {label} {w}x{h} 1 sample d8: max|d| {row['max_abs']:.3g}, max |d|/L1 "
+            f"{row['max_ratio_l1']:.3g} (tolerance {GRAD_TOL}), run-to-run |d|/L1 "
+            f"{row['run_to_run_ratio_l1']:.3g}")
+        for g, a, w_, l in outs:
+            check(torch.isfinite(g).all().item(), f"bw_grad {label}: output not finite")
+            check(((g - w_).abs() <= GRAD_TOL * l).all().item(),
+                  f"bw_grad {label}: kernel differs from its plain version beyond {GRAD_TOL} x L1")
+        errs["bw_grad_kernel"] = max(errs["bw_grad_kernel"], row["max_abs"])
+
+    # the blockwise step against the per-sample step at the same seeds: the
+    # same function (the render kernel's and the blockwise kernel's frames
+    # are equal, the gradient kernels' forward and adjoint too), summed in
+    # another order
+    from rt_tpu_torch import diff
+
+    size = (200, 150)
+    tgt = torch.from_numpy(np.random.default_rng(5).uniform(0.0, 0.5, (150, 200, 3))
+                           .astype(np.float32)).cuda()
+    params = diff.extract_params(scenes["basic"])
+    kw = dict(spp=4, max_bounces=8, device="cuda")
+    l_bw, g_bw = BG.bw_mse_loss_and_grad(params, scenes["basic"], tgt, size, seed=21, **kw)
+    l_ms, g_ms = G.mse_loss_and_grad(params, scenes["basic"], tgt, size, seed=21, mode="multi",
+                                     **kw)
+    rel = {k: ((g_bw[k] - g_ms[k]).abs().max() / g_ms[k].abs().max().clamp_min(1e-30)).item()
+           for k in g_bw}
+    cross = {"loss_blockwise": l_bw.item(), "loss_multi": l_ms.item(),
+             "loss_rel_diff": abs(l_bw.item() - l_ms.item()) / l_ms.item(),
+             "grad_max_diff_over_max": rel}
+    report["bw_vs_multi"] = cross
+    log(f"[3] blockwise step vs make_mse_step(multi), basic 200x150 4spp d8: loss "
+        f"{cross['loss_blockwise']:.8g} vs {cross['loss_multi']:.8g}; max |d|/max|g| per key "
+        f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} }")
+    check(cross["loss_rel_diff"] <= 1e-5 and max(rel.values()) <= 2e-4,
+          "the blockwise step and the per-sample step disagree")
+    return errs
+
+
+def htod_copies(fn):
+    """Host-to-device copies made by ``fn()``, from a profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if "HtoD" in e.key)
+
+
+def blockwise_main_paths(scenes, report):
+    """Phase 4 for the blockwise route.  Returns (launches per kernel, the
+    config-4 train step and its params)."""
+    import torch
+    from rt_tpu_torch import train
+    from rt_tpu_torch.cli import main as cli_main
+    from rt_tpu_torch.ops import _build
+    from rt_tpu_torch.ops import blockwise as BW
+    from rt_tpu_torch.ops import blockwise_grad as BG
+    from rt_tpu_torch.ops import grad as G
+    from rt_tpu_torch.ops import render as R
+
+    wrappers = {"render_kernel": R.render_tile, "mse_step_kernel": G.mse_step_tile,
+                "grad_kernel": G.grad_tile, "blockwise_kernel": BW.render_blockwise_tile,
+                "bw_grad_kernel": BG.bw_grad_tile}
+    total = dict.fromkeys(wrappers, 0)
+
+    def reset():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read(label, **want):
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in wrappers.items()}
+        for k, v in got.items():
+            total[k] += v
+        log(f"[4] {label}: launches {got}")
+        check(got == dict(dict.fromkeys(wrappers, 0), **want),
+              f"{label}: launches {got}, expected {want}")
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        npy = Path(tmp) / "proc1000.npy"
+        reset()
+        rc = cli_main(["--procedural", "1000", "--renderer", "mg_auto", "--size", "1920x1080",
+                       "--spp", "8", "--bounces", "8", "--device", "cuda", "--out", str(npy)])
+        read("cli mg_auto --procedural 1000 1920x1080 8spp d8", blockwise_kernel=2)
+        check(rc == 0, f"cli exited with {rc}")
+        import numpy as np
+
+        frame = np.load(npy)
+        check(frame.shape == (1080, 1920, 3) and np.isfinite(frame).all(),
+              "the 1000-sphere frame has the wrong shape or is not finite")
+        ref = BW.render_forward_blockwise(scenes["proc1000"], (1920, 1080), spp=8,
+                                          max_bounces=8, device="cuda").cpu().numpy()
+        check(np.array_equal(frame, ref), "the CLI's frame is not render_forward_blockwise's")
+        out["cli_1000_mean"] = float(frame.mean())
+        log(f"[4] 1000-sphere 1920x1080 frame through the blockwise route, mean {frame.mean():.4f}")
+
+    # BASELINE config 4's training shape through the JAX package's router
+    scene, size, spp = scenes["proc500"], (1920, 1080), 16
+    target = BW.render_forward_blockwise(scene, size, seed=0, spp=spp, max_bounces=8,
+                                         gamma=False, device="cuda")
+    params = {"materials.albedo": torch.full_like(scene.materials.albedo, 0.5).cuda()}
+    opt = torch.optim.Adam(list(params.values()), lr=5e-2, foreach=True)
+    step = train.make_kernel_train_step(opt, scene, target, size, spp=spp, max_bounces=8,
+                                        device="cuda")
+    built = _build.load_library.cache_info().misses
+    reset()
+    losses = [step(params, i).item() for i in range(6)]
+    read("config-4 train step (500 spheres 1920x1080 16spp d8), 6 steps",
+         blockwise_kernel=6 * spp, bw_grad_kernel=6 * spp)
+    reset()
+    copies = htod_copies(lambda: step(params, 6))
+    read("config-4 train step under the profiler, 1 step", blockwise_kernel=spp,
+         bw_grad_kernel=spp)
+    log(f"[4] config-4 train losses {losses}; host-to-device copies in a step: {copies}")
+    check(losses[-1] < losses[0], "the train step did not lower the loss")
+    check(copies == 1, f"{copies} host-to-device copies in a train step, expected 1 (the seeds)")
+    check(_build.load_library.cache_info().misses == built, "a train step built a library")
+    out.update(train_losses=losses, train_htod_copies=copies)
+
+    # bench.py's gradient check through the blockwise step's own loss
+    reset()
+    name, eps, small = "materials.reflectivity", 1e-3, (200, 150)
+    basic = scenes["basic"]
+    from rt_tpu_torch import diff
+
+    p0 = diff.extract_params(basic)
+    tgt_s = torch.zeros((150, 200, 3), device="cuda")
+    kw = dict(seed=17, spp=2, max_bounces=4, device="cuda")
+    _, g_small = BG.bw_mse_loss_and_grad(p0, basic, tgt_s, small, **kw)
+    fd_losses = []
+    for sign in (1, -1):
+        p = dict(p0)
+        p[name] = p0[name].clone()
+        p[name][0] += sign * eps
+        fd_losses.append(float(BG.bw_mse_loss_and_grad(p, basic, tgt_s, small, **kw)[0]))
+    read("blockwise gradient check (200x150 2spp d4)", blockwise_kernel=6, bw_grad_kernel=6)
+    fd = (fd_losses[0] - fd_losses[1]) / (2 * eps)
+    an = float(g_small[name][0])
+    grad_ok = abs(an - fd) <= max(2e-2 * abs(fd), 1e-4)
+    log(f"[4] blockwise grad check: analytic {an:.6g}, central FD {fd:.6g}: grad_ok={grad_ok}")
+    check(grad_ok, "the blockwise gradient disagrees with finite differences")
+    out.update(grad_ok=grad_ok, grad_an=an, grad_fd=fd)
+    report["bw_main_path"] = dict(out, launches=total)
+    return total, step, params
+
+
+def blockwise_timing(scenes, step, params, card, report):
+    """Phase 5 for the blockwise kernels and the config-4 train step.
+    Returns per-kernel timing rows for the kernels' JSON line."""
+    import torch
+    from rt_tpu_torch import profiling
+    from rt_tpu_torch.ops import blockwise as BW
+    from rt_tpu_torch.ops import blockwise_grad as BG
+    from rt_tpu_torch.ops import grad as G
+    from rt_tpu_torch.ops import render as R
+
+    scene, size = scenes["proc500"], (320, 180)
+    w, h = size
+    n = w * h
+    sp, pl, bx, counts = bw_tables(scene, "mg")
+    ns, npl = counts[:2]
+    cam = torch.from_numpy(R._pack_camera(scene.camera, size)).cuda()
+    seeds = torch.tensor([11], dtype=torch.int32, device="cuda")
+    kw = dict(size=size, spp=4, max_bounces=8, center_sample=True)
+    fk = profiling.sustained(lambda i: BW.render_blockwise_tile(sp, pl, bx, counts, cam, seeds,
+                                                                **kw), iters=16)
+    # one timed call (plus the untimed first): the plain version takes seconds here
+    fp = profiling.sustained(lambda i: BW.render_blockwise_tile_plain(sp, pl, bx, counts, cam,
+                                                                      seeds, **kw),
+                             iters=1, windows=1, warmup_windows=0)
+    r_args = card_tables(scene, "mg", size)[:3]
+    fr = profiling.sustained(lambda i: R.render_tile(*r_args, cam, seeds, **kw), iters=16)
+    f_work = live_work(sp[:ns, :10], pl[:npl, :10], cam, [11] * 4,
+                       [s * (2 + 4 * 8) for s in range(4)], [True, False, False, False], size, 8,
+                       "reference")
+    table_bytes = 4 * 16 * (ns + npl)
+    f_bound = bound(table_bytes + 4 * (16 + 1 + 3 * n), forward_ops(f_work, ns, npl))
+    fwd = {"ms": fk["median"] * 1e3, "spread_ms": [fk["min"] * 1e3, fk["max"] * 1e3],
+           "plain_ms": fp["median"] * 1e3, "render_kernel_ms": fr["median"] * 1e3,
+           "bound_ms": f_bound[0], "bound_by": f_bound[1], "live_work": f_work}
+
+    # the gradient kernel on the same inputs, one sample (not the centre one)
+    cot = torch.full((h, w, 3), 1e-6, device="cuda")
+    gkw = dict(size=size, max_bounces=8, center_sample=False)
+    gk = profiling.sustained(lambda i: BG.bw_grad_tile(sp, pl, counts[:2], cam, seeds, cot,
+                                                       **gkw), iters=16)
+    gp = profiling.sustained(lambda i: BG.bw_grad_tile_plain(sp, pl, counts[:2], cam, seeds, cot,
+                                                             **gkw), iters=1, windows=3)
+    sp10, pl10 = sp[:ns, :10].contiguous(), pl[:npl, :10].contiguous()
+    gs = profiling.sustained(lambda i: G.grad_tile(sp10, pl10, cam, seeds, cot, **gkw), iters=16)
+    g_work = live_work(sp10, pl10, cam, [11], [0], [False], size, 8, "reference")
+    g_bound = bound(table_bytes + 4 * (16 + 1 + 3 * n) + 4 * (9 * ns + 5 * npl + 16),
+                    forward_ops(g_work, ns, npl) + reverse_ops(g_work))
+    grad = {"ms": gk["median"] * 1e3, "spread_ms": [gk["min"] * 1e3, gk["max"] * 1e3],
+            "plain_ms": gp["median"] * 1e3, "grad_kernel_ms": gs["median"] * 1e3,
+            "bound_ms": g_bound[0], "bound_by": g_bound[1], "live_work": g_work,
+            "stash_bytes_1080p_d8": 4 * 8 * 10 * 1920 * 1080}
+
+    # the 1000-sphere frame the CLI renders, through the entry point (which
+    # flattens and uploads the tables on every call, as JAX's does)
+    big, big_size = scenes["proc1000"], (1920, 1080)
+    serve = lambda i: BW.render_forward_blockwise(big, big_size, seed=i, spp=8, max_bounces=8,
+                                                  device="cuda")
+    sv = profiling.sustained(serve, iters=2, windows=3)
+    dv = profiling.device_times(serve, iters=2)
+    serve_row = {
+        "frame_ms": sv["median"] * 1e3, "frame_spread_ms": [sv["min"] * 1e3, sv["max"] * 1e3],
+        "mrays_s": profiling.mrays_per_sec(big_size, 8, sv["median"]),
+        "frame_device_ms": dv,
+        "kernel_device_ms": sum(v for e, v in dv.items() if "blockwise_kernel" in e),
+        "frame_busy_share": sum(dv.values()) / (sv["median"] * 1e3),
+    }
+
+    # the config-4 train step (it keeps training the params)
+    st = profiling.sustained(lambda i: step(params, 100 + i), iters=2, windows=3)
+    dt = profiling.device_times(lambda i: step(params, 200 + i), iters=2)
+    t_size, t_spp = (1920, 1080), 16
+    train_row = {
+        "step_ms": st["median"] * 1e3, "step_spread_ms": [st["min"] * 1e3, st["max"] * 1e3],
+        "fwd_bwd_mrays_s": profiling.mrays_per_sec(t_size, t_spp, st["median"]),
+        "step_device_ms": dt,
+        "kernel_device_ms": {k: sum(v for e, v in dt.items() if k in e)
+                             for k in ("blockwise_kernel", "bw_grad_kernel")},
+        "step_busy_share": sum(dt.values()) / (st["median"] * 1e3),
+    }
+    report["bw_timing"] = {"blockwise_kernel": fwd, "bw_grad_kernel": grad,
+                           "serve_1000_1920x1080_8spp_d8": serve_row,
+                           "config4_train_step": train_row}
+    log(f"[5] blockwise_kernel proc500 320x180 4spp d8: kernel {fwd['ms']:.4f} ms (render kernel "
+        f"on the same inputs {fwd['render_kernel_ms']:.4f} ms), plain {fwd['plain_ms']:.1f} ms, "
+        f"bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']}) | {card}")
+    log(f"[5] bw_grad_kernel proc500 320x180 1 sample d8: kernel {grad['ms']:.4f} ms (per-sample "
+        f"kernel on the same inputs {grad['grad_kernel_ms']:.4f} ms), plain "
+        f"{grad['plain_ms']:.1f} ms, bound {grad['bound_ms']:.4f} ms ({grad['bound_by']}) | {card}")
+    log(f"[5] 1000-sphere frame 1920x1080 8spp d8 (render_forward_blockwise): "
+        f"{serve_row['frame_ms']:.2f} ms = {serve_row['mrays_s']:.1f} Mrays/s (kernel "
+        f"{serve_row['kernel_device_ms']:.2f} ms of device time, device busy "
+        f"{serve_row['frame_busy_share']:.3f}) | {card}")
+    log(f"[5] config-4 train step (500 spheres 1920x1080 16spp d8, Adam): "
+        f"{train_row['step_ms']:.2f} ms = {train_row['fwd_bwd_mrays_s']:.1f} Mrays/s fwd+bwd; "
+        f"device ms per step {train_row['kernel_device_ms']}, device busy "
+        f"{train_row['step_busy_share']:.3f} | {card}")
+    return {"blockwise_kernel": fwd, "bw_grad_kernel": grad}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -556,6 +915,7 @@ def main() -> int:
             + "\nboxes = [ { material = 2, position = [-1, 0.5, 0.3], "
               "extents = [0.3, 0.5, 0.3] } ]\n"),
         "proc500": rt_tpu_torch.scene.make_procedural_scene(500),
+        "proc1000": rt_tpu_torch.scene.make_procedural_scene(1000),
     }
 
     def tile_args(scene, personality, size, include_boxes=False, seed=11):
@@ -593,6 +953,7 @@ def main() -> int:
         max_err = max(max_err, row["max_abs"])
     scenes["cornell"] = rt_tpu_torch.load(str(ROOT / "scenes" / "cornell_spheres.toml"))
     grad_errs = grad_parity(scenes, report)
+    bw_errs = blockwise_parity(scenes, report)
 
     # ---- 4. main path through the entry points ----
     with tempfile.TemporaryDirectory() as tmp:
@@ -624,6 +985,7 @@ def main() -> int:
         report["main_path"] = {"cli_rc": rc, "launches": launches,
                                "config4_mean": frame4.mean().item()}
     grad_launches, step_mse, step_c3 = grad_main_paths(scenes, report)
+    bw_launches, step_bw, params_bw = blockwise_main_paths(scenes, report)
 
     # ---- 5. timing (CUDA events; device time by kernel from the profiler) ----
     size = (800, 600)
@@ -680,6 +1042,7 @@ def main() -> int:
     log(f"[5] render_kernel bound {r_bound[0]:.4f} ms ({r_bound[1]}); live bounces "
         f"{r_work['live']} of {r_work['rays'] * 8}, warp slots {r_work['warp_live']} | {card}")
     g_rows = grad_timing(scenes, step_mse, step_c3, card, report)
+    bw_rows = blockwise_timing(scenes, step_bw, params_bw, card, report)
 
     check("jax" not in sys.modules and "rt_tpu" not in sys.modules, "JAX was imported")
     log("[report] " + json.dumps(report))
@@ -704,6 +1067,15 @@ def main() -> int:
             "name": name, "route": "cuda", "source": "rt_tpu_torch/csrc/grad_kernel.cu",
             "replaces": replaces, "launches": grad_launches[name],
             "max_abs_err": grad_errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+        })
+    for name, replaces in (("blockwise_kernel", "rt_tpu/ops/pallas_blockwise.py:1073"),
+                           ("bw_grad_kernel", "rt_tpu/ops/pallas_blockwise_grad.py:92")):
+        row = bw_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"rt_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": bw_launches[name],
+            "max_abs_err": bw_errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
         })
     log(json.dumps({"kernels": kernels}))

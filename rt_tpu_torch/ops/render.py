@@ -517,34 +517,43 @@ def _frame_renderer(scene, size, *, personality, spp, max_bounces, gamma, rng_mo
     if not supported(scene, include_boxes):
         raise ValueError(
             "scene exceeds the megakernel's limits "
-            f"({MAX_UNROLL_PRIMS} primitives); the blockwise and wavefront "
-            "routes are not ported yet")
+            f"({MAX_UNROLL_PRIMS} primitives); larger scenes take the blockwise "
+            "route (ops.blockwise.render_forward_blockwise)")
     dev = _device(device)
     w, h = size
     spp = scene.samples_per_pixel if spp is None else spp
     max_bounces = scene.max_bounces if max_bounces is None else max_bounces
-    chunks = [min(_SPP_CHUNK, spp - s) for s in range(0, spp, _SPP_CHUNK)]
 
     s_cols, p_cols = _flatten_primitives(scene, personality)
     b_cols = (_flatten_boxes(scene, personality) if include_boxes
               else np.zeros((12, 0), np.float32))
     spheres, planes, boxes = (_upload(c.T, dev) for c in (s_cols, p_cols, b_cols))
-    scale = float(np.float32(1.0 / spp))
+
+    def launch(cam, seeds, k, center):
+        return render_tile(spheres, planes, boxes, cam, seeds, size=(w, h), spp=k,
+                           max_bounces=max_bounces, center_sample=center, rng_mode=rng_mode)
 
     def run(cam: torch.Tensor, seed: int) -> torch.Tensor:
-        seeds = _upload(_chunk_seeds(seed, len(chunks), frames), dev)
-        total = None
-        for ci, k in enumerate(chunks):
-            out = render_tile(spheres, planes, boxes, cam, seeds[ci], size=(w, h), spp=k,
-                              max_bounces=max_bounces,
-                              center_sample=(ci == 0), rng_mode=rng_mode)
-            total = out if total is None else total + out
-        img = total * scale
-        if gamma:
-            img = torch.sqrt(torch.clamp_min(img, 0.0))
-        return img
+        return _chunked_frame(launch, cam, seed, spp, frames, gamma, dev)
 
     return run, dev
+
+
+def _chunked_frame(launch, cam, seed: int, spp: int, frames: int, gamma: bool, dev):
+    """The frame of ``spp`` samples from calls of at most ``_SPP_CHUNK``
+    samples, ``launch(cam, seeds, k, center_sample) -> sum of k samples``:
+    chunk seeds from :func:`_chunk_seeds` (uploaded in one copy), the chunk
+    sums added in chunk order, times float32(1/spp), then gamma (sqrt)."""
+    chunks = [min(_SPP_CHUNK, spp - s) for s in range(0, spp, _SPP_CHUNK)]
+    seeds = _upload(_chunk_seeds(seed, len(chunks), frames), dev)
+    total = None
+    for ci, k in enumerate(chunks):
+        out = launch(cam, seeds[ci], k, ci == 0)
+        total = out if total is None else total + out
+    img = total * float(np.float32(1.0 / spp))
+    if gamma:
+        img = torch.sqrt(torch.clamp_min(img, 0.0))
+    return img
 
 
 def render_forward(

@@ -13,14 +13,16 @@ package's names so that each maps one to one onto its counterpart:
 
 * ``mg_pallas`` / ``sm_pallas`` — the forward megakernel
   (:func:`rt_tpu_torch.ops.render.render_forward`);
-* ``mg_auto`` / ``sm_auto`` — :func:`auto_route`, which today can only
-  pick that megakernel.
+* ``mg_blockwise`` / ``sm_blockwise`` — the blockwise kernel, runtime
+  tables of up to 16384 primitives
+  (:func:`rt_tpu_torch.ops.blockwise.render_forward_blockwise`);
+* ``mg_auto`` / ``sm_auto`` — :func:`auto_route` picks one of the two.
 
 The names keep "pallas" although nothing here is Pallas: on CUDA they run
-the hand-written CUDA kernel, and with ``device="cpu"`` its plain PyTorch
-version.  The jnp integrator (``mg_ray_tracer``, ``sm_ray_tracer``), the
-rasterizer, the null renderer and the blockwise and wavefront routes are
-not ported yet (ROADMAP.md, queue 1).
+the hand-written CUDA kernels, and with ``device="cpu"`` their plain
+PyTorch versions.  The jnp integrator (``mg_ray_tracer``,
+``sm_ray_tracer``), the rasterizer, the null renderer and the wavefront
+route are not ported yet (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -92,9 +94,8 @@ def create(name: str) -> Callable:
     return d.create()
 
 
-# the JAX package's routing limits (pallas_blockwise.MAX_BLOCKWISE_PRIMS and
-# the wavefront crossover in rt_tpu.renderer.auto_route)
-_MAX_BLOCKWISE_PRIMS = 16384
+# the JAX package's forward crossover to the wavefront route, in padded
+# sphere rows (rt_tpu.renderer.auto_route)
 _WAVEFRONT_MIN_BUCKET = 2048
 
 
@@ -102,29 +103,36 @@ def auto_route(scene, platform: str, include_boxes: bool = False) -> str:
     """The forward route for ``mg_auto``/``sm_auto`` on ``platform``
     ("cuda" or "cpu").
 
-    Returns "pallas" (the megakernel) for every scene it supports.  Any
-    other scene would take a route that is not ported yet — blockwise,
-    wavefront or the jnp integrator, chosen as the JAX package chooses —
-    and raises ``NotImplementedError`` naming it; such a scene is never
-    rendered on the CPU instead.  Unlike the JAX version, which returns
-    ``(route, warning)``, this returns the route alone: no route here
-    falls back with a warning.
+    Returns "pallas" (the megakernel) or "blockwise" exactly where the JAX
+    package does on an accelerator: the megakernel up to its 640
+    primitives, then the blockwise kernel up to 16384 while the sphere
+    table pads to fewer than 2048 rows.  Any other scene would take a route
+    that is not ported yet — wavefront or the jnp integrator — and raises
+    ``NotImplementedError`` naming it; such a scene is never rendered
+    another way instead.  The route does not depend on ``platform``: on
+    the CPU the same route runs its kernel's plain version.  Unlike the JAX
+    version, which returns ``(route, warning)``, this returns the route
+    alone: no route here falls back with a warning.
     """
     if platform not in ("cuda", "cpu"):
         raise ValueError(f"unknown platform {platform!r}")
-    from .ops.render import MAX_UNROLL_PRIMS, supported
+    from .ops.blockwise import MAX_BLOCKWISE_PRIMS, _bucket, blockwise_supported
+    from .ops.render import supported
 
     if supported(scene, include_boxes):
         return "pallas"
     n = scene.spheres.count + scene.planes.count + (scene.boxes.count if include_boxes else 0)
-    if n > _MAX_BLOCKWISE_PRIMS:
-        missing = "jnp integrator"
+    bucket = _bucket(scene.spheres.count)
+    if not blockwise_supported(scene, include_boxes):
+        missing, why = "jnp integrator", f"> {MAX_BLOCKWISE_PRIMS} primitives"
+    elif bucket >= _WAVEFRONT_MIN_BUCKET:
+        # wavefront_supported is blockwise_supported
+        missing, why = "wavefront", f"a sphere table of {bucket} rows"
     else:
-        bucket = 128 if scene.spheres.count <= 128 else -(-scene.spheres.count // 512) * 512
-        missing = "wavefront" if bucket >= _WAVEFRONT_MIN_BUCKET else "blockwise"
+        return "blockwise"
     raise NotImplementedError(
-        f"auto renderer: a scene of {n} primitives (> {MAX_UNROLL_PRIMS}) needs the "
-        f"{missing} route, which is not ported to {platform} yet")
+        f"auto renderer: a scene of {n} primitives ({why}) needs the {missing} route, "
+        f"which is not ported to {platform} yet")
 
 
 def _install_builtins() -> None:
@@ -137,16 +145,29 @@ def _install_builtins() -> None:
             return render
         return factory
 
+    def _blockwise(personality):
+        def factory():
+            def render(scene, size, *, seed: int = 0, **opts):
+                from .ops.blockwise import render_forward_blockwise
+
+                return render_forward_blockwise(scene, size, seed=seed, personality=personality,
+                                                **opts)
+            return render
+        return factory
+
     def _auto(personality):
         def factory():
             def render(scene, size, *, seed: int = 0, device="cuda", **opts):
                 import torch
 
+                from .ops.blockwise import render_forward_blockwise
                 from .ops.render import render_forward
 
-                auto_route(scene, torch.device(device).type, opts.get("include_boxes", False))
-                return render_forward(scene, size, seed=seed, personality=personality,
-                                      device=device, **opts)
+                route = auto_route(scene, torch.device(device).type,
+                                   opts.get("include_boxes", False))
+                fwd = render_forward if route == "pallas" else render_forward_blockwise
+                return fwd(scene, size, seed=seed, personality=personality, device=device,
+                           **opts)
             return render
         return factory
 
@@ -154,6 +175,8 @@ def _install_builtins() -> None:
     # cycles through renderers in registry order)
     register_renderer("mg_pallas", _pallas("mg"))
     register_renderer("sm_pallas", _pallas("sm"))
+    register_renderer("mg_blockwise", _blockwise("mg"))
+    register_renderer("sm_blockwise", _blockwise("sm"))
     register_renderer("mg_auto", _auto("mg"))
     register_renderer("sm_auto", _auto("sm"))
 

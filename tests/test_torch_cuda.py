@@ -181,3 +181,102 @@ def test_make_mse_step_launches(cuda):
     for g in (grads, grads64):
         assert set(g) == set(params) and all(torch.isfinite(v).all() for v in g.values())
     assert torch.isfinite(loss) and torch.isfinite(loss64)
+
+
+def _bw_tables(cuda, scene, personality, include_boxes=False):
+    from rt_tpu_torch.ops import blockwise as tb
+
+    return tb._device_tables(scene, personality, include_boxes, cuda)
+
+
+@pytest.mark.parametrize("name,personality,include_boxes,rng_mode", [
+    ("basic.toml", "mg", False, "reference"),
+    ("cornell_spheres.toml", "sm", False, "sphere"),
+    ("box", "mg", True, "reference"),
+    ("proc700", "mg", False, "reference"),
+])
+def test_blockwise_kernel_matches_plain(cuda, name, personality, include_boxes, rng_mode):
+    from rt_tpu_torch.ops import blockwise as tb
+
+    scene = (rt_tpu_torch.scene.make_procedural_scene(700) if name == "proc700"
+             else _scene(name))
+    sp, pl, bx, counts = _bw_tables(cuda, scene, personality, include_boxes)
+    size = (48, 32)
+    cam = torch.from_numpy(tr._pack_camera(scene.camera, size)).to(cuda)
+    seeds = torch.tensor([-9], dtype=torch.int32, device=cuda)
+    kw = dict(size=size, spp=3, max_bounces=5, center_sample=True, rng_mode=rng_mode)
+    before = tb.render_blockwise_tile.launches
+    got = tb.render_blockwise_tile(sp, pl, bx, counts, cam, seeds, **kw)
+    assert tb.render_blockwise_tile.launches == before + 1
+    want = tb.render_blockwise_tile_plain(sp, pl, bx, counts, cam, seeds, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (32, 48, 3) and torch.isfinite(got).all()
+    # the render kernel's per-pixel code (csrc/trace.cuh) with --fmad=false:
+    # bit for bit, as the render kernel
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("name,personality,center", [
+    ("cornell_spheres.toml", "sm", True),
+    ("proc700", "mg", False),
+])
+def test_bw_grad_kernel_matches_plain(cuda, name, personality, center):
+    from rt_tpu_torch.ops import blockwise_grad as tbg
+
+    scene = (rt_tpu_torch.scene.make_procedural_scene(700) if name == "proc700"
+             else _scene(name))
+    sp, pl, _, counts = _bw_tables(cuda, scene, personality)
+    size = (48, 32)
+    cam = torch.from_numpy(tr._pack_camera(scene.camera, size)).to(cuda)
+    cot = torch.from_numpy(np.random.default_rng(4).uniform(0, 1e-4, (32, 48, 3))
+                           .astype(np.float32)).to(cuda)
+    seeds = torch.tensor([77], dtype=torch.int32, device=cuda)
+    kw = dict(size=size, max_bounces=6, center_sample=center)
+    before = tbg.bw_grad_tile.launches
+    got = tbg.bw_grad_tile(sp, pl, counts[:2], cam, seeds, cot, **kw)
+    assert tbg.bw_grad_tile.launches == before + 1
+    twice = tbg.bw_grad_tile(sp, pl, counts[:2], cam, seeds, cot, out=tuple(g.clone() for g in got),
+                             **kw)
+    want, l1 = tbg.bw_grad_tile_plain(sp, pl, counts[:2], cam, seeds, cot, with_l1=True, **kw)
+    torch.cuda.synchronize()
+    # per-row gradients are added with global atomics: within 1e-5 x L1
+    _assert_within_l1(got, want, l1)
+    _assert_within_l1(twice, [2 * w_ for w_ in want], [2 * l for l in l1])
+
+
+def test_blockwise_entry_points_launch_the_kernels(cuda):
+    """The 1000-sphere scene takes the blockwise route (one forward launch
+    per 4-sample chunk); the blockwise step launches the forward and the
+    gradient kernel once per sample; the train step does the same and
+    updates the params in place."""
+    from rt_tpu_torch import renderer as treg
+    from rt_tpu_torch import train as ttrain
+    from rt_tpu_torch.ops import blockwise as tb
+    from rt_tpu_torch.ops import blockwise_grad as tbg
+
+    big = rt_tpu_torch.scene.make_procedural_scene(1000)
+    assert treg.auto_route(big, "cuda") == "blockwise"
+    counts = lambda: (tb.render_blockwise_tile.launches, tbg.bw_grad_tile.launches)
+    before = counts()
+    img = treg.create("mg_auto")(big, (40, 30), spp=6, max_bounces=4, device=cuda)
+    assert counts() == (before[0] + 2, before[1])
+    assert img.shape == (30, 40, 3) and torch.isfinite(img).all()
+    assert_frames_close(img.cpu(), tb.render_forward_blockwise(big, (40, 30), spp=6, max_bounces=4,
+                                                               device="cpu"))
+    scene = rt_tpu_torch.scene.make_procedural_scene(200)
+    target = tb.render_forward_blockwise(scene, (40, 30), seed=3, spp=2, max_bounces=4,
+                                         gamma=False, device=cuda)
+    params = {"materials.albedo": torch.full_like(scene.materials.albedo, 0.5).to(cuda)}
+    before = counts()
+    loss, grads = tbg.bw_mse_loss_and_grad(params, scene, target, (40, 30), spp=3,
+                                           max_bounces=4, device=cuda)
+    assert counts() == (before[0] + 3, before[1] + 3)
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads.values())
+    opt = torch.optim.Adam(list(params.values()), lr=5e-2, foreach=True)
+    step = ttrain.make_kernel_train_step(opt, scene, target, (40, 30), spp=3, max_bounces=4,
+                                         device=cuda)
+    start = params["materials.albedo"].clone()
+    before = counts()
+    losses = [float(step(params, i)) for i in range(4)]
+    assert counts() == (before[0] + 12, before[1] + 12)
+    assert not torch.equal(params["materials.albedo"], start) and losses[-1] < losses[0]

@@ -194,7 +194,8 @@ def test_warn_once(capsys):
 
 
 def test_import_needs_no_jax():
-    code = ("import sys, rt_tpu_torch, rt_tpu_torch.cli, rt_tpu_torch.ops.render; "
+    code = ("import sys, rt_tpu_torch, rt_tpu_torch.cli, rt_tpu_torch.ops.render, "
+            "rt_tpu_torch.ops.blockwise_grad, rt_tpu_torch.train; "
             "assert 'jax' not in sys.modules and 'rt_tpu' not in sys.modules; "
             "assert 'triton' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120,
@@ -202,27 +203,33 @@ def test_import_needs_no_jax():
 
 
 def test_registry_and_auto_route():
-    assert [d.name for d in treg.all_renderers()] == ["mg_pallas", "sm_pallas", "mg_auto",
-                                                      "sm_auto"]
+    assert [d.name for d in treg.all_renderers()] == ["mg_pallas", "sm_pallas", "mg_blockwise",
+                                                      "sm_blockwise", "mg_auto", "sm_auto"]
     assert treg.find_by_name_fuzzy("mg_a").name == "mg_auto"
+    assert treg.find_by_name_fuzzy("sm").name == "sm_pallas"
     with pytest.raises(KeyError):
         treg.create("mg_ray_tracer")
     basic = rt_tpu_torch.load(str(SCENES / "basic.toml"))
     assert treg.auto_route(basic, "cuda") == "pallas"
     assert treg.auto_route(basic, "cpu") == "pallas"
-    for n, route in ((700, "blockwise"), (5000, "wavefront")):
-        big = rt_tpu_torch.scene.make_procedural_scene(n)
-        with pytest.raises(NotImplementedError, match=route):
-            treg.auto_route(big, "cuda")
-        with pytest.raises(NotImplementedError, match=route):
-            treg.create("mg_auto")(big, (8, 8), spp=1, max_bounces=1, device="cpu")
+    big = rt_tpu_torch.scene.make_procedural_scene(700)
+    assert treg.auto_route(big, "cuda") == "blockwise"
+    img = treg.create("mg_auto")(big, (8, 8), seed=1, spp=1, max_bounces=1, device="cpu")
+    assert torch.equal(img, treg.create("mg_blockwise")(big, (8, 8), seed=1, spp=1,
+                                                        max_bounces=1, device="cpu"))
+    huge = rt_tpu_torch.scene.make_procedural_scene(5000)
+    with pytest.raises(NotImplementedError, match="wavefront"):
+        treg.auto_route(huge, "cuda")
+    with pytest.raises(NotImplementedError, match="wavefront"):
+        treg.create("mg_auto")(huge, (8, 8), spp=1, max_bounces=1, device="cpu")
     img = treg.create("sm_pallas")(basic, (8, 6), seed=2, spp=1, max_bounces=2, device="cpu")
     assert img.shape == (6, 8, 3)
 
 
 def test_cli(tmp_path, capsys):
     assert main(["--list"]) == 0
-    assert capsys.readouterr().out.split() == ["mg_pallas", "sm_pallas", "mg_auto", "sm_auto"]
+    assert capsys.readouterr().out.split() == ["mg_pallas", "sm_pallas", "mg_blockwise",
+                                               "sm_blockwise", "mg_auto", "sm_auto"]
     out = tmp_path / "img.png"
     rc = main(["--scene", str(SCENES / "dielectric.toml"), "--renderer", "sm", "--size", "12x8",
                "--spp", "1", "--bounces", "2", "--device", "cpu", "--out", str(out)])
