@@ -31,7 +31,16 @@ Phases (an exception in any phase exits non-zero before the result line):
    within 1e-5 x L1 with the run-to-run spread: 500 spheres at 320x180 and
    at 1920x1080 (a train-step launch), cornell (sm) at 160x120; and the
    blockwise step against make_mse_step(mode="multi") on basic.toml at the
-   same seeds.
+   same seeds.  Wavefront kernels, depth 8: every launch of a sample chunk
+   (gen, then bounces 1-7 with the compaction sorts and the live-prefix
+   limit), in plain and record mode, bit for bit with wf_bounce_plain on
+   basic.toml (mg), cornell_spheres.toml (sm) and basic+box (--boxes) at
+   320x240 2 spp and 2000 spheres (past 1536) at 160x90 2 spp, each chunk
+   equal to the blockwise kernel's; every reverse launch of the cornell and
+   2000-sphere chunks within 1e-5 x L1 of wf_rev_plain, with the
+   run-to-run spread; and at the main path's shape, one 1-spp chunk of
+   BASELINE config 5's slice (5000 spheres, 960x540), both kernels against
+   their plain versions (the plain times are printed).
 4. Main paths through the entry points, each with the launch counters
    reset just before and read just after: the CLI renders basic.toml to a
    PNG and make_render_step renders BASELINE config 4's shape (500
@@ -50,7 +59,16 @@ Phases (an exception in any phase exits non-zero before the result line):
    on materials.albedo at lr 5e-2 as in examples/big_scene_training.py:
    the loss must fall, each step must launch 16 forward and 16 gradient
    kernels, copy nothing to the card but the seeds and build nothing; and
-   bench.py's gradient check through bw_mse_loss_and_grad.
+   bench.py's gradient check through bw_mse_loss_and_grad.  The wavefront
+   route, on BASELINE config 5's slice (5000 spheres, 960x540, 2 spp,
+   depth 8): the CLI (mg_auto) renders it with 8 wavefront launches, equal
+   to render_forward_blockwise's frame at the same seed (torch.equal); the
+   wavefront step at 1 spp and seed S*100003 against the blockwise step at
+   seed S (matched draws): equal loss, gradients within 2e-4 x max|g|; 6
+   steps of train.make_kernel_train_step (Adam on materials.albedo at lr
+   5e-2 from 0.5, the target rendered at the true albedo): the loss must
+   fall, each step must launch 8 forward and 8 reverse kernels, copy
+   nothing to the card but the chunk seeds and build nothing.
 5. Timing: CUDA events around back-to-back calls
    (rt_tpu_torch.profiling.sustained) for every kernel, its plain version,
    make_render_step and make_mse_step (fwd+bwd Mrays/s), the step over the
@@ -59,6 +77,10 @@ Phases (an exception in any phase exits non-zero before the result line):
    the render and per-sample kernels on the same 500-sphere inputs) and
    the config-4 train step, and a profiler trace (profiling.device_times)
    for the kernels' device time and the card's busy share within a step.
+   The wavefront kernels per launch on the 1-spp config-5 chunk (CUPTI
+   device time), and the config-5 slice's frame and train step each beside
+   the blockwise route's in 5 interleaved windows (and the frame with a
+   sort before every bounce, which must be the same frame).
    Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
    FP32 operations over 33.5 Top/s, the operations counted from the kernel
    sources (OPS below) times the live bounces of this run's inputs (the
@@ -82,7 +104,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-KERNEL_SOURCES = ("render_kernel", "grad_kernel", "blockwise_kernel", "bw_grad_kernel")
+KERNEL_SOURCES = ("render_kernel", "grad_kernel", "blockwise_kernel", "bw_grad_kernel",
+                  "wavefront_kernel", "wf_grad_kernel")
 
 # Render kernel vs plain version on the card: the tolerance is zero.  The kernel is
 # built with --fmad=false and writes rsqrt as 1/sqrtf, and the plain version
@@ -868,6 +891,459 @@ def blockwise_timing(scenes, step, params, card, report):
     return {"blockwise_kernel": fwd, "bw_grad_kernel": grad}
 
 
+# ---- the wavefront route (queue 2 rows 8 and 9) ----
+
+# BASELINE config 5's slice (5000 spheres; BASELINE.md, the round-4 and round-5 tables)
+WF_SLICE = dict(size=(960, 540), spp=2, max_bounces=8)
+
+
+def wf_checked_chunk(tables, cam, seeds, size, spp, depth, record):
+    """One sample chunk through the wavefront kernel (gen, then the later
+    bounces with the sorts and the live-prefix limit), every launch held bit
+    for bit against wf_bounce_plain on a copy of its input.  Returns
+    (state, ids, saved, plain seconds, max |kernel - plain| over the
+    launches' states)."""
+    import torch
+    from rt_tpu_torch.ops import wavefront as WF
+
+    sp, pl, bx, counts = tables
+    kw = dict(size=size, max_bounces=depth, center_sample=True, record=record)
+    plain_s = [0.0]
+    worst = [0.0]
+
+    def launch(b, state, ids, limit):
+        st, ii = state.clone(), ids.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = WF.wf_bounce_plain(sp, pl, bx, counts, cam, seeds, st, ii, limit, bounce=b, **kw)
+        torch.cuda.synchronize()
+        plain_s[0] += time.perf_counter() - t0
+        got = WF.wf_bounce(sp, pl, bx, counts, cam, seeds, state, ids, limit, bounce=b, **kw)
+        torch.cuda.synchronize()
+        err = (state - st).abs().max().item()
+        worst[0] = max(worst[0], err)
+        if not (torch.equal(state, st) and torch.equal(ids, ii)):
+            check(False, f"wf_bounce bounce {b}: state differs from the plain version by "
+                         f"{err:.3g}")
+        check(not record or torch.equal(got, want), f"wf_bounce bounce {b}: winner words differ")
+        return got
+
+    sched, shrink = WF._schedule(depth, None, -1)
+    state, ids, saved = WF._forward_chunk(launch, size[0] * size[1] * spp, cam.device,
+                                          max_bounces=depth, sched=sched, shrink_at=shrink,
+                                          cell_bits=2, record=record)
+    return state, ids, saved, plain_s[0], worst[0]
+
+
+def wf_rev_checked(tables, cam, seeds, size, depth, saved, cot_pix, label, report):
+    """Every reverse launch of a recorded chunk against wf_rev_plain on the
+    same inputs, the kernel twice (run-to-run spread).  Returns (max |d|,
+    plain seconds)."""
+    import torch
+    from rt_tpu_torch.ops import wavefront_grad as WG
+
+    sp, pl, _, counts = tables
+    n = saved[0][2].shape[0]
+    cot = torch.zeros((9, n), device="cuda")
+    kw = dict(size=size, max_bounces=depth, center_sample=True)
+    worst = {"max_abs": 0.0, "max_ratio_l1": 0.0, "run_to_run_ratio_l1": 0.0, "cot_ratio": 0.0}
+    plain_s = 0.0
+    for b in reversed(range(depth)):
+        state, ids, words, limit = saved[b]
+        c1, c2, cp = cot.clone(), cot.clone(), cot.clone()
+        got = WG.wf_rev(sp, pl, counts[:2], cam, seeds, state, ids, words, limit, c1, cot_pix,
+                        bounce=b, **kw)
+        again = WG.wf_rev(sp, pl, counts[:2], cam, seeds, state, ids, words, limit, c2, cot_pix,
+                          bounce=b, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, l1 = WG.wf_rev_plain(sp, pl, counts[:2], cam, seeds, state, ids, words, limit, cp,
+                                   cot_pix, bounce=b, with_l1=True, **kw)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        outs = [(g, a, w_, l) for g, a, w_, l in zip(got, again, want, l1) if g.numel()]
+        for g, a, w_, l in outs:
+            check(torch.isfinite(g).all().item(), f"wf_rev {label} bounce {b}: not finite")
+            check(((g - w_).abs() <= GRAD_TOL * l).all().item(),
+                  f"wf_rev {label} bounce {b}: differs from its plain version beyond "
+                  f"{GRAD_TOL} x L1")
+        cot_ratio = ((c1 - cp).abs().max() / cp.abs().max().clamp_min(1e-30)).item()
+        check(cot_ratio <= GRAD_TOL, f"wf_rev {label} bounce {b}: cotangents differ "
+                                     f"({cot_ratio:.3g} of their largest)")
+        worst["max_abs"] = max(worst["max_abs"], max((g - w_).abs().max().item()
+                                                     for g, a, w_, l in outs))
+        worst["max_ratio_l1"] = max(worst["max_ratio_l1"], max(
+            ((g - w_).abs() / l.clamp_min(1e-30)).max().item() for g, a, w_, l in outs))
+        worst["run_to_run_ratio_l1"] = max(worst["run_to_run_ratio_l1"], max(
+            ((g - a).abs() / l.clamp_min(1e-30)).max().item() for g, a, w_, l in outs))
+        worst["cot_ratio"] = max(worst["cot_ratio"], cot_ratio)
+        cot = cp
+    report.setdefault("wf_rev_parity", []).append(dict(worst, case=label, size=size))
+    log(f"[3] wf_rev {label} {size[0]}x{size[1]} d{depth}: max|d| {worst['max_abs']:.3g}, max "
+        f"|d|/L1 {worst['max_ratio_l1']:.3g} (tolerance {GRAD_TOL}), run-to-run |d|/L1 "
+        f"{worst['run_to_run_ratio_l1']:.3g}, cotangents {worst['cot_ratio']:.3g} of their "
+        f"largest; plain {plain_s:.2f} s")
+    return worst["max_abs"], plain_s
+
+
+def wf_work(tables, saved):
+    """Live work of a recorded chunk, counted from its saved tables and
+    winner words (the keys of live_work): rays, live bounces, misses,
+    sphere and plane hits, hits per material class, and `rows`: the distinct
+    winner rows of each bounce, summed over the bounces."""
+    import torch
+    from rt_tpu_torch.ops.render import WORD_MISS, WORD_PLANE, WORD_ROW
+
+    sp, pl, _, counts = tables
+    n = saved[0][2].shape[0]
+    work = dict.fromkeys(("live", "miss", "sphere", "plane", "lambert", "metal", "dielectric",
+                          "rows"), 0)
+    work["rays"] = n
+    for state, ids, words, limit in saved:
+        live = (torch.ones(n, dtype=torch.bool, device=words.device) if state is None
+                else state[12] > 0)
+        w = words.long()
+        hit = live & ((w & WORD_MISS) == 0)
+        ispl = hit & ((w & WORD_PLANE) != 0)
+        row = w & WORD_ROW
+        cls = torch.where(ispl, pl[row.clamp(max=pl.shape[0] - 1), 9] if pl.shape[0] else 0.0,
+                          sp[row.clamp(max=sp.shape[0] - 1), 9])
+        work["rows"] += int(row[hit & ~ispl].unique().numel() + row[ispl].unique().numel())
+        for k, m in (("live", live), ("miss", live & ~hit), ("sphere", hit & ~ispl),
+                     ("plane", ispl), ("metal", hit & (cls == 1.0)),
+                     ("dielectric", hit & (cls == 2.0)),
+                     ("lambert", hit & (cls != 1.0) & (cls != 2.0))):
+            work[k] += int(m.sum())
+    return work
+
+
+def wavefront_parity(scenes, report):
+    """Phase 3 for the wavefront kernels.  Returns max |kernel - plain| per
+    kernel."""
+    import numpy as np
+    import torch
+    from rt_tpu_torch.ops import blockwise as BW
+    from rt_tpu_torch.ops import render as R
+    from rt_tpu_torch.ops import wavefront as WF
+
+    errs = {"wf_bounce": 0.0, "wf_rev": 0.0}
+    seeds = torch.tensor([11], dtype=torch.int32, device="cuda")
+    cases = [  # label, scene, personality, size, --boxes, reverse checked
+        ("basic/mg", "basic", "mg", (320, 240), False, False),
+        ("cornell_spheres/sm", "cornell", "sm", (320, 240), False, True),
+        ("basic+box/mg --boxes", "basic+box", "mg", (320, 240), True, False),
+        ("proc2000/mg", "proc2000", "mg", (160, 90), False, True),
+    ]
+    for label, key, pers, size, boxes, rev in cases:
+        tables = bw_tables(scenes[key], pers, boxes)
+        cam = torch.from_numpy(R._pack_camera(scenes[key].camera, size)).cuda()
+        for record in (False, True):
+            state, ids, saved, plain_s, err = wf_checked_chunk(tables, cam, seeds, size, 2, 8,
+                                                               record)
+            errs["wf_bounce"] = max(errs["wf_bounce"], err)
+            img = WF._assemble(state, ids, size[0] * size[1], 2).reshape(size[1], size[0], 3)
+            ref = BW.render_blockwise_tile(*tables, cam, seeds, size=size, spp=2, max_bounces=8,
+                                           center_sample=True)
+            torch.cuda.synchronize()
+            check(torch.equal(img, ref), f"wavefront {label}: the chunk is not the blockwise "
+                                         "kernel's")
+        log(f"[3] wf_bounce {label} {size[0]}x{size[1]} 2spp d8: gen, 7 bounces, plain and "
+            f"record modes bit for bit with the plain version (plain {plain_s:.2f} s per "
+            "chunk); chunk == blockwise kernel's")
+        report.setdefault("wf_parity", []).append({"case": label, "size": size,
+                                                   "plain_s": plain_s})
+        if rev:
+            n_pix = size[0] * size[1]
+            cot_pix = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (n_pix, 3))
+                                       .astype(np.float32)).cuda() * (2.0 / (3 * n_pix * 2))
+            err, _ = wf_rev_checked(tables, cam, seeds, size, 8, saved, cot_pix, label, report)
+            errs["wf_rev"] = max(errs["wf_rev"], err)
+    return errs
+
+
+def wavefront_main_shape(scenes, report, errs):
+    """Phase 3 at the main path's shape: the config-5 slice's one 2-spp
+    chunk (960x540x2 = 1,036,800 rays: the chunk that render_forward_wavefront
+    and the train step launch there) through both kernels, each launch
+    against its plain version; `errs` takes the largest differences.
+    Returns the per-launch timing inputs for phase 5."""
+    import numpy as np
+    import torch
+    from rt_tpu_torch.ops import render as R
+
+    scene, size = scenes["proc5000"], WF_SLICE["size"]
+    spp, depth = WF_SLICE["spp"], WF_SLICE["max_bounces"]
+    tables = bw_tables(scene, "mg")
+    cam = torch.from_numpy(R._pack_camera(scene.camera, size)).cuda()
+    seeds = torch.tensor([21], dtype=torch.int32, device="cuda")
+    state, ids, saved, fwd_plain_s, err = wf_checked_chunk(tables, cam, seeds, size, spp, depth,
+                                                           True)
+    errs["wf_bounce"] = max(errs["wf_bounce"], err)
+    log(f"[3] wf_bounce proc5000 {size[0]}x{size[1]} {spp}spp d{depth} (the config-5 chunk, "
+        f"{saved[0][2].shape[0]} rays): 8 launches bit for bit with the plain version (plain "
+        f"{fwd_plain_s:.2f} s)")
+    n_pix = size[0] * size[1]
+    cot_pix = torch.from_numpy(np.random.default_rng(4).uniform(-1, 1, (n_pix, 3))
+                               .astype(np.float32)).cuda() * (2.0 / (3 * n_pix * spp))
+    err, rev_plain_s = wf_rev_checked(tables, cam, seeds, size, depth, saved, cot_pix,
+                                      "proc5000 config-5 chunk", report)
+    errs["wf_rev"] = max(errs["wf_rev"], err)
+    report["wf_main_shape"] = {"spp": spp, "rays": saved[0][2].shape[0],
+                               "fwd_plain_s": fwd_plain_s, "rev_plain_s": rev_plain_s}
+    return dict(tables=tables, cam=cam, seeds=seeds, saved=saved, cot_pix=cot_pix,
+                fwd_plain_s=fwd_plain_s, rev_plain_s=rev_plain_s)
+
+
+def wavefront_main_paths(scenes, report):
+    """Phase 4 for the wavefront route.  Returns (launches per kernel, the
+    config-5 train step and its params)."""
+    import numpy as np
+    import torch
+    from rt_tpu_torch import diff, train
+    from rt_tpu_torch.cli import main as cli_main
+    from rt_tpu_torch.ops import _build
+    from rt_tpu_torch.ops import blockwise as BW
+    from rt_tpu_torch.ops import blockwise_grad as BG
+    from rt_tpu_torch.ops import grad as G
+    from rt_tpu_torch.ops import render as R
+    from rt_tpu_torch.ops import wavefront as WF
+    from rt_tpu_torch.ops import wavefront_grad as WG
+
+    wrappers = {"render_kernel": R.render_tile, "mse_step_kernel": G.mse_step_tile,
+                "grad_kernel": G.grad_tile, "blockwise_kernel": BW.render_blockwise_tile,
+                "bw_grad_kernel": BG.bw_grad_tile, "wf_bounce": WF.wf_bounce,
+                "wf_rev": WG.wf_rev}
+    total = dict.fromkeys(wrappers, 0)
+
+    def reset():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read(label, **want):
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in wrappers.items()}
+        for k, v in got.items():
+            total[k] += v
+        log(f"[4] {label}: launches {got}")
+        check(got == dict(dict.fromkeys(wrappers, 0), **want),
+              f"{label}: launches {got}, expected {want}")
+
+    scene = scenes["proc5000"]
+    size, spp, depth = WF_SLICE["size"], WF_SLICE["spp"], WF_SLICE["max_bounces"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        npy = Path(tmp) / "proc5000.npy"
+        reset()
+        rc = cli_main(["--procedural", "5000", "--renderer", "mg_auto", "--size", "960x540",
+                       "--spp", str(spp), "--bounces", str(depth), "--device", "cuda", "--out",
+                       str(npy)])
+        read("cli mg_auto --procedural 5000 960x540 2spp d8", wf_bounce=depth)
+        check(rc == 0, f"cli exited with {rc}")
+        frame = np.load(npy)
+        check(frame.shape == (540, 960, 3) and np.isfinite(frame).all(),
+              "the 5000-sphere frame has the wrong shape or is not finite")
+        ref = BW.render_forward_blockwise(scene, size, spp=spp, max_bounces=depth,
+                                          device="cuda").cpu().numpy()
+        check(np.array_equal(frame, ref),
+              "the wavefront frame is not the blockwise kernel's at the same seed")
+        out["cli_5000_mean"] = float(frame.mean())
+        log(f"[4] 5000-sphere 960x540 frame through the wavefront route (mg_auto), mean "
+            f"{frame.mean():.4f}: equal to render_forward_blockwise's (torch.equal)")
+
+    # the training target and start of examples/big_scene_training.py
+    target = WF.render_forward_wavefront(scene, size, seed=0, spp=spp, max_bounces=depth,
+                                         gamma=False, device="cuda")
+    params = {"materials.albedo": torch.full_like(scene.materials.albedo, 0.5).cuda()}
+
+    # the wavefront step against the blockwise step at matched draws (1 spp):
+    # seed S * 100003 against S
+    full = dict(diff.extract_params(scene), **params)
+    kw = dict(spp=1, max_bounces=depth, device="cuda")
+    lw, gw = WG.wf_mse_loss_and_grad(full, scene, target, size, seed=5 * 100003, **kw)
+    lb, gb = BG.bw_mse_loss_and_grad(full, scene, target, size, seed=5, **kw)
+    rel = {k: ((gw[k] - gb[k]).abs().max() / gb[k].abs().max().clamp_min(1e-30)).item()
+           for k in gb}
+    reset()
+    log(f"[4] wavefront step vs blockwise step at matched draws (5000 spheres 960x540 1spp d8): "
+        f"loss {lw.item():.9g} vs {lb.item():.9g}; max |d|/max|g| per key "
+        f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} }")
+    check(lw.item() == lb.item(), "the wavefront and blockwise steps' losses differ")
+    check(max(rel.values()) <= 2e-4, "the wavefront and blockwise steps' gradients differ")
+    out.update(matched_loss=lw.item(), matched_grad_rel=rel)
+
+    # the config-5 train step through the JAX package's router
+    opt = torch.optim.Adam(list(params.values()), lr=5e-2, foreach=True)
+    step = train.make_kernel_train_step(opt, scene, target, size, spp=spp, max_bounces=depth,
+                                        device="cuda")
+    built = _build.load_library.cache_info().misses
+    reset()
+    losses = [step(params, i).item() for i in range(5)]
+    read("config-5 train step (5000 spheres 960x540 2spp d8), 5 steps",
+         wf_bounce=5 * depth, wf_rev=5 * depth)
+    reset()
+    copies = htod_copies(lambda: step(params, 5))
+    read("config-5 train step under the profiler, 1 step", wf_bounce=depth, wf_rev=depth)
+    log(f"[4] config-5 train losses {losses}; host-to-device copies in a step: {copies}")
+    check(losses[-1] < losses[0], "the wavefront train step did not lower the loss")
+    check(copies == 1, f"{copies} host-to-device copies in a train step, expected 1 (the seeds)")
+    check(_build.load_library.cache_info().misses == built, "a train step built a library")
+    out.update(train_losses=losses, train_htod_copies=copies)
+    report["wf_main_path"] = dict(out, launches=total)
+    return total, step, params, target
+
+
+def wavefront_timing(scenes, step, params, target, shape, card, report):
+    """Phase 5 for the wavefront kernels and the config-5 slice, with the
+    blockwise route on the same slice in interleaved windows.  Returns
+    per-kernel timing rows for the kernels' JSON line."""
+    import torch
+    from rt_tpu_torch import profiling
+    from rt_tpu_torch.ops import blockwise as BW
+    from rt_tpu_torch.ops import blockwise_grad as BG
+    from rt_tpu_torch.ops import wavefront as WF
+    from rt_tpu_torch.ops import wavefront_grad as WG
+
+    scene = scenes["proc5000"]
+    size, spp, depth = WF_SLICE["size"], WF_SLICE["spp"], WF_SLICE["max_bounces"]
+    n_pix = size[0] * size[1]
+    n = n_pix * spp
+
+    # per launch, on the 2-spp chunk of phase 3 (kernels only, CUPTI time)
+    tables, cam, seeds, saved = shape["tables"], shape["cam"], shape["seeds"], shape["saved"]
+    sp, pl, _, counts = tables
+    ns, npl = counts[:2]
+    sched, shrink = WF._schedule(depth, None, -1)
+
+    def fwd_chunk(i):
+        def launch(b, state, ids, limit):
+            return WF.wf_bounce(*tables, cam, seeds, state, ids, limit, size=size, bounce=b,
+                                max_bounces=depth, center_sample=True, record=True)
+        WF._forward_chunk(launch, n, cam.device, max_bounces=depth, sched=sched,
+                          shrink_at=shrink, cell_bits=2, record=True)
+
+    def rev_chunk(i):
+        cot = torch.zeros((9, n), device="cuda")
+        for b in reversed(range(depth)):
+            st, ii, ww, lim = saved[b]
+            WG.wf_rev(sp, pl, counts[:2], cam, seeds, st, ii, ww, lim, cot, shape["cot_pix"],
+                      size=size, bounce=b, max_bounces=depth, center_sample=True)
+
+    df = profiling.device_times(fwd_chunk, iters=5)
+    dr = profiling.device_times(rev_chunk, iters=5)
+    f_ms = sum(v for k, v in df.items() if "wf_gen_kernel" in k or "wf_bounce_kernel" in k)
+    r_ms = sum(v for k, v in dr.items() if "wf_rev_kernel" in k or "wf_rev_gen_kernel" in k)
+    work = wf_work(tables, saved)
+    tab = 64 * (ns + npl)
+    live_in = work["live"] - work["rays"]  # rays entering bounces 1..7 alive
+    f_bound = bound(depth * tab + 60 * work["rays"] + (56 + 56) * live_in,
+                    forward_ops(work, ns, npl))
+    hits = work["sphere"] + work["plane"]
+    # the reverse's bytes by kind of launch: the gen launch reads each ray's
+    # word, cotangent and pixel cotangent (4 + 36 + 12 B) and writes no
+    # cotangent back; a later bounce's live ray reads its state, id and word
+    # (40 + 4 + 4 B), its cotangent and pixel cotangent (36 + 12 B) and
+    # writes its cotangent (36 B); every launch reads the 10 used floats of
+    # each distinct winner row; the float64 gradient tables (and the camera's
+    # 16) are read and written once per chunk (their atomics stay in L2)
+    grad_tab = 8 * (9 * ns + 5 * npl + 16)
+    r_bound = bound(52 * work["rays"] + 132 * live_in + 40 * work["rows"] + 2 * grad_tab,
+                    reverse_ops(work) + 70 * hits)
+    rows = {  # per launch: the chunk's figures over its `depth` launches
+        "wf_bounce": {"ms": f_ms / depth, "plain_ms": shape["fwd_plain_s"] * 1e3 / depth,
+                      "bound_ms": f_bound[0] / depth, "bound_by": f_bound[1],
+                      "chunk_device_ms": df, "live_work": work},
+        "wf_rev": {"ms": r_ms / depth, "plain_ms": shape["rev_plain_s"] * 1e3 / depth,
+                   "bound_ms": r_bound[0] / depth, "bound_by": r_bound[1],
+                   "chunk_device_ms": dr},
+    }
+
+    # the frame and the train step on the slice, each beside the blockwise
+    # route's, in interleaved windows
+    def wf_frame(i):
+        return WF.render_forward_wavefront(scene, size, seed=i, spp=spp, max_bounces=depth,
+                                           device="cuda")
+
+    def bw_frame(i):
+        return BW.render_forward_blockwise(scene, size, seed=i, spp=spp, max_bounces=depth,
+                                           device="cuda")
+
+    def wf_frame_every(i):  # a sort before every bounce, the live prefix from the first
+        return WF.render_forward_wavefront(scene, size, seed=i, spp=spp, max_bounces=depth,
+                                           sort_schedule=tuple(range(1, depth)), shrink_at=1,
+                                           device="cuda")
+
+    bw_params = {"materials.albedo": params["materials.albedo"].clone()}
+    bw_step = BG.make_bw_train_step(torch.optim.Adam(list(bw_params.values()), lr=5e-2,
+                                                     foreach=True),
+                                    scene, target, size, spp=spp, max_bounces=depth,
+                                    device="cuda")
+
+    def wf_train(i):
+        return step(params, 100 + i)
+
+    def bw_train(i):
+        return bw_step(bw_params, 100 + i)
+
+    check(torch.equal(wf_frame_every(0), wf_frame(0)), "the sort schedule changed the frame")
+    for fn in (wf_frame, bw_frame, wf_train, bw_train):
+        fn(0)
+    torch.cuda.synchronize()
+    ws = {"wf_frame": [], "bw_frame": [], "wf_every": [], "wf_step": [], "bw_step": []}
+    for _ in range(5):
+        ws["wf_frame"].append(window_s(wf_frame, 3))
+        ws["bw_frame"].append(window_s(bw_frame, 3))
+        ws["wf_every"].append(window_s(wf_frame_every, 3))
+        ws["bw_step"].append(window_s(bw_train, 2))
+        ws["wf_step"].append(window_s(wf_train, 2))
+    med = {k: sorted(v)[2] for k, v in ws.items()}
+    dfr = profiling.device_times(wf_frame, iters=3)
+    dst = profiling.device_times(wf_train, iters=3)
+
+    def kern(d, names):
+        return sum(v for k, v in d.items() if any(n in k for n in names))
+
+    slice_row = {
+        "frame_ms": med["wf_frame"] * 1e3, "frame_windows_ms": [x * 1e3 for x in ws["wf_frame"]],
+        "frame_mrays_s": profiling.mrays_per_sec(size, spp, med["wf_frame"]),
+        "bw_frame_ms": med["bw_frame"] * 1e3,
+        "bw_frame_windows_ms": [x * 1e3 for x in ws["bw_frame"]],
+        "frame_bw_over_wf": med["bw_frame"] / med["wf_frame"],
+        "sort_every_bounce_frame_ms": med["wf_every"] * 1e3,
+        "sort_every_bounce_windows_ms": [x * 1e3 for x in ws["wf_every"]],
+        "frame_device_ms": dfr,
+        "frame_kernel_device_ms": kern(dfr, ("wf_gen_kernel", "wf_bounce_kernel")),
+        "frame_busy_share": sum(dfr.values()) / (med["wf_frame"] * 1e3),
+        "step_ms": med["wf_step"] * 1e3, "step_windows_ms": [x * 1e3 for x in ws["wf_step"]],
+        "step_mrays_s": profiling.mrays_per_sec(size, spp, med["wf_step"]),
+        "bw_step_ms": med["bw_step"] * 1e3, "bw_step_windows_ms": [x * 1e3 for x in ws["bw_step"]],
+        "step_bw_over_wf": med["bw_step"] / med["wf_step"],
+        "step_over_frame": med["wf_step"] / med["wf_frame"],
+        "step_device_ms": dst,
+        "step_kernel_device_ms": {
+            "wf_bounce": kern(dst, ("wf_gen_kernel", "wf_bounce_kernel")),
+            "wf_rev": kern(dst, ("wf_rev_kernel", "wf_rev_gen_kernel"))},
+        "step_busy_share": sum(dst.values()) / (med["wf_step"] * 1e3),
+        "launches_per_step": {"wf_bounce": depth, "wf_rev": depth},
+    }
+    report["wf_timing"] = dict(rows, config5_slice=slice_row)
+    for name, r in rows.items():
+        log(f"[5] {name} proc5000 960x540 {spp}spp d8 chunk: {r['ms']:.4f} ms per launch (8 per "
+            f"chunk), plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}) | {card}")
+    log(f"[5] config-5 slice frame (render_forward_wavefront, 5000 spheres 960x540 2spp d8): "
+        f"{slice_row['frame_ms']:.3f} ms = {slice_row['frame_mrays_s']:.1f} Mrays/s, kernels "
+        f"{slice_row['frame_kernel_device_ms']:.3f} ms of device time, busy "
+        f"{slice_row['frame_busy_share']:.3f}; blockwise frame {slice_row['bw_frame_ms']:.3f} ms "
+        f"(blockwise/wavefront {slice_row['frame_bw_over_wf']:.3f}, interleaved); sorting before "
+        f"every bounce {slice_row['sort_every_bounce_frame_ms']:.3f} ms, the same frame | {card}")
+    log(f"[5] config-5 slice train step (wavefront, Adam): {slice_row['step_ms']:.3f} ms = "
+        f"{slice_row['step_mrays_s']:.1f} Mrays/s fwd+bwd, device ms "
+        f"{slice_row['step_kernel_device_ms']}, busy {slice_row['step_busy_share']:.3f}, step/"
+        f"frame {slice_row['step_over_frame']:.3f}; blockwise step {slice_row['bw_step_ms']:.3f} "
+        f"ms (blockwise/wavefront {slice_row['step_bw_over_wf']:.3f}, interleaved) | {card}")
+    return rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -916,6 +1392,8 @@ def main() -> int:
               "extents = [0.3, 0.5, 0.3] } ]\n"),
         "proc500": rt_tpu_torch.scene.make_procedural_scene(500),
         "proc1000": rt_tpu_torch.scene.make_procedural_scene(1000),
+        "proc2000": rt_tpu_torch.scene.make_procedural_scene(2000),
+        "proc5000": rt_tpu_torch.scene.make_procedural_scene(5000),
     }
 
     def tile_args(scene, personality, size, include_boxes=False, seed=11):
@@ -954,6 +1432,8 @@ def main() -> int:
     scenes["cornell"] = rt_tpu_torch.load(str(ROOT / "scenes" / "cornell_spheres.toml"))
     grad_errs = grad_parity(scenes, report)
     bw_errs = blockwise_parity(scenes, report)
+    wf_errs = wavefront_parity(scenes, report)
+    wf_shape = wavefront_main_shape(scenes, report, wf_errs)
 
     # ---- 4. main path through the entry points ----
     with tempfile.TemporaryDirectory() as tmp:
@@ -986,6 +1466,7 @@ def main() -> int:
                                "config4_mean": frame4.mean().item()}
     grad_launches, step_mse, step_c3 = grad_main_paths(scenes, report)
     bw_launches, step_bw, params_bw = blockwise_main_paths(scenes, report)
+    wf_launches, step_wf, params_wf, target_wf = wavefront_main_paths(scenes, report)
 
     # ---- 5. timing (CUDA events; device time by kernel from the profiler) ----
     size = (800, 600)
@@ -1043,6 +1524,7 @@ def main() -> int:
         f"{r_work['live']} of {r_work['rays'] * 8}, warp slots {r_work['warp_live']} | {card}")
     g_rows = grad_timing(scenes, step_mse, step_c3, card, report)
     bw_rows = blockwise_timing(scenes, step_bw, params_bw, card, report)
+    wf_rows = wavefront_timing(scenes, step_wf, params_wf, target_wf, wf_shape, card, report)
 
     check("jax" not in sys.modules and "rt_tpu" not in sys.modules, "JAX was imported")
     log("[report] " + json.dumps(report))
@@ -1076,6 +1558,16 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"rt_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": bw_launches[name],
             "max_abs_err": bw_errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+        })
+    for name, source, replaces in (
+            ("wf_bounce", "wavefront_kernel", "rt_tpu/ops/pallas_wavefront.py:219"),
+            ("wf_rev", "wf_grad_kernel", "rt_tpu/ops/pallas_wavefront_grad.py:307")):
+        row = wf_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"rt_tpu_torch/csrc/{source}.cu",
+            "replaces": replaces, "launches": wf_launches[name],
+            "max_abs_err": wf_errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
         })
     log(json.dumps({"kernels": kernels}))

@@ -6,14 +6,16 @@ path replaced by a hand-written CUDA kernel (built with nvcc at first use).
 Module names follow ``rt_tpu`` so each counterpart is easy to find.
 
 Ported so far (the forward render path, from TOML scene to PNG, the
-fused training step, and the blockwise route for scenes of up to 16384
-primitives):
+fused training step, and the blockwise and wavefront routes for scenes of
+up to 16384 primitives):
   log, colour, camera, scene, materials (class table), image,
   ops.render (the forward megakernel), diff (parameter plumbing),
   ops.grad (the fused fwd+bwd MSE step and its two kernels),
   ops.blockwise and ops.blockwise_grad (the blockwise forward and fused
-  fwd+bwd kernels, and the optimizer step), train
-  (make_kernel_train_step), profiling, renderer, cli.
+  fwd+bwd kernels, and the optimizer step), ops.wavefront and
+  ops.wavefront_grad (the bounce-major forward kernel, its scan-free
+  reverse, and the optimizer step), train (make_kernel_train_step),
+  profiling, renderer, cli.
 
 Importing this package needs neither CUDA nor JAX.
 """

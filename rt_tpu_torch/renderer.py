@@ -16,13 +16,15 @@ package's names so that each maps one to one onto its counterpart:
 * ``mg_blockwise`` / ``sm_blockwise`` — the blockwise kernel, runtime
   tables of up to 16384 primitives
   (:func:`rt_tpu_torch.ops.blockwise.render_forward_blockwise`);
-* ``mg_auto`` / ``sm_auto`` — :func:`auto_route` picks one of the two.
+* ``mg_wavefront`` / ``sm_wavefront`` — the bounce-major wavefront kernel,
+  the same tables (:func:`rt_tpu_torch.ops.wavefront.render_forward_wavefront`);
+* ``mg_auto`` / ``sm_auto`` — :func:`auto_route` picks one of the three.
 
 The names keep "pallas" although nothing here is Pallas: on CUDA they run
 the hand-written CUDA kernels, and with ``device="cpu"`` their plain
 PyTorch versions.  The jnp integrator (``mg_ray_tracer``,
-``sm_ray_tracer``), the rasterizer, the null renderer and the wavefront
-route are not ported yet (ROADMAP.md, queue 1).
+``sm_ray_tracer``), the rasterizer and the null renderer are not ported
+yet (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -103,12 +105,12 @@ def auto_route(scene, platform: str, include_boxes: bool = False) -> str:
     """The forward route for ``mg_auto``/``sm_auto`` on ``platform``
     ("cuda" or "cpu").
 
-    Returns "pallas" (the megakernel) or "blockwise" exactly where the JAX
-    package does on an accelerator: the megakernel up to its 640
-    primitives, then the blockwise kernel up to 16384 while the sphere
-    table pads to fewer than 2048 rows.  Any other scene would take a route
-    that is not ported yet — wavefront or the jnp integrator — and raises
-    ``NotImplementedError`` naming it; such a scene is never rendered
+    Returns "pallas" (the megakernel), "blockwise" or "wavefront" exactly
+    where the JAX package does on an accelerator: the megakernel up to its
+    640 primitives, then up to 16384 the blockwise kernel while the sphere
+    table pads to fewer than 2048 rows and the wavefront kernel from there.
+    A bigger scene would take the jnp integrator, which is not ported yet:
+    it raises ``NotImplementedError`` naming it, and is never rendered
     another way instead.  The route does not depend on ``platform``: on
     the CPU the same route runs its kernel's plain version.  Unlike the JAX
     version, which returns ``(route, warning)``, this returns the route
@@ -121,18 +123,13 @@ def auto_route(scene, platform: str, include_boxes: bool = False) -> str:
 
     if supported(scene, include_boxes):
         return "pallas"
-    n = scene.spheres.count + scene.planes.count + (scene.boxes.count if include_boxes else 0)
-    bucket = _bucket(scene.spheres.count)
-    if not blockwise_supported(scene, include_boxes):
-        missing, why = "jnp integrator", f"> {MAX_BLOCKWISE_PRIMS} primitives"
-    elif bucket >= _WAVEFRONT_MIN_BUCKET:
+    if blockwise_supported(scene, include_boxes):
         # wavefront_supported is blockwise_supported
-        missing, why = "wavefront", f"a sphere table of {bucket} rows"
-    else:
-        return "blockwise"
+        return "wavefront" if _bucket(scene.spheres.count) >= _WAVEFRONT_MIN_BUCKET else "blockwise"
+    n = scene.spheres.count + scene.planes.count + (scene.boxes.count if include_boxes else 0)
     raise NotImplementedError(
-        f"auto renderer: a scene of {n} primitives ({why}) needs the {missing} route, "
-        f"which is not ported to {platform} yet")
+        f"auto renderer: a scene of {n} primitives (> {MAX_BLOCKWISE_PRIMS}) needs the jnp "
+        f"integrator route, which is not ported to {platform} yet")
 
 
 def _install_builtins() -> None:
@@ -155,6 +152,16 @@ def _install_builtins() -> None:
             return render
         return factory
 
+    def _wavefront(personality):
+        def factory():
+            def render(scene, size, *, seed: int = 0, **opts):
+                from .ops.wavefront import render_forward_wavefront
+
+                return render_forward_wavefront(scene, size, seed=seed, personality=personality,
+                                                **opts)
+            return render
+        return factory
+
     def _auto(personality):
         def factory():
             def render(scene, size, *, seed: int = 0, device="cuda", **opts):
@@ -162,10 +169,12 @@ def _install_builtins() -> None:
 
                 from .ops.blockwise import render_forward_blockwise
                 from .ops.render import render_forward
+                from .ops.wavefront import render_forward_wavefront
 
                 route = auto_route(scene, torch.device(device).type,
                                    opts.get("include_boxes", False))
-                fwd = render_forward if route == "pallas" else render_forward_blockwise
+                fwd = {"pallas": render_forward, "blockwise": render_forward_blockwise,
+                       "wavefront": render_forward_wavefront}[route]
                 return fwd(scene, size, seed=seed, personality=personality, device=device,
                            **opts)
             return render
@@ -177,6 +186,8 @@ def _install_builtins() -> None:
     register_renderer("sm_pallas", _pallas("sm"))
     register_renderer("mg_blockwise", _blockwise("mg"))
     register_renderer("sm_blockwise", _blockwise("sm"))
+    register_renderer("mg_wavefront", _wavefront("mg"))
+    register_renderer("sm_wavefront", _wavefront("sm"))
     register_renderer("mg_auto", _auto("mg"))
     register_renderer("sm_auto", _auto("sm"))
 

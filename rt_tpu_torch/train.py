@@ -1,10 +1,9 @@
 """Optimizer steps for inverse rendering (port of ``rt_tpu.train``).
 
 Ported: :func:`make_kernel_train_step`, the router to the fused-kernel
-optimizer step.  Still to port: ``fit``, ``make_train_step`` and the
-checkpoints, which need ``diff.image_loss`` and so the pure-torch
-integrator (ROADMAP.md, queue 1), and the wavefront step (queue 2 rows
-8-9).
+optimizer steps (blockwise and wavefront).  Still to port: ``fit``,
+``make_train_step`` and the checkpoints, which need ``diff.image_loss``
+and so the pure-torch integrator (ROADMAP.md, queue 1).
 
 The JAX package takes an optax optimizer and threads its state through
 ``step(params, opt_state, seed)``; here the optimizer is a ``torch.optim``
@@ -38,17 +37,14 @@ def make_kernel_train_step(
 
     Routed as the JAX package routes it: scenes whose sphere table pads to
     1024 rows or more (and that the wavefront pipeline takes) go to the
-    wavefront record/reverse step, which is not ported yet and raises
-    ``NotImplementedError``; every other scene goes to the blockwise fused
-    step.  ``opts`` (``personality``, ``rng_mode``, ``device``) go to the
-    step."""
+    wavefront record/reverse step
+    (:func:`rt_tpu_torch.ops.wavefront_grad.make_wf_train_step`), every
+    other scene to the blockwise fused step.  ``opts`` (``personality``,
+    ``rng_mode``, ``device``) go to the step."""
     from .ops.blockwise import _bucket
-    from .ops.blockwise_grad import bw_grad_supported, make_bw_train_step
+    from .ops.blockwise_grad import make_bw_train_step
+    from .ops.wavefront_grad import make_wf_train_step, wf_grad_supported
 
-    # the wavefront gate (wf_grad_supported) is the blockwise step's
-    if bw_grad_supported(scene) and _bucket(scene.spheres.count) >= _WAVEFRONT_MIN_BUCKET:
-        raise NotImplementedError(
-            f"train step: a scene of {scene.spheres.count} spheres needs the wavefront "
-            "route, which is not ported yet")
-    return make_bw_train_step(optimizer, scene, target, size, spp=spp, max_bounces=max_bounces,
-                              **opts)
+    route = (make_wf_train_step if wf_grad_supported(scene)
+             and _bucket(scene.spheres.count) >= _WAVEFRONT_MIN_BUCKET else make_bw_train_step)
+    return route(optimizer, scene, target, size, spp=spp, max_bounces=max_bounces, **opts)

@@ -280,3 +280,149 @@ def test_blockwise_entry_points_launch_the_kernels(cuda):
     losses = [float(step(params, i)) for i in range(4)]
     assert counts() == (before[0] + 12, before[1] + 12)
     assert not torch.equal(params["materials.albedo"], start) and losses[-1] < losses[0]
+
+
+def _wf_scene(name):
+    return (rt_tpu_torch.scene.make_procedural_scene(int(name[4:])) if name.startswith("proc")
+            else _scene(name))
+
+
+def _wf_record(cuda, scene, personality, include_boxes, size, spp, max_bounces, rng_mode,
+               check_plain):
+    """One chunk of the record forward through the kernel, each launch held
+    bit for bit against the plain version on the same input table when
+    ``check_plain``.  Returns the tables, camera, seeds and the saved
+    bounces."""
+    from rt_tpu_torch.ops import wavefront as twf
+
+    sp, pl, bx, counts = _bw_tables(cuda, scene, personality, include_boxes)
+    cam = torch.from_numpy(tr._pack_camera(scene.camera, size)).to(cuda)
+    seeds = torch.tensor([-77], dtype=torch.int32, device=cuda)
+    kw = dict(size=size, max_bounces=max_bounces, center_sample=True, rng_mode=rng_mode,
+              record=True)
+
+    def launch(b, state, ids, limit):
+        before = twf.wf_bounce.launches
+        if check_plain:
+            st, ii = state.clone(), ids.clone()
+            want = twf.wf_bounce_plain(sp, pl, bx, counts, cam, seeds, st, ii, limit, bounce=b,
+                                       **kw)
+        got = twf.wf_bounce(sp, pl, bx, counts, cam, seeds, state, ids, limit, bounce=b, **kw)
+        assert twf.wf_bounce.launches == before + 1
+        if check_plain:
+            torch.cuda.synchronize()
+            # trace.cuh's bounce with --fmad=false: bit for bit
+            assert torch.equal(state, st), (b, (state - st).abs().max().item())
+            assert torch.equal(ids, ii) and torch.equal(got, want), b
+        return got
+
+    sched, shrink = twf._schedule(max_bounces, None, -1)
+    n = size[0] * size[1] * spp
+    state, ids, saved = twf._forward_chunk(launch, n, cuda, max_bounces=max_bounces, sched=sched,
+                                           shrink_at=shrink, cell_bits=2, record=True)
+    return (sp, pl, bx, counts), cam, seeds, state, ids, saved
+
+
+@pytest.mark.parametrize("name,personality,include_boxes,rng_mode", [
+    ("basic.toml", "mg", False, "reference"),
+    ("cornell_spheres.toml", "sm", False, "sphere"),
+    ("box", "mg", True, "reference"),
+    ("proc1600", "mg", False, "reference"),
+])
+def test_wf_bounce_matches_plain(cuda, name, personality, include_boxes, rng_mode):
+    """Every launch of a record forward (gen, then bounces 1-5 with the
+    sorts and the live-prefix limit) bit for bit against the plain version,
+    and the assembled chunk equal to the blockwise kernel's."""
+    from rt_tpu_torch.ops import blockwise as tb
+    from rt_tpu_torch.ops import wavefront as twf
+
+    scene = _wf_scene(name)
+    size, spp = (48, 32), 2
+    tables, cam, seeds, state, ids, _ = _wf_record(cuda, scene, personality, include_boxes, size,
+                                                   spp, 6, rng_mode, True)
+    img = twf._assemble(state, ids, size[0] * size[1], spp).reshape(32, 48, 3)
+    want = tb.render_blockwise_tile(*tables, cam, seeds, size=size, spp=spp, max_bounces=6,
+                                    center_sample=True, rng_mode=rng_mode)
+    assert torch.equal(img, want)
+
+
+@pytest.mark.parametrize("name,personality", [
+    ("cornell_spheres.toml", "sm"),
+    ("proc1600", "mg"),
+])
+def test_wf_rev_matches_plain(cuda, name, personality):
+    """Every reverse launch of a chunk against the plain version on the same
+    inputs: the cotangent table close, per-row gradients within 1e-5 x L1
+    (float64 atomics in varying order)."""
+    from rt_tpu_torch.ops import wavefront_grad as twg
+
+    scene = _wf_scene(name)
+    size, spp, depth = (48, 32), 2, 6
+    (sp, pl, _, counts), cam, seeds, _, _, saved = _wf_record(cuda, scene, personality, False,
+                                                              size, spp, depth, "reference",
+                                                              False)
+    n_pix = size[0] * size[1]
+    cot_pix = torch.from_numpy(np.random.default_rng(6).uniform(-1e-4, 1e-4, (n_pix, 3))
+                               .astype(np.float32)).to(cuda)
+    cot = torch.zeros((9, n_pix * spp), device=cuda)
+    for b in reversed(range(depth)):
+        state, ids, words, limit = saved[b]
+        cot_plain = cot.clone()
+        before = twg.wf_rev.launches
+        got = twg.wf_rev(sp, pl, counts[:2], cam, seeds, state, ids, words, limit, cot, cot_pix,
+                         size=size, bounce=b, max_bounces=depth, center_sample=True)
+        assert twg.wf_rev.launches == before + 1
+        want, l1 = twg.wf_rev_plain(sp, pl, counts[:2], cam, seeds, state, ids, words, limit,
+                                    cot_plain, cot_pix, size=size, bounce=b, max_bounces=depth,
+                                    center_sample=True, with_l1=True)
+        torch.cuda.synchronize()
+        _assert_within_l1(got, want, l1)
+        if b:
+            scale = cot_plain.abs().max().clamp_min(1e-30)
+            assert (cot - cot_plain).abs().max() <= 1e-5 * scale, b
+        cot = cot_plain
+
+
+def test_wavefront_entry_points_launch_the_kernels(cuda):
+    """Past 1536 spheres mg_auto takes the wavefront route (one gen and 3
+    bounce launches per chunk at depth 4) and renders the blockwise frame
+    bit for bit; the wavefront step at 1 spp equals the blockwise step at
+    matched draws; past 512 spheres the train step takes the wavefront
+    route, 4 + 4 launches per chunk, and lowers the loss."""
+    from rt_tpu_torch import renderer as treg
+    from rt_tpu_torch import train as ttrain
+    from rt_tpu_torch.ops import blockwise as tb
+    from rt_tpu_torch.ops import blockwise_grad as tbg
+    from rt_tpu_torch.ops import wavefront as twf
+    from rt_tpu_torch.ops import wavefront_grad as twg
+
+    big = rt_tpu_torch.scene.make_procedural_scene(1600)
+    assert treg.auto_route(big, "cuda") == "wavefront"
+    counts = lambda: (twf.wf_bounce.launches, twg.wf_rev.launches)
+    before = counts()
+    img = treg.create("mg_auto")(big, (40, 30), spp=6, max_bounces=4, device=cuda)
+    assert counts() == (before[0] + 8, before[1])
+    assert torch.equal(img, tb.render_forward_blockwise(big, (40, 30), spp=6, max_bounces=4,
+                                                        device=cuda))
+    size = (40, 30)
+    target = torch.from_numpy(np.random.default_rng(2).uniform(0, 0.5, (30, 40, 3))
+                              .astype(np.float32)).to(cuda)
+    params = diff.extract_params(big)
+    lw, gw = twg.wf_mse_loss_and_grad(params, big, target, size, seed=7 * 100003, spp=1,
+                                      max_bounces=4, device=cuda)
+    lb, gb = tbg.bw_mse_loss_and_grad(params, big, target, size, seed=7, spp=1, max_bounces=4,
+                                      device=cuda)
+    assert lw.item() == lb.item()
+    for k in gb:
+        assert (gw[k] - gb[k]).abs().max() <= 2e-4 * gb[k].abs().max().clamp_min(1e-30), k
+    scene = rt_tpu_torch.scene.make_procedural_scene(600)
+    target = twf.render_forward_wavefront(scene, size, seed=3, spp=2, max_bounces=4,
+                                          gamma=False, device=cuda)
+    params = {"materials.albedo": torch.full_like(scene.materials.albedo, 0.5).to(cuda)}
+    opt = torch.optim.Adam(list(params.values()), lr=5e-2, foreach=True)
+    step = ttrain.make_kernel_train_step(opt, scene, target, size, spp=2, max_bounces=4,
+                                         device=cuda)
+    before = counts()
+    losses = [float(step(params, i)) for i in range(4)]
+    assert counts() == (before[0] + 16, before[1] + 16)
+    assert losses[-1] < losses[0]

@@ -195,7 +195,8 @@ def test_warn_once(capsys):
 
 def test_import_needs_no_jax():
     code = ("import sys, rt_tpu_torch, rt_tpu_torch.cli, rt_tpu_torch.ops.render, "
-            "rt_tpu_torch.ops.blockwise_grad, rt_tpu_torch.train; "
+            "rt_tpu_torch.ops.blockwise_grad, rt_tpu_torch.ops.wavefront_grad, "
+            "rt_tpu_torch.train; "
             "assert 'jax' not in sys.modules and 'rt_tpu' not in sys.modules; "
             "assert 'triton' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120,
@@ -204,7 +205,8 @@ def test_import_needs_no_jax():
 
 def test_registry_and_auto_route():
     assert [d.name for d in treg.all_renderers()] == ["mg_pallas", "sm_pallas", "mg_blockwise",
-                                                      "sm_blockwise", "mg_auto", "sm_auto"]
+                                                      "sm_blockwise", "mg_wavefront",
+                                                      "sm_wavefront", "mg_auto", "sm_auto"]
     assert treg.find_by_name_fuzzy("mg_a").name == "mg_auto"
     assert treg.find_by_name_fuzzy("sm").name == "sm_pallas"
     with pytest.raises(KeyError):
@@ -218,10 +220,12 @@ def test_registry_and_auto_route():
     assert torch.equal(img, treg.create("mg_blockwise")(big, (8, 8), seed=1, spp=1,
                                                         max_bounces=1, device="cpu"))
     huge = rt_tpu_torch.scene.make_procedural_scene(5000)
-    with pytest.raises(NotImplementedError, match="wavefront"):
-        treg.auto_route(huge, "cuda")
-    with pytest.raises(NotImplementedError, match="wavefront"):
-        treg.create("mg_auto")(huge, (8, 8), spp=1, max_bounces=1, device="cpu")
+    assert treg.auto_route(huge, "cuda") == "wavefront"
+    img = treg.create("mg_auto")(huge, (8, 8), spp=1, max_bounces=1, device="cpu")
+    assert torch.equal(img, treg.create("mg_wavefront")(huge, (8, 8), spp=1, max_bounces=1,
+                                                        device="cpu"))
+    with pytest.raises(NotImplementedError, match="jnp integrator"):
+        treg.auto_route(rt_tpu_torch.scene.make_procedural_scene(17000), "cuda")
     img = treg.create("sm_pallas")(basic, (8, 6), seed=2, spp=1, max_bounces=2, device="cpu")
     assert img.shape == (6, 8, 3)
 
@@ -229,7 +233,8 @@ def test_registry_and_auto_route():
 def test_cli(tmp_path, capsys):
     assert main(["--list"]) == 0
     assert capsys.readouterr().out.split() == ["mg_pallas", "sm_pallas", "mg_blockwise",
-                                               "sm_blockwise", "mg_auto", "sm_auto"]
+                                               "sm_blockwise", "mg_wavefront", "sm_wavefront",
+                                               "mg_auto", "sm_auto"]
     out = tmp_path / "img.png"
     rc = main(["--scene", str(SCENES / "dielectric.toml"), "--renderer", "sm", "--size", "12x8",
                "--spp", "1", "--bounces", "2", "--device", "cpu", "--out", str(out)])
