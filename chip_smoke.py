@@ -38,9 +38,16 @@ Phases (an exception in any phase exits non-zero before the result line):
    320x240 2 spp and 2000 spheres (past 1536) at 160x90 2 spp, each chunk
    equal to the blockwise kernel's; every reverse launch of the cornell and
    2000-sphere chunks within 1e-5 x L1 of wf_rev_plain, with the
-   run-to-run spread; and at the main path's shape, one 1-spp chunk of
+   run-to-run spread; and at the main path's shape, one 2-spp chunk of
    BASELINE config 5's slice (5000 spheres, 960x540), both kernels against
-   their plain versions (the plain times are printed).
+   their plain versions (the plain times are printed).  Record kernels,
+   depth 8, both centre-sample settings, bit for bit (every record array
+   and the radiance) with their plain versions and their radiance equal to
+   the 1-spp frame at the same seed: the render kernel's record form and
+   the blockwise one on basic.toml (mg), dielectric.toml (sm) and
+   basic+box (--boxes) at 800x600, the blockwise one also on 660 spheres +
+   24 boxes (past 640 primitives) at 320x240.  The FMA probe at k = 1024
+   and 4096 within 1e-5 of its plain version.
 4. Main paths through the entry points, each with the launch counters
    reset just before and read just after: the CLI renders basic.toml to a
    PNG and make_render_step renders BASELINE config 4's shape (500
@@ -68,7 +75,21 @@ Phases (an exception in any phase exits non-zero before the result line):
    steps of train.make_kernel_train_step (Adam on materials.albedo at lr
    5e-2 from 0.5, the target rendered at the true albedo): the loss must
    fall, each step must launch 8 forward and 8 reverse kernels, copy
-   nothing to the card but the chunk seeds and build nothing.
+   nothing to the card but the chunk seeds and build nothing.  The records
+   route (diff.records_loss_and_grad; TF32 must be off): (a) at the
+   headline shape (basic.toml 800x600, 4 spp, depth 8; 4 record launches)
+   against mse_loss_and_grad at the same seed (the mono kernel; the same
+   paths and draws): the loss to rel 1e-5, each gradient to 2e-4 x max|g|
+   with rtol 2e-3; (b) 5 steps of descent on camera.position alone for
+   dielectric.toml (sm) towards a frame rendered at a shifted camera: the
+   loss must fall; (c) 660 spheres + 24 boxes at 960x540, 2 spp, depth 8
+   through the blockwise record kernel: non-zero box gradients, and
+   central finite differences on materials.albedo[0, 0] (through the
+   route) and on the boxes.center entry with the largest gradient (on the
+   replay with the records held: moving a box moves its silhouette, a
+   term the detached-sampling gradient leaves out; the full-pipeline
+   difference is printed beside it) within 3e-2; peak device memory
+   printed; (d) the roofline probe at k = 1024 and 4096.
 5. Timing: CUDA events around back-to-back calls
    (rt_tpu_torch.profiling.sustained) for every kernel, its plain version,
    make_render_step and make_mse_step (fwd+bwd Mrays/s), the step over the
@@ -80,7 +101,12 @@ Phases (an exception in any phase exits non-zero before the result line):
    The wavefront kernels per launch on the 1-spp config-5 chunk (CUPTI
    device time), and the config-5 slice's frame and train step each beside
    the blockwise route's in 5 interleaved windows (and the frame with a
-   sort before every bounce, which must be the same frame).
+   sort before every bounce, which must be the same frame).  Each record
+   kernel per launch (the render kernel's at the headline shape, the
+   blockwise one on the 684-primitive box scene at 960x540), the (a) step
+   beside the mono step in interleaved windows with its device time split
+   between the record kernels and the replay's autograd, and the FMA probe
+   in TFLOP/s at k = 1024 and 4096 with its K-scaling verdict.
    Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
    FP32 operations over 33.5 Top/s, the operations counted from the kernel
    sources (OPS below) times the live bounces of this run's inputs (the
@@ -105,7 +131,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCES = ("render_kernel", "grad_kernel", "blockwise_kernel", "bw_grad_kernel",
-                  "wavefront_kernel", "wf_grad_kernel")
+                  "wavefront_kernel", "wf_grad_kernel", "fma_peak_kernel")
 
 # Render kernel vs plain version on the card: the tolerance is zero.  The kernel is
 # built with --fmad=false and writes rsqrt as 1/sqrtf, and the plain version
@@ -173,7 +199,8 @@ PEAK_OPS_S = 33.5e12
 OPS = dict(raygen=40, scan_plane=20, scan_sphere=30, fwd_miss=12, fwd_hit=35, fwd_sphere=14,
            fwd_lambert=14, fwd_metal=37, fwd_dielectric=71, rev_live=50, rev_miss=20,
            rev_sphere=128, rev_plane=60, rev_lambert=34, rev_metal=83, rev_dielectric=166,
-           raygen_adjoint=70, loss=15)
+           raygen_adjoint=70, loss=15, scan_box=33, box_setup=6, fwd_box=22, record=40,
+           record_miss=55, record_draws=12)
 
 # Gradient kernels against their plain versions on the card: the per-ray
 # arithmetic is the same (--fmad=false, the same expressions in the same
@@ -1344,6 +1371,463 @@ def wavefront_timing(scenes, step, params, target, shape, card, report):
     return rows
 
 
+# ---- the records-and-replay route (queue 2 rows 2 and 6) and the FMA probe (row 10) ----
+
+REC_SHAPE = dict(size=(800, 600), spp=4, max_bounces=8)    # the headline shape
+BIG_BOX_SHAPE = dict(size=(960, 540), spp=2, max_bounces=8)  # the config-5 slice's
+
+
+def big_box_scene():
+    """660 spheres and 24 boxes: tests/test_pallas_blockwise.py's box scene
+    generator (the port's copy, tests/test_torch_common.py)."""
+    import rt_tpu_torch
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_common import box_scene_toml
+
+    return rt_tpu_torch.loads(box_scene_toml(660, 24))
+
+
+def record_tables(scene, personality, size, include_boxes, blockwise):
+    """(tables..., cam) for the unrolled or the blockwise record kernel, on the card."""
+    import torch
+    from rt_tpu_torch.ops import render as R
+
+    cam = torch.from_numpy(R._pack_camera(scene.camera, size)).cuda()
+    if blockwise:
+        return (*bw_tables(scene, personality, include_boxes), cam)
+    return card_tables(scene, personality, size, include_boxes)
+
+
+def record_work(recs, tables, blockwise):
+    """Live work of a record launch, counted from its records: rays, live
+    bounces, misses, hits per kind and per material class, and the dead
+    bounces (draws only)."""
+    import torch
+
+    if blockwise:
+        sp, pl, bx, (ns, npl, nb) = tables
+    else:
+        sp, pl, bx = tables
+        ns, npl, nb = sp.shape[0], pl.shape[0], bx.shape[0]
+    bits, kind, idx = recs["bits"], recs["kind"].long(), recs["idx"].long()
+    live = (bits & 16) > 0
+    cls = torch.zeros_like(idx, dtype=torch.float32)
+    for k, t, col in ((1, sp, 9), (2, pl, 9), (3, bx, 11)):
+        if t.shape[0]:
+            m = live & (kind == k)
+            cls[m] = t[idx[m], col]
+    hit = live & (kind > 0)
+    work = {"rays": bits.shape[1], "live": int(live.sum()), "miss": int((live & (kind == 0)).sum()),
+            "sphere": int((hit & (kind == 1)).sum()), "plane": int((hit & (kind == 2)).sum()),
+            "box": int((hit & (kind == 3)).sum()),
+            "lambert": int((hit & (cls != 1.0) & (cls != 2.0)).sum()),
+            "metal": int((hit & (cls == 1.0)).sum()), "dielectric": int((hit & (cls == 2.0)).sum()),
+            "dead": int((~live).sum()), "counts": (ns, npl, nb)}
+    return work
+
+
+def record_bound(work, depth, row_floats):
+    """(bound_ms, bound_by) of a record launch: bytes of the used table rows
+    (``row_floats`` floats per sphere, plane and box row), camera, seed and
+    every output written once (rad, 7 record arrays of (B, N), jitter), and
+    the FP32 operations of this launch's live work."""
+    n = work["rays"]
+    ns, npl, nb = work["counts"]
+    n_bytes = (4 * sum(c * f for c, f in zip((ns, npl, nb), row_floats)) + 4 * (16 + 1)
+               + 4 * n * (3 + 7 * depth + 2))
+    ops = (forward_ops(work, ns, npl) + work["live"] * (nb * OPS["scan_box"]
+                                                        + (OPS["box_setup"] if nb else 0))
+           + work["box"] * (OPS["fwd_hit"] + OPS["fwd_box"])
+           + (work["live"] - work["miss"]) * OPS["record"]
+           + work["miss"] * OPS["record_miss"] + work["dead"] * OPS["record_draws"])
+    return bound(n_bytes, ops)
+
+
+def records_parity(scenes, report):
+    """Phase 3 for the record kernels and the FMA probe: each record kernel
+    bit for bit with its plain version (every record array and the
+    radiance) at depth 8 with both centre-sample settings, and its radiance
+    equal to the render kernel's 1-spp frame at the same seed; the probe at
+    the main path's k within 1e-5 of its plain version.  Returns max
+    |kernel - plain| per kernel."""
+    import torch
+    from rt_tpu_torch import roofline
+    from rt_tpu_torch.ops import blockwise as BW
+    from rt_tpu_torch.ops import render as R
+
+    errs = {"render_record_kernel": 0.0, "blockwise_record_kernel": 0.0, "fma_peak_kernel": 0.0}
+    report["record_parity"] = []
+    seeds = torch.tensor([11], dtype=torch.int32, device="cuda")
+    cases = [  # label, scene, personality, size, --boxes, blockwise
+        ("basic/mg", "basic", "mg", (800, 600), False),
+        ("dielectric/sm", "dielectric", "sm", (800, 600), False),
+        ("basic+box/mg --boxes", "basic+box", "mg", (800, 600), True),
+    ]
+    runs = [(c, False) for c in cases] + [(c, True) for c in cases]
+    runs.append((("660 spheres + 24 boxes --boxes", "bigbox", "mg", (320, 240), True), True))
+    for (label, key, pers, size, boxes), blockwise in runs:
+        scene = scenes[key]
+        args = record_tables(scene, pers, size, boxes, blockwise)
+        kernel = BW.render_record_blockwise_tile if blockwise else R.render_record_tile
+        plain = BW.render_record_blockwise_tile_plain if blockwise else R.render_record_tile_plain
+        name = "blockwise_record_kernel" if blockwise else "render_record_kernel"
+        for center in (True, False):
+            kw = dict(size=size, max_bounces=8, center_sample=center)
+            rad, recs = kernel(*args, seeds, **kw)
+            want_rad, want = plain(*args, seeds, **kw)
+            # the 1-spp frame at the same seed: the render kernel's, or past
+            # its 640 primitives the blockwise kernel's
+            if blockwise and sum(args[3]) > R.MAX_UNROLL_PRIMS:
+                frame = BW.render_blockwise_tile(*args, seeds, spp=1, **kw)
+            else:
+                r_args = card_tables(scene, pers, size, boxes)
+                frame = R.render_tile(*r_args[:3], args[-1], seeds, spp=1, **kw)[0]
+            torch.cuda.synchronize()
+            err = (rad - want_rad).abs().max().item()
+            for k in want:
+                err = max(err, (recs[k].float() - want[k].float()).abs().max().item())
+            errs[name] = max(errs[name], err)
+            live = ((recs["bits"] & 16) > 0).sum().item()
+            report["record_parity"].append({"kernel": name, "case": label, "size": size,
+                                            "center_sample": center, "max_abs": err,
+                                            "live_bounces": live})
+            log(f"[3] {name} {label} {size[0]}x{size[1]} d8 centre={center}: max|d| {err:.3g} "
+                f"over the radiance and the 7 record arrays ({live} live bounces); radiance == "
+                f"the 1-spp frame: {torch.equal(rad, frame)}")
+            check(torch.isfinite(rad).all().item(), f"{name} {label}: radiance not finite")
+            check(torch.equal(rad, want_rad) and all(torch.equal(recs[k], want[k]) for k in want),
+                  f"{name} {label}: kernel differs from its plain version")
+            check(torch.equal(rad, frame), f"{name} {label}: the record radiance is not the 1-spp "
+                                           "frame")
+            if boxes:
+                check(bool((recs["kind"] == 3).any()), f"{name} {label}: no box winner recorded")
+
+    # the probe at the main path's (the roofline's) two chain lengths
+    x = torch.full((256, 128), 1.0 + 1e-6, device="cuda")
+    for k in (1024, 4096):
+        got, want = roofline.fma_peak(x, k), roofline.fma_peak_plain(x, k)
+        torch.cuda.synchronize()
+        rel = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+        errs["fma_peak_kernel"] = max(errs["fma_peak_kernel"], (got - want).abs().max().item())
+        log(f"[3] fma_peak_kernel k={k}: max |d|/max(|plain|, 1) {rel:.3g} (tolerance 1e-5: "
+            f"the plain version rounds each FMA through float64)")
+        check(torch.isfinite(got).all().item() and rel <= 1e-5,
+              f"fma_peak_kernel k={k} differs from its plain version")
+    return errs
+
+
+def _grads_close(got, want):
+    """(ok, per-key max |d| / max |want|): within atol 2e-4 x max|want| and
+    rtol 2e-3 (the JAX package's tolerances between its fused and replay
+    paths)."""
+    import torch
+
+    rel, ok = {}, True
+    for k, w in want.items():
+        g = got[k]
+        scale = max(w.abs().max().item(), 1e-6)
+        ok &= bool(torch.isfinite(g).all()) and bool(
+            ((g - w).abs() <= 2e-4 * scale + 2e-3 * w.abs()).all())
+        rel[k] = (g - w).abs().max().item() / scale
+    return ok, rel
+
+
+def records_main_paths(scenes, report):
+    """Phase 4 for the records route and the roofline probe, each path with
+    the launch counters reset just before and read just after.  Returns
+    (launches per kernel, the (a) inputs for phase 5)."""
+    import torch
+    from rt_tpu_torch import diff, roofline
+    from rt_tpu_torch.integrator import _pixel_grid
+    from rt_tpu_torch.ops import blockwise as BW
+    from rt_tpu_torch.ops import grad as G
+    from rt_tpu_torch.ops import render as R
+    from rt_tpu_torch.replay import PathRecords, replay_radiance
+
+    wrappers = {"render_kernel": R.render_tile, "mse_step_kernel": G.mse_step_tile,
+                "grad_kernel": G.grad_tile, "blockwise_kernel": BW.render_blockwise_tile,
+                "render_record_kernel": R.render_record_tile,
+                "blockwise_record_kernel": BW.render_record_blockwise_tile,
+                "fma_peak_kernel": roofline.fma_peak}
+    total = dict.fromkeys(wrappers, 0)
+
+    def reset():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read(label, **want):
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in wrappers.items()}
+        for k, v in got.items():
+            total[k] += v
+        log(f"[4] {label}: launches {got}")
+        check(got == dict(dict.fromkeys(wrappers, 0), **want),
+              f"{label}: launches {got}, expected {want}")
+
+    out = {}
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for float32 matmuls")
+
+    # (a) the headline shape through the records route against the mono step
+    basic = scenes["basic"]
+    size, spp, depth = REC_SHAPE["size"], REC_SHAPE["spp"], REC_SHAPE["max_bounces"]
+    params = diff.extract_params(basic)
+    p_tgt = dict(params)
+    p_tgt["materials.albedo"] = params["materials.albedo"] * torch.tensor([0.8, 1.0, 0.9, 1.0])
+    target = R.render_forward(diff.apply_params(basic, p_tgt), size, seed=5, spp=spp,
+                              max_bounces=depth, gamma=False, device="cuda")
+    kw = dict(spp=spp, max_bounces=depth, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    loss_r, g_r = diff.records_loss_and_grad(params, basic, target, size, seed=7, **kw)
+    read("(a) records_loss_and_grad basic 800x600 4spp d8", render_record_kernel=spp)
+    peak_a = torch.cuda.max_memory_allocated()
+    reset()
+    loss_m, g_m = G.mse_loss_and_grad(params, basic, target, size, seed=7, **kw)
+    read("(a) mse_loss_and_grad (mono) at the same seed", mse_step_kernel=1)
+    ok, rel = _grads_close(g_r, g_m)
+    loss_rel = abs(loss_r.item() - loss_m.item()) / loss_m.item()
+    log(f"[4] (a) records route vs the mono step, basic 800x600 4spp d8 seed 7: loss "
+        f"{loss_r.item():.9g} vs {loss_m.item():.9g} (rel {loss_rel:.3g}); max |d|/max|g| per key "
+        f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} }; peak device memory "
+        f"{peak_a / 2**30:.2f} GiB")
+    check(loss_rel <= 1e-5 and ok, "the records route and the mono step disagree")
+    out["a"] = {"loss_records": loss_r.item(), "loss_mono": loss_m.item(), "loss_rel": loss_rel,
+                "grad_rel": rel, "peak_bytes": peak_a}
+
+    # (b) camera-only descent on dielectric/sm towards a frame rendered at a
+    # shifted camera, at a fixed seed: each of 5 steps moves along -g/|g| by
+    # the first of 0.02, 0.01, 0.005, 0.0025 that lowers the loss (a
+    # backtracking line search; the detached-sampling camera gradient has no
+    # silhouette term, so a long step can overshoot)
+    diel = scenes["dielectric"]
+    pos0 = diel.camera.position.clone()
+    shift = torch.tensor([0.1, 0.0, 0.0])
+    tgt_b = R.render_forward(diff.apply_params(diel, {"camera.position": pos0 + shift}), size,
+                             seed=5, spp=spp, max_bounces=depth, gamma=False, personality="sm",
+                             device="cuda")
+
+    def cam_eval(pos):
+        loss_i, g = diff.records_loss_and_grad({"camera.position": pos}, diel, tgt_b, size, seed=1,
+                                               personality="sm", **kw)
+        gp = g["camera.position"].cpu()
+        check(set(g) == {"camera.position"} and bool(torch.isfinite(gp).all()),
+              "camera gradient missing or not finite")
+        return loss_i.item(), gp
+
+    reset()
+    pos = pos0.clone()
+    loss_b, gp = cam_eval(pos)
+    losses, dists, evals = [loss_b], [float((pos - pos0 - shift).norm())], 1
+    for _ in range(5):
+        for step in (0.02, 0.01, 0.005, 0.0025):
+            trial = pos - step * gp / gp.norm().clamp_min(1e-30)
+            loss_t, g_t = cam_eval(trial)
+            evals += 1
+            if loss_t < losses[-1]:
+                pos, gp = trial, g_t
+                losses.append(loss_t)
+                dists.append(float((pos - pos0 - shift).norm()))
+                break
+        else:
+            break
+    read(f"(b) descent on camera.position, dielectric/sm 800x600 4spp d8 ({evals} evaluations)",
+         render_record_kernel=evals * spp)
+    log(f"[4] (b) camera-only descent: losses {losses}; distance to the target camera {dists}")
+    check(losses[-1] < losses[0], "the camera-only descent did not lower the loss")
+    out["b"] = {"losses": losses, "distances": dists, "evaluations": evals}
+
+    # (c) past the unrolled cap: 660 spheres + 24 boxes through the
+    # blockwise record kernel at the config-5 slice's shape
+    big = scenes["bigbox"]
+    size_c, spp_c = BIG_BOX_SHAPE["size"], BIG_BOX_SHAPE["spp"]
+    check(not R.supported(big, include_boxes=True), "the box scene fits the render kernel")
+    params_c = diff.extract_params(big)
+    tgt_c = torch.full((size_c[1], size_c[0], 3), 0.2, device="cuda")
+    kw_c = dict(seed=3, spp=spp_c, max_bounces=depth, include_boxes=True, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    loss_c, g_c = diff.records_loss_and_grad(params_c, big, tgt_c, size_c, **kw_c)
+    read("(c) records_loss_and_grad 660 spheres + 24 boxes 960x540 2spp d8",
+         blockwise_record_kernel=spp_c)
+    peak_c = torch.cuda.max_memory_allocated()
+    gb, ge = g_c["boxes.center"], g_c["boxes.extents"]
+    log(f"[4] (c) loss {loss_c.item():.9g}; max |grad| boxes.center {gb.abs().max().item():.4g}, "
+        f"boxes.extents {ge.abs().max().item():.4g}; peak device memory {peak_c / 2**30:.2f} GiB")
+    check(all(bool(torch.isfinite(g).all()) for g in g_c.values()), "(c) gradient not finite")
+    check(gb.abs().max().item() > 0 and ge.abs().max().item() > 0, "(c) box gradients are zero")
+
+    eps = 1e-3
+    reset()
+    fd_alb = []
+    for sign in (1, -1):
+        p = dict(params_c)
+        p["materials.albedo"] = params_c["materials.albedo"].clone()
+        p["materials.albedo"][0, 0] += sign * eps
+        fd_alb.append(diff.records_loss_and_grad(p, big, tgt_c, size_c, **kw_c)[0].item())
+    read("(c) central FD on materials.albedo[0, 0] (2 evaluations)",
+         blockwise_record_kernel=2 * spp_c)
+    fd_a = (fd_alb[0] - fd_alb[1]) / (2 * eps)
+    an_a = g_c["materials.albedo"][0, 0].item()
+
+    # A box centre moves the hit points on the box, and from there the
+    # later bounces' origins: where such a ray grazes a sphere its t has
+    # an infinite derivative (1/sqrt of the discriminant), so one ray can
+    # carry most of the gradient and a +-1e-3 step jumps across it; the
+    # box also moves its silhouette, a term the detached-sampling gradient
+    # leaves out by design (rt_tpu.diff).  Both differences, on the replay
+    # with the records held and through the whole route, are printed for
+    # the coordinate with the largest gradient; neither is held to a
+    # tolerance (tests/test_torch_records_grad.py holds a box centre's
+    # difference at the JAX test's well-conditioned shape).
+    i_box, c_box = divmod(int(gb.abs().argmax()), 3)
+    big_dev = big.to("cuda")
+    recs = [R.records_to_flat(BW.render_record_blockwise_tile(
+        *record_tables(big, "mg", size_c, True, True), torch.from_numpy(
+            G._sample_seeds(3, spp_c)[s:s + 1]).cuda(), size=size_c, max_bounces=depth,
+        center_sample=(s == 0))[1]) for s in range(spp_c)]
+    grid = _pixel_grid(size_c, "cuda")
+
+    @torch.no_grad()
+    def pinned_loss(center):
+        sc = diff.apply_params(big_dev, {"boxes.center": center})
+        acc = None
+        for r in recs:
+            o, d = diff._record_rays(sc.camera, size_c, grid, r["jitter"])
+            names = ("kind", "idx", "root_lo", "live_in", "miss", "alive_out", "reflect_bit",
+                     "lam_deg")
+            rad = replay_radiance(sc, o, d, None, PathRecords(*(r[k] for k in names)),
+                                  max_bounces=depth, draws=(r["ur"], r["coin"]),
+                                  include_boxes=True)
+            acc = rad if acc is None else acc + rad
+        img = (acc / spp_c).reshape(size_c[1], size_c[0], 3).double()
+        return torch.mean((img - tgt_c.double()) ** 2).item()
+
+    fd_box, fd_full = [], []
+    for sign in (1, -1):
+        c = params_c["boxes.center"].clone().cuda()
+        c[i_box, c_box] += sign * eps
+        fd_box.append(pinned_loss(c))
+        p = dict(params_c, **{"boxes.center": c})
+        fd_full.append(diff.records_loss_and_grad(p, big, tgt_c, size_c, **kw_c)[0].item())
+    fd_b = (fd_box[0] - fd_box[1]) / (2 * eps)
+    fd_bf = (fd_full[0] - fd_full[1]) / (2 * eps)
+    an_b = gb[i_box, c_box].item()
+    rel_a = abs(an_a - fd_a) / max(abs(fd_a), 1e-12)
+    rel_b = abs(an_b - fd_b) / max(abs(fd_b), 1e-12)
+    reset()
+    log(f"[4] (c) materials.albedo[0, 0]: analytic {an_a:.6g}, central FD {fd_a:.6g} (rel "
+        f"{rel_a:.3g}, tolerance 3e-2); boxes.center[{i_box}, {c_box}]: analytic {an_b:.6g}, "
+        f"central FD on the held records {fd_b:.6g} (rel {rel_b:.3g}), through the route "
+        f"{fd_bf:.6g} (not held to a tolerance)")
+    check(rel_a <= 3e-2, "(c) the albedo gradient disagrees with its finite difference")
+    out["c"] = {"loss": loss_c.item(), "box_center_max": gb.abs().max().item(),
+                "box_extents_max": ge.abs().max().item(), "peak_bytes": peak_c,
+                "fd_albedo": [an_a, fd_a, rel_a], "fd_box_center": [i_box, c_box, an_b, fd_b, rel_b],
+                "fd_box_center_full_pipeline": fd_bf}
+
+    # (d) the roofline path: the probe at its two chain lengths
+    reset()
+    tf_1k, dt_1k = roofline.measure_fma_peak(1024, windows=3)
+    tf_4k, dt_4k = roofline.measure_fma_peak(4096, windows=3)
+    read("(d) roofline.measure_fma_peak k=1024 and 4096", fma_peak_kernel=2 * (1 + 3 * 16))
+    out["d"] = {"tflops_1k": tf_1k, "tflops_4k": tf_4k, "scaling": dt_4k / dt_1k}
+    report["records_main_path"] = dict(out, launches=total)
+    return total, {"params": params, "target": target}
+
+
+def records_timing(scenes, shape_a, card, report):
+    """Phase 5 for the record kernels, the records route and the probe.
+    Returns per-kernel timing rows for the kernels' JSON line."""
+    import torch
+    from rt_tpu_torch import diff, profiling, roofline
+    from rt_tpu_torch.ops import blockwise as BW
+    from rt_tpu_torch.ops import grad as G
+    from rt_tpu_torch.ops import render as R
+
+    rows = {}
+    seeds = torch.tensor([11], dtype=torch.int32, device="cuda")
+    for name, key, size, boxes, blockwise in (
+            ("render_record_kernel", "basic", REC_SHAPE["size"], False, False),
+            ("blockwise_record_kernel", "bigbox", BIG_BOX_SHAPE["size"], True, True)):
+        args = record_tables(scenes[key], "mg", size, boxes, blockwise)
+        kernel = BW.render_record_blockwise_tile if blockwise else R.render_record_tile
+        plain = BW.render_record_blockwise_tile_plain if blockwise else R.render_record_tile_plain
+        kw = dict(size=size, max_bounces=8, center_sample=False)
+        k_s = profiling.sustained(lambda i: kernel(*args, seeds, **kw), iters=16)
+        p_s = profiling.sustained(lambda i: plain(*args, seeds, **kw), iters=1, windows=1,
+                                  warmup_windows=0)
+        work = record_work(kernel(*args, seeds, **kw)[1], args[:-1], blockwise)
+        b_ms, b_by = record_bound(work, 8, (16, 16, 16) if blockwise else (10, 10, 12))
+        rows[name] = {"ms": k_s["median"] * 1e3, "spread_ms": [k_s["min"] * 1e3, k_s["max"] * 1e3],
+                      "plain_ms": p_s["median"] * 1e3, "bound_ms": b_ms, "bound_by": b_by,
+                      "live_work": {k: v for k, v in work.items() if k != "counts"},
+                      "case": f"{key} {size[0]}x{size[1]} 1 sample d8"}
+        log(f"[5] {name} {key} {size[0]}x{size[1]} 1 sample d8: kernel {rows[name]['ms']:.4f} ms, "
+            f"plain {rows[name]['plain_ms']:.1f} ms, bound {b_ms:.4f} ms ({b_by}); live bounces "
+            f"{work['live']} of {work['rays'] * 8} | {card}")
+
+    # the (a) step against the mono step, interleaved windows
+    basic = scenes["basic"]
+    size, spp, depth = REC_SHAPE["size"], REC_SHAPE["spp"], REC_SHAPE["max_bounces"]
+    params, target = shape_a["params"], shape_a["target"]
+    mono = G.make_mse_step(params, basic, target, size, spp=spp, max_bounces=depth,
+                           device="cuda")
+
+    def rec_step(i):
+        return diff.records_loss_and_grad(params, basic, target, size, seed=i, spp=spp,
+                                          max_bounces=depth, device="cuda")
+
+    rec_step(0), mono(0)
+    torch.cuda.synchronize()
+    ws_r, ws_m = [], []
+    for _ in range(5):
+        ws_r.append(window_s(rec_step, 2))
+        ws_m.append(window_s(lambda i: mono(i), 16))
+    med_r, med_m = sorted(ws_r)[2], sorted(ws_m)[2]
+    dr = profiling.device_times(rec_step, iters=2)
+    rec_ms = sum(v for k, v in dr.items() if "render_record_kernel" in k)
+    dev_ms = sum(dr.values())
+    step_row = {
+        "step_ms": med_r * 1e3, "step_windows_ms": [x * 1e3 for x in ws_r],
+        "fwd_bwd_mrays_s": profiling.mrays_per_sec(size, spp, med_r),
+        "mono_step_ms": med_m * 1e3, "mono_windows_ms": [x * 1e3 for x in ws_m],
+        "mono_fwd_bwd_mrays_s": profiling.mrays_per_sec(size, spp, med_m),
+        "records_over_mono": med_r / med_m,
+        "device_ms": {"record_kernels": rec_ms, "replay_autograd_and_rest": dev_ms - rec_ms},
+        "busy_share": dev_ms / (med_r * 1e3),
+        "step_device_ms_top": dict(sorted(dr.items(), key=lambda kv: -kv[1])[:12]),
+    }
+    log(f"[5] records_loss_and_grad basic 800x600 4spp d8: {step_row['step_ms']:.2f} ms = "
+        f"{step_row['fwd_bwd_mrays_s']:.1f} Mrays/s fwd+bwd; the mono step "
+        f"{step_row['mono_step_ms']:.4f} ms = {step_row['mono_fwd_bwd_mrays_s']:.1f} Mrays/s "
+        f"(records/mono {step_row['records_over_mono']:.1f}, interleaved); device ms per step: "
+        f"record kernels {rec_ms:.3f}, replay autograd and the rest {dev_ms - rec_ms:.2f}; busy "
+        f"{step_row['busy_share']:.3f} | {card}")
+
+    # the probe: TFLOP/s at both chain lengths and the scaling verdict
+    x = torch.full((256, 128), 1.0 + 1e-6, device="cuda")
+    tf_1k, dt_1k = roofline.measure_fma_peak(1024)
+    tf_4k, dt_4k = roofline.measure_fma_peak(4096)
+    scaling = dt_4k / dt_1k
+    valid = 2.5 <= scaling <= 6.0
+    p_s = profiling.sustained(lambda i: roofline.fma_peak_plain(x, 4096), iters=1, windows=1,
+                              warmup_windows=0)
+    elems = 256 * 128 * roofline.TILES
+    f_bound = bound(4 * (256 * 128 + elems), 4096 * elems)  # one FMA = one issued operation
+    rows["fma_peak_kernel"] = {"ms": dt_4k * 1e3, "plain_ms": p_s["median"] * 1e3,
+                               "bound_ms": f_bound[0], "bound_by": f_bound[1],
+                               "tflops_1k": tf_1k, "tflops_4k": tf_4k, "ms_1k": dt_1k * 1e3,
+                               "scaling": scaling, "valid": valid}
+    log(f"[5] fma_peak_kernel: k=1024 {tf_1k:.2f} TFLOP/s ({dt_1k * 1e3:.4f} ms), k=4096 "
+        f"{tf_4k:.2f} TFLOP/s ({dt_4k * 1e3:.4f} ms, bound {f_bound[0]:.4f} ms at 67 TFLOP/s), "
+        f"scaling {scaling:.2f}x: {'valid' if valid else 'INVALID'}; plain "
+        f"{rows['fma_peak_kernel']['plain_ms']:.1f} ms | {card}")
+    check(valid, f"the FMA probe's K-scaling check failed ({scaling:.2f}x)")
+    report["records_timing"] = dict(rows, records_step=step_row)
+    return rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1434,6 +1918,8 @@ def main() -> int:
     bw_errs = blockwise_parity(scenes, report)
     wf_errs = wavefront_parity(scenes, report)
     wf_shape = wavefront_main_shape(scenes, report, wf_errs)
+    scenes["bigbox"] = big_box_scene()
+    rec_errs = records_parity(scenes, report)
 
     # ---- 4. main path through the entry points ----
     with tempfile.TemporaryDirectory() as tmp:
@@ -1467,6 +1953,7 @@ def main() -> int:
     grad_launches, step_mse, step_c3 = grad_main_paths(scenes, report)
     bw_launches, step_bw, params_bw = blockwise_main_paths(scenes, report)
     wf_launches, step_wf, params_wf, target_wf = wavefront_main_paths(scenes, report)
+    rec_launches, shape_a = records_main_paths(scenes, report)
 
     # ---- 5. timing (CUDA events; device time by kernel from the profiler) ----
     size = (800, 600)
@@ -1525,6 +2012,7 @@ def main() -> int:
     g_rows = grad_timing(scenes, step_mse, step_c3, card, report)
     bw_rows = blockwise_timing(scenes, step_bw, params_bw, card, report)
     wf_rows = wavefront_timing(scenes, step_wf, params_wf, target_wf, wf_shape, card, report)
+    rec_rows = records_timing(scenes, shape_a, card, report)
 
     check("jax" not in sys.modules and "rt_tpu" not in sys.modules, "JAX was imported")
     log("[report] " + json.dumps(report))
@@ -1568,6 +2056,17 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"rt_tpu_torch/csrc/{source}.cu",
             "replaces": replaces, "launches": wf_launches[name],
             "max_abs_err": wf_errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+        })
+    for name, source, replaces in (
+            ("render_record_kernel", "render_kernel", "rt_tpu/ops/pallas_render.py:686"),
+            ("blockwise_record_kernel", "blockwise_kernel", "rt_tpu/ops/pallas_blockwise.py:1565"),
+            ("fma_peak_kernel", "fma_peak_kernel", "tools/roofline.py:37")):
+        row = rec_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"rt_tpu_torch/csrc/{source}.cu",
+            "replaces": replaces, "launches": rec_launches[name],
+            "max_abs_err": rec_errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
         })
     log(json.dumps({"kernels": kernels}))

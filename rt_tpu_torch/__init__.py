@@ -6,21 +6,26 @@ path replaced by a hand-written CUDA kernel (built with nvcc at first use).
 Module names follow ``rt_tpu`` so each counterpart is easy to find.
 
 Ported so far (the forward render path, from TOML scene to PNG, the
-fused training step, and the blockwise and wavefront routes for scenes of
-up to 16384 primitives):
-  log, colour, camera, scene, materials (class table), image,
-  ops.render (the forward megakernel), diff (parameter plumbing),
-  ops.grad (the fused fwd+bwd MSE step and its two kernels),
-  ops.blockwise and ops.blockwise_grad (the blockwise forward and fused
-  fwd+bwd kernels, and the optimizer step), ops.wavefront and
+fused training step, the blockwise and wavefront routes for scenes of up
+to 16384 primitives, and the records-and-replay gradient):
+  log, colour, camera, scene, materials (class table and scatter), image,
+  ops.render (the forward megakernel and its record form), diff
+  (parameter plumbing and records_loss_and_grad), ops.grad (the fused
+  fwd+bwd MSE step and its two kernels), ops.blockwise and
+  ops.blockwise_grad (the blockwise forward and record kernels, the fused
+  fwd+bwd kernel, and the optimizer step), ops.wavefront and
   ops.wavefront_grad (the bounce-major forward kernel, its scan-free
-  reverse, and the optimizer step), train (make_kernel_train_step),
-  profiling, renderer, cli.
+  reverse, and the optimizer step), ops.intersect (safe_normalize),
+  integrator (sky_colour), replay (replay_radiance), train
+  (make_kernel_train_step), roofline (the FMA peak probe; run as
+  ``python -m rt_tpu_torch.roofline``, so not imported here), profiling,
+  renderer, cli.
 
 Importing this package needs neither CUDA nor JAX.
 """
 
-from . import camera, colour, diff, image, log, materials, ops, profiling, renderer, scene, train
+from . import (camera, colour, diff, image, integrator, log, materials, ops, profiling, renderer,
+               replay, scene, train)
 from .scene import Scene, from_jax_scene, load, load_first_available, loads
 
 __version__ = "0.1.0"
@@ -30,11 +35,13 @@ __all__ = [
     "colour",
     "diff",
     "image",
+    "integrator",
     "log",
     "materials",
     "ops",
     "profiling",
     "renderer",
+    "replay",
     "scene",
     "train",
     "Scene",

@@ -32,6 +32,15 @@
 // chip_smoke.py times this kernel against the render kernel on the same
 // 500-sphere scene: the difference is the cost of the choice.
 //
+// blockwise_record_kernel replaces pallas_blockwise.py::_make_bw_record_kernel
+// (the record pass of pallas_loss_and_grad past the unrolled kernel's 640
+// primitives; its record math is _bounce_once's want_record="replay"): one
+// sample per pixel with the replay records, trace.cuh's record_pixel with
+// the blockwise kernel's record conventions, the tables read as above.
+// The JAX kernel scans without cull or Morton order, so the recorded index
+// (the table row) is the scene index.  What bounds it: the scan, as
+// above, and the record writes (7 x 4 bytes per pixel per bounce).
+//
 // Rows: spheres and planes [cx|nx, cy|ny, cz|nz, r|d, alb r, g, b, refl,
 // rough, cls, original index, 0...], boxes [cx, cy, cz, ex, ey, ez, alb r,
 // g, b, refl, rough, cls, original index, 0...]; the index column is the
@@ -66,6 +75,22 @@ __global__ void __launch_bounds__(kThreads) blockwise_kernel(
   o[2] = acc[2];
 }
 
+__global__ void __launch_bounds__(kThreads) blockwise_record_kernel(
+    const float* __restrict__ spheres, int n_spheres,
+    const float* __restrict__ planes, int n_planes,
+    const float* __restrict__ boxes, int n_boxes,
+    const float* __restrict__ cam, const int32_t* __restrict__ seeds, RecordPtrs P, int width,
+    int height, float inv_w, float inv_h, int max_bounces, int center_sample, int rng_sphere) {
+  const int n = width * height;
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= n) return;
+  const Tables T{spheres, n_spheres, planes, n_planes, boxes, n_boxes};
+  record_pixel<kCols, kCols, kRecBlockwise>(
+      T, cam, static_cast<uint32_t>(gid), n, static_cast<float>(gid % width),
+      static_cast<float>(gid / width), static_cast<uint32_t>(seeds[0]), inv_w, inv_h,
+      max_bounces, center_sample, rng_sphere, true, P);
+}
+
 }  // namespace
 
 // Launches one call on `stream`; returns cudaGetLastError() as an int.
@@ -80,5 +105,22 @@ extern "C" int rt_blockwise_forward(
   blockwise_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       spheres, n_spheres, planes, n_planes, boxes, n_boxes, cam, seeds, out, width, height,
       inv_w, inv_h, spp, max_bounces, center_sample, rng_sphere);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches one record call on `stream`; returns cudaGetLastError() as an
+// int.  Tables as rt_blockwise_forward; outputs as rt_render_record
+// (render_kernel.cu).
+extern "C" int rt_blockwise_record(
+    const float* spheres, int n_spheres, const float* planes, int n_planes,
+    const float* boxes, int n_boxes, const float* cam, const int32_t* seeds, float* rad,
+    int32_t* kind, int32_t* idx, int32_t* bits, float* urx, float* ury, float* urz,
+    float* coin, float* jitter, int width, int height, float inv_w, float inv_h,
+    int max_bounces, int center_sample, int rng_sphere, void* stream) {
+  const int blocks = (width * height + kThreads - 1) / kThreads;
+  const RecordPtrs P{rad, kind, idx, bits, urx, ury, urz, coin, jitter};
+  blockwise_record_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      spheres, n_spheres, planes, n_planes, boxes, n_boxes, cam, seeds, P, width, height,
+      inv_w, inv_h, max_bounces, center_sample, rng_sphere);
   return static_cast<int>(cudaGetLastError());
 }

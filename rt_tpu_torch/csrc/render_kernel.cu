@@ -31,6 +31,20 @@
 // The per-pixel code, its bit-level contract with the JAX package (and
 // with render_tile_plain) and its tie rules are in trace.cuh, which the
 // blockwise kernel shares.
+//
+// render_record_kernel replaces the same TPU kernel with record=True
+// (pallas_render.py:686, _compiled_record): one sample per pixel, and per
+// bounce the replay record that rt_tpu_torch.replay consumes (trace.cuh's
+// record_pixel, the record form of bounce_once with the unrolled kernel's
+// conventions).  Same tables in shared memory, same one thread per pixel.
+// What bounds it on this card: the record writes, 7 x 4 bytes per pixel per
+// bounce (107 MB at 800x600, depth 8), coalesced across a warp (one array
+// row per bounce); the trace itself is the render kernel's 1-spp frame.
+// Unlike the render kernel it cannot `break` out of a dead path: every
+// bounce writes its draws, as the JAX kernel does.  The JAX kernel bakes
+// its tables and knows at compile time whether they hold a dielectric
+// (it computes the reflect bit only then); here the block finds out while
+// it copies the tables (__syncthreads_or).
 
 #include "trace.cuh"
 
@@ -74,6 +88,38 @@ __global__ void __launch_bounds__(kThreads) render_kernel(
   o[2] = acc[2];
 }
 
+__global__ void __launch_bounds__(kThreads) render_record_kernel(
+    const float* __restrict__ spheres, int n_spheres,
+    const float* __restrict__ planes, int n_planes,
+    const float* __restrict__ boxes, int n_boxes,
+    const float* __restrict__ cam, const int32_t* __restrict__ seeds, RecordPtrs P, int width,
+    int height, float inv_w, float inv_h, int max_bounces, int center_sample, int rng_sphere) {
+  extern __shared__ float smem[];
+  float* s_pl = smem;
+  float* s_sp = s_pl + n_planes * kPrimCols;
+  float* s_bx = s_sp + n_spheres * kPrimCols;
+  for (int i = threadIdx.x; i < n_planes * kPrimCols; i += blockDim.x) s_pl[i] = planes[i];
+  for (int i = threadIdx.x; i < n_spheres * kPrimCols; i += blockDim.x) s_sp[i] = spheres[i];
+  for (int i = threadIdx.x; i < n_boxes * kBoxCols; i += blockDim.x) s_bx[i] = boxes[i];
+  // whether any table row's class (column 9, boxes 11) is dielectric
+  int die = 0;
+  for (int i = threadIdx.x; i < n_planes; i += blockDim.x) die |= planes[i * kPrimCols + 9] == 2.0f;
+  for (int i = threadIdx.x; i < n_spheres; i += blockDim.x) {
+    die |= spheres[i * kPrimCols + 9] == 2.0f;
+  }
+  for (int i = threadIdx.x; i < n_boxes; i += blockDim.x) die |= boxes[i * kBoxCols + 11] == 2.0f;
+  const bool has_die = __syncthreads_or(die) != 0;
+
+  const int n = width * height;
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= n) return;
+  const Tables T{s_sp, n_spheres, s_pl, n_planes, s_bx, n_boxes};
+  record_pixel<kPrimCols, kBoxCols, kRecUnrolled>(
+      T, cam, static_cast<uint32_t>(gid), n, static_cast<float>(gid % width),
+      static_cast<float>(gid / width), static_cast<uint32_t>(seeds[0]), inv_w, inv_h,
+      max_bounces, center_sample, rng_sphere, has_die, P);
+}
+
 }  // namespace
 
 // Launches one call on `stream`; returns cudaGetLastError() as an int.
@@ -93,5 +139,27 @@ extern "C" int rt_render_forward(
       spheres, n_spheres, planes, n_planes, boxes, n_boxes, cam, seeds, out,
       width, height, frames, inv_w, inv_h, spp, max_bounces, center_sample,
       rng_sphere);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches one record call on `stream`; returns cudaGetLastError() as an
+// int.  Tables as rt_render_forward; seeds: (1,) int32; rad: (height,
+// width, 3) float32; kind, idx, bits: (max_bounces, N) int32; urx, ury,
+// urz, coin: (max_bounces, N) float32; jitter: (2, N) float32 (N = width *
+// height).
+extern "C" int rt_render_record(
+    const float* spheres, int n_spheres, const float* planes, int n_planes,
+    const float* boxes, int n_boxes, const float* cam, const int32_t* seeds, float* rad,
+    int32_t* kind, int32_t* idx, int32_t* bits, float* urx, float* ury, float* urz,
+    float* coin, float* jitter, int width, int height, float inv_w, float inv_h,
+    int max_bounces, int center_sample, int rng_sphere, void* stream) {
+  const int blocks = (width * height + kThreads - 1) / kThreads;
+  const size_t smem =
+      sizeof(float) * (static_cast<size_t>(n_spheres + n_planes) * kPrimCols +
+                       static_cast<size_t>(n_boxes) * kBoxCols);
+  const RecordPtrs P{rad, kind, idx, bits, urx, ury, urz, coin, jitter};
+  render_record_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      spheres, n_spheres, planes, n_planes, boxes, n_boxes, cam, seeds, P, width, height,
+      inv_w, inv_h, max_bounces, center_sample, rng_sphere);
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,6 +31,28 @@
 //     ray changes no carried value.  A metal that absorbs still moves the
 //     ray to its hit point and new direction, as _bounce_once does (only
 //     the wavefront state keeps them, and nothing reads a dead ray's).
+//
+// The record form of bounce_once (template argument kRec, used by
+// record_pixel for the two record kernels) also returns the bounce's
+// replay record, as the JAX record kernels write it
+// (pallas_render.py:532-549; pallas_blockwise.py:1034-1059): the winner's
+// kind in the records' numbering (0 miss, 1 sphere, 2 plane, 3 box: not
+// the Kind enum's), its index within its class, the bits word (1 near root
+// of the winning sphere, 2 dielectric reflect, 4 lambert degenerate, 8 live
+// and missed, 16 live in, 32 alive out), the normalized unit vector and the
+// coin.  The JAX kernels compute the reflect and degeneracy decisions
+// densely, on every lane whatever its class, a missed lane included (with
+// the empty winner: normal from a zero centre, reflectivity 1), so the
+// record form computes both on every live ray.  Where the two JAX kernels
+// differ, on bits that the replay never reads, each record form follows
+// its own: the unrolled kernel (kRecUnrolled) computes the reflect bit only
+// when its tables hold a dielectric (its class-presence specialization,
+// pallas_render.py:201-205) and keeps the root bit of the last sphere that
+// led the scan (a box may beat it later); the blockwise kernel
+// (kRecBlockwise) computes the reflect bit always and recomputes the root
+// bit from the winner's sphere row, an all-zero row unless a sphere won.
+// The existing kernels instantiate kRecNone, for which none of this is
+// compiled.
 
 #pragma once
 
@@ -39,6 +61,23 @@
 namespace {
 
 enum Kind { kNone = 0, kPlane = 1, kSphere = 2, kBox = 3 };
+
+// The record forms of bounce_once (see the note above).
+enum RecordForm { kRecNone = 0, kRecUnrolled = 1, kRecBlockwise = 2 };
+
+// One bounce's replay record.
+struct Record {
+  int32_t kind, idx, bits;
+  float ux, uy, uz, coin;
+};
+
+// Where a record kernel writes: rad (N, 3), the per-bounce records (B, N)
+// each, the jitter (2, N).
+struct RecordPtrs {
+  float* rad;
+  int32_t *kind, *idx, *bits;
+  float *urx, *ury, *urz, *coin, *jitter;
+};
 
 __device__ __forceinline__ float sign(float x) {
   return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
@@ -83,21 +122,85 @@ __device__ __forceinline__ Ray camera_ray(const float* __restrict__ cam, float p
              dwx * dinv, dwy * dinv, dwz * dinv, 1.0f, 1.0f, 1.0f};
 }
 
+// The draws of one bounce at counters c+1 .. c+4: the unit vector (mapped
+// to [-1, 1) first under rng_sphere) normalized, and the coin.
+__device__ __forceinline__ void unit_draws(uint32_t pix, uint32_t seed, uint32_t c,
+                                           int rng_sphere, float& ux, float& uy, float& uz,
+                                           float& coin) {
+  ux = hash_u01(pix, seed, c + 1u);
+  uy = hash_u01(pix, seed, c + 2u);
+  uz = hash_u01(pix, seed, c + 3u);
+  coin = hash_u01(pix, seed, c + 4u);
+  if (rng_sphere) {
+    ux = 2.0f * ux - 1.0f; uy = 2.0f * uy - 1.0f; uz = 2.0f * uz - 1.0f;
+  }
+  const float uinv = rsqrt_rn(fmaxf(ux * ux + uy * uy + uz * uz, 1e-30f));
+  ux = ux * uinv; uy = uy * uinv; uz = uz * uinv;
+}
+
+// The record form's decision bits and the rest of its record, for a live
+// ray at pre-bounce origin o and direction d whose winner (kind, win, the
+// scan's root flag) has normal n and reflectivity brf.  The lambert and
+// Fresnel expressions are bounce_once's, operation for operation.
+template <int kRec>
+__device__ __forceinline__ void fill_record(Record* rec, int kind, int win, bool root, float ox,
+                                            float oy, float oz, float dx, float dy, float dz,
+                                            float nx, float ny, float nz, float brf, float ux,
+                                            float uy, float uz, float coin, bool has_die,
+                                            bool alive) {
+  const float lx = nx + ux, ly = ny + uy, lz = nz + uz;
+  const bool ldeg = lx * lx + ly * ly + lz * lz < 1e-16f;
+  bool refl = false;
+  if (has_die) {
+    const float dd = dx * nx + dy * ny + dz * nz;
+    const bool inside = dd > 0.0f;
+    const float sgn = inside ? -1.0f : 1.0f;
+    const float onx = sgn * nx, ony = sgn * ny, onz = sgn * nz;
+    const float eta = inside ? brf : 1.0f / fmaxf(brf, 1e-12f);
+    const float cosine = inside ? brf * dd : -dd;
+    const float cos_i = -(dx * onx + dy * ony + dz * onz);
+    const float sin2 = eta * eta * (1.0f - cos_i * cos_i);
+    float r0s = (1.0f - brf) / (1.0f + brf);
+    r0s = r0s * r0s;
+    const float omc = 1.0f - cosine;
+    const float omc2 = omc * omc;
+    const float prob = sin2 > 1.0f ? 1.0f : r0s + (1.0f - r0s) * omc2 * omc2 * omc;
+    refl = coin < prob;
+  }
+  if constexpr (kRec == kRecBlockwise) {
+    if (kind != kSphere) {
+      // the root of an all-zero sphere row
+      const float zb = ox * dx + oy * dy + oz * dz;
+      const float zdisc = zb * zb - (ox * ox + oy * oy + oz * oz);
+      root = -zb - sqrtf(fmaxf(zdisc, 0.0f)) >= kMinHit;
+    }
+  }
+  rec->kind = kind == kSphere ? 1 : (kind == kPlane ? 2 : (kind == kBox ? 3 : 0));
+  rec->idx = win;
+  rec->bits = (root ? 1 : 0) | (refl ? 2 : 0) | (ldeg ? 4 : 0) | (kind == kNone ? 8 : 0) | 16 |
+              (alive ? 32 : 0);
+  rec->ux = ux; rec->uy = uy; rec->uz = uz; rec->coin = coin;
+}
+
 // One bounce of one live ray (pallas_blockwise._bounce_once): closest hit,
 // then on a miss the sky is added to rad and the path ends; on a hit the
 // ray moves to the hit point and its scattered direction, and its
 // throughput takes the winner's albedo times reflectivity unless a metal
 // absorbed it (then the path ends with the throughput unchanged).  The
 // draws are at counters c+1 .. c+4 (c = sample base + 2 + 4b).  Returns
-// whether the ray lives on; `word` receives the winner word.
-template <int kPrimStride, int kBoxStride>
+// whether the ray lives on; `word` receives the winner word, and the
+// record forms (kRec != kRecNone) fill `rec`, with the reflect bit only
+// where `has_die`.
+template <int kPrimStride, int kBoxStride, int kRec = kRecNone>
 __device__ __forceinline__ bool bounce_once(const Tables& T, uint32_t pix, uint32_t seed,
                                             uint32_t c, int rng_sphere, Ray& r, float rad[3],
-                                            int32_t& word) {
+                                            int32_t& word, Record* rec = nullptr,
+                                            bool has_die = true) {
   const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
   // ---- closest hit ----
   float best = kBig;
   int kind = kNone, win = 0;
+  bool root = false;  // record forms: the near-root flag of the sphere that last led the scan
   for (int p = 0; p < T.n_planes; ++p) {
     const float* q = T.planes + p * kPrimStride;
     const float nd = q[0] * dx + q[1] * dy + q[2] * dz;
@@ -119,6 +222,7 @@ __device__ __forceinline__ bool bounce_once(const Tables& T, uint32_t pix, uint3
     const float t = t0 >= kMinHit ? t0 : t1;
     if (disc >= 0.0f && t >= kMinHit && (t < best || (t == best && kind == kPlane))) {
       best = t; kind = kSphere; win = i;
+      if constexpr (kRec != kRecNone) root = t0 >= kMinHit;
     }
   }
   if (T.n_boxes > 0) {
@@ -143,6 +247,16 @@ __device__ __forceinline__ bool bounce_once(const Tables& T, uint32_t pix, uint3
     rad[1] = rad[1] + r.tg * (1.0f - 0.3f * ts);
     rad[2] = rad[2] + r.tb;
     word = kWordMiss;
+    if constexpr (kRec != kRecNone) {
+      // the empty winner: the sphere normal of a zero centre at the
+      // origin (t = 0), reflectivity 1
+      float ux, uy, uz, coin;
+      unit_draws(pix, seed, c, rng_sphere, ux, uy, uz, coin);
+      const float hx = ox + 0.0f * dx, hy = oy + 0.0f * dy, hz = oz + 0.0f * dz;
+      const float sinv = rsqrt_rn(fmaxf(hx * hx + hy * hy + hz * hz, 1e-30f));
+      fill_record<kRec>(rec, kNone, 0, root, ox, oy, oz, dx, dy, dz, hx * sinv, hy * sinv,
+                        hz * sinv, 1.0f, ux, uy, uz, coin, has_die, false);
+    }
     return false;
   }
   word = win | (kind == kPlane ? kWordPlane : 0) | (kind == kBox ? kWordBox : 0);
@@ -181,15 +295,8 @@ __device__ __forceinline__ bool bounce_once(const Tables& T, uint32_t pix, uint3
   const float cls = pay[5];
 
   // ---- scatter (draws at counters c+1 .. c+4) ----
-  float ux = hash_u01(pix, seed, c + 1u);
-  float uy = hash_u01(pix, seed, c + 2u);
-  float uz = hash_u01(pix, seed, c + 3u);
-  const float coin = hash_u01(pix, seed, c + 4u);
-  if (rng_sphere) {
-    ux = 2.0f * ux - 1.0f; uy = 2.0f * uy - 1.0f; uz = 2.0f * uz - 1.0f;
-  }
-  const float uinv = rsqrt_rn(fmaxf(ux * ux + uy * uy + uz * uz, 1e-30f));
-  ux = ux * uinv; uy = uy * uinv; uz = uz * uinv;
+  float ux, uy, uz, coin;
+  unit_draws(pix, seed, c, rng_sphere, ux, uy, uz, coin);
 
   float ndx, ndy, ndz;
   bool alive = true;
@@ -242,6 +349,10 @@ __device__ __forceinline__ bool bounce_once(const Tables& T, uint32_t pix, uint3
     }
   }
 
+  if constexpr (kRec != kRecNone) {
+    fill_record<kRec>(rec, kind, win, root, ox, oy, oz, dx, dy, dz, nx, ny, nz, brf, ux, uy, uz,
+                      coin, has_die, alive);
+  }
   if (alive) {
     r.tr = r.tr * (bar * brf);
     r.tg = r.tg * (bag * brf);
@@ -277,6 +388,52 @@ __device__ __forceinline__ void trace_pixel(
       if (!bounce_once<kPrimStride, kBoxStride>(T, pix, seed, c, rng_sphere, r, acc, word)) break;
     }
   }
+}
+
+// One sample of pixel (px, py), flat index `pix` of `n`, with its replay
+// records (the record kernels, rows 2 and 6): the sample's counters are
+// trace_pixel's with spp = 1, its jitter is written even at the pixel
+// centre (0.5), every bounce writes its draws, and once the path has ended
+// a bounce writes kind, idx and bits 0.
+template <int kPrimStride, int kBoxStride, int kRec>
+__device__ __forceinline__ void record_pixel(const Tables& T, const float* __restrict__ cam,
+                                             uint32_t pix, int n, float px, float py,
+                                             uint32_t seed, float inv_w, float inv_h,
+                                             int max_bounces, int center_sample, int rng_sphere,
+                                             bool has_die, const RecordPtrs& P) {
+  float jx = 0.5f, jy = 0.5f;
+  if (!center_sample) {
+    jx = hash_u01(pix, seed, 1u);
+    jy = hash_u01(pix, seed, 2u);
+  }
+  P.jitter[pix] = jx;
+  P.jitter[n + pix] = jy;
+  Ray r = camera_ray(cam, px, py, jx, jy, inv_w, inv_h);
+  float rad[3] = {0.0f, 0.0f, 0.0f};
+  bool alive = true;
+  int32_t word;
+  for (int b = 0; b < max_bounces; ++b) {
+    const uint32_t c = 2u + 4u * static_cast<uint32_t>(b);
+    Record rec{0, 0, 0, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (alive) {
+      alive = bounce_once<kPrimStride, kBoxStride, kRec>(T, pix, seed, c, rng_sphere, r, rad,
+                                                         word, &rec, has_die);
+    } else {
+      unit_draws(pix, seed, c, rng_sphere, rec.ux, rec.uy, rec.uz, rec.coin);
+    }
+    const int64_t o = static_cast<int64_t>(b) * n + pix;
+    P.kind[o] = rec.kind;
+    P.idx[o] = rec.idx;
+    P.bits[o] = rec.bits;
+    P.urx[o] = rec.ux;
+    P.ury[o] = rec.uy;
+    P.urz[o] = rec.uz;
+    P.coin[o] = rec.coin;
+  }
+  float* out = P.rad + static_cast<int64_t>(pix) * 3;
+  out[0] = rad[0];
+  out[1] = rad[1];
+  out[2] = rad[2];
 }
 
 }  // namespace

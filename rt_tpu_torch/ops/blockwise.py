@@ -41,10 +41,13 @@ import torch
 
 from .grad import _check
 from .render import (_chunked_frame, _device, _flatten_boxes, _flatten_primitives, _inv_size,
-                     _pack_camera, _upload, render_tile_plain)
+                     _pack_camera, _record_outputs, _record_plain, _record_pointers, _upload,
+                     render_tile_plain)
 
 __all__ = ["MAX_BLOCKWISE_PRIMS", "blockwise_supported", "render_blockwise_tile",
-           "render_blockwise_tile_plain", "render_forward_blockwise"]
+           "render_blockwise_tile_plain", "render_forward_blockwise",
+           "render_record_blockwise_tile", "render_record_blockwise_tile_plain",
+           "render_record_blockwise"]
 
 MAX_BLOCKWISE_PRIMS = 16384  # the JAX kernel's cap (a (16384, 16) f32 table is 1 MB)
 _COLS = 16                   # padded row length (10 used; 12 for boxes)
@@ -233,3 +236,101 @@ def render_forward_blockwise(
 
     cam = _upload(_pack_camera(scene.camera, size), dev)
     return _chunked_frame(launch, cam, seed, spp, 1, gamma, dev)
+
+
+# ---------------------------------------------------------------------------
+# the blockwise record kernel: one sample per pixel and the replay records
+# ---------------------------------------------------------------------------
+
+
+def render_record_blockwise_tile_plain(spheres, planes, boxes, counts, cam, seeds, *, size,
+                                       max_bounces, center_sample, rng_mode="reference"):
+    """Plain PyTorch version of the blockwise record kernel, on the device
+    of ``cam``: the tables and counts of :func:`render_blockwise_tile_plain`,
+    the result of :func:`rt_tpu_torch.ops.render.render_record_tile_plain`
+    (``idx`` is the table row, which is the scene index: the JAX record
+    kernel scans without cull or Morton order).  It follows the JAX
+    blockwise record kernel (pallas_blockwise.py:1565-1661, whose record
+    math is ``_bounce_once``'s ``want_record="replay"``, :1034-1059) where
+    the two JAX record kernels differ on lanes that the replay never reads:
+    the reflect bit is computed on every lane whatever the tables hold,
+    and the root bit of a lane that no sphere won is that of an all-zero
+    sphere row."""
+    ns, npl, nb = counts
+    rows = (planes[:npl, :10].tolist(), spheres[:ns, :10].tolist(), boxes[:nb, :12].tolist())
+    return _record_plain(rows, cam, seeds, size=size, max_bounces=max_bounces,
+                         center_sample=center_sample, rng_mode=rng_mode, replay="blockwise")
+
+
+@functools.cache
+def _record_kernel():
+    from ._build import load_library
+
+    fn = load_library("blockwise_kernel").rt_blockwise_record
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p, i, p, i, p, i, p, p, p, p, p, p, p, p, p, p, p, i, i, f, f, i, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def render_record_blockwise_tile(spheres, planes, boxes, counts, cam, seeds, *, size, max_bounces,
+                                 center_sample, rng_mode="reference"):
+    """One launch of the blockwise record kernel; arguments and result as
+    :func:`render_record_blockwise_tile_plain`.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel on the current stream (without
+    synchronizing) or raise."""
+    fn = "render_record_blockwise_tile"
+    dev = cam.device
+    for name, t in (("spheres", spheres), ("planes", planes), ("boxes", boxes), ("seeds", seeds)):
+        if t.device != dev:
+            raise ValueError(f"{fn}: {name} is on {t.device} but cam on {dev}")
+    if rng_mode not in ("reference", "sphere"):
+        raise ValueError(f"unknown rng_mode {rng_mode!r}")
+    if dev.type == "cpu":
+        return render_record_blockwise_tile_plain(spheres, planes, boxes, counts, cam, seeds,
+                                                  size=size, max_bounces=max_bounces,
+                                                  center_sample=center_sample, rng_mode=rng_mode)
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: no kernel for device {dev}")
+    w, h = size
+    ns, npl, nb = counts
+    _check_tables(fn, (spheres, planes, boxes), counts, dev)
+    _check(fn, "cam", cam, torch.float32, (16,), dev)
+    _check(fn, "seeds", seeds, torch.int32, (1,), dev)
+    if w < 1 or h < 1 or max_bounces < 0 or w * h * max(max_bounces, 3) >= 2**31:
+        raise ValueError(f"{fn}: bad size {w}x{h} or max_bounces={max_bounces}")
+    rad, recs = _record_outputs(w, h, max_bounces, dev)
+    inv_w, inv_h = _inv_size(w, h)
+    with torch.cuda.device(dev):
+        err = _record_kernel()(
+            spheres.data_ptr(), ns, planes.data_ptr(), npl, boxes.data_ptr(), nb,
+            cam.data_ptr(), seeds.data_ptr(), *_record_pointers(rad, recs), w, h, inv_w, inv_h,
+            max_bounces, int(bool(center_sample)), int(rng_mode == "sphere"),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"blockwise record kernel launch failed: CUDA error {err}")
+    render_record_blockwise_tile.launches += 1
+    return rad, recs
+
+
+render_record_blockwise_tile.launches = 0
+
+
+def render_record_blockwise(scene, size, seed: int, *, personality: str = "mg",
+                            max_bounces: Optional[int] = None, rng_mode: str = "reference",
+                            center_sample: bool = True, include_boxes: bool = False,
+                            device="cuda"):
+    """One sample per pixel through the blockwise record kernel (the
+    counterpart of ``pallas_blockwise.render_record_blockwise``): the
+    record pass for scenes past the render kernel's 640 primitives.
+    Returns ``(rad, recs)`` on ``device``, as
+    :func:`rt_tpu_torch.ops.render.render_record`."""
+    if not blockwise_supported(scene, include_boxes):
+        raise ValueError("scene exceeds the blockwise megakernel limits")
+    dev = _device(device)
+    max_bounces = scene.max_bounces if max_bounces is None else max_bounces
+    spheres, planes, boxes, counts = _device_tables(scene, personality, include_boxes, dev)
+    return render_record_blockwise_tile(
+        spheres, planes, boxes, counts, _upload(_pack_camera(scene.camera, size), dev),
+        _upload(np.asarray([seed], np.int32), dev), size=size, max_bounces=max_bounces,
+        center_sample=center_sample, rng_mode=rng_mode)

@@ -175,18 +175,20 @@ def _rsqrt(x: torch.Tensor) -> torch.Tensor:
 WORD_ROW, WORD_PLANE, WORD_MISS, WORD_BOX = (1 << 24) - 1, 1 << 24, 1 << 25, 1 << 26
 
 
-def _bounce_plain(rows, o3, d3, thr3, live, u3, coin, rng_sphere, record=False):
+def _bounce_plain(rows, o3, d3, thr3, live, u3, coin, rng_sphere, record=False, replay=None):
     """One bounce of every ray, dense over rays with masked selects
     (trace.cuh bounce_once; pallas_blockwise._bounce_once): the closest hit
     over ``rows`` = (plane, sphere, box) rows as lists of Python floats,
     the sky on a miss, the scatter.  ``live`` is the float live flag and
     ``u3``, ``coin`` the bounce's raw draws.
 
-    Returns ``(radiance, o', d', thr', live', word)``: the bounce's sky
+    Returns ``(radiance, o', d', thr', live', record)``: the bounce's sky
     radiance (zero unless a live ray missed), the carried values (a ray
-    that was not live keeps them), the new live flag, and with ``record``
-    the winner word (int64; a miss, or a ray that was not live, has
-    ``WORD_MISS``), else None."""
+    that was not live keeps them), the new live flag, and the record:
+    with ``record`` the winner word (int64; a miss, or a ray that was not
+    live, has ``WORD_MISS``); with ``replay`` the replay record
+    (:func:`_replay_record`) of the record kernel whose conventions it
+    follows, "unrolled" or "blockwise"; else None."""
     p_rows, s_rows, b_rows = rows
     ox, oy, oz = o3
     dx, dy, dz = d3
@@ -205,7 +207,9 @@ def _bounce_plain(rows, o3, d3, thr3, live, u3, coin, rng_sphere, record=False):
     bbxf = zero
     bbcx = bbcy = bbcz = zero
     bbex = bbey = bbez = one
-    win = torch.zeros(ox.shape, dtype=torch.int64, device=ox.device) if record else None
+    track = record or replay is not None
+    win = torch.zeros(ox.shape, dtype=torch.int64, device=ox.device) if track else None
+    root = torch.zeros(ox.shape, dtype=torch.bool, device=ox.device) if replay else None
 
     for i, (pnx, pny, pnz, pdd, ar, ag, ab, rf, rg, cl) in enumerate(p_rows):
         nd = pnx * dx + pny * dy + pnz * dz
@@ -220,7 +224,7 @@ def _bounce_plain(rows, o3, d3, thr3, live, u3, coin, rng_sphere, record=False):
                                         ((ar, bar), (ag, bag), (ab, bab),
                                          (rf, brf), (rg, brg), (cl, bcl)))
         bpl = torch.where(ok, 1.0, bpl)
-        if record:
+        if track:
             win = torch.where(ok, i | WORD_PLANE, win)
 
     for i, (cx, cy, cz, rad, ar, ag, ab, rf, rg, cl) in enumerate(s_rows):
@@ -241,8 +245,10 @@ def _bounce_plain(rows, o3, d3, thr3, live, u3, coin, rng_sphere, record=False):
                                         ((ar, bar), (ag, bag), (ab, bab),
                                          (rf, brf), (rg, brg), (cl, bcl)))
         bpl = torch.where(ok, 0.0, bpl)
-        if record:
+        if track:
             win = torch.where(ok, i, win)
+        if replay:
+            root = torch.where(ok, t0 >= _MIN_HIT, root)
 
     if b_rows:
         # slab test: boxes scanned last with strict '<', rays
@@ -272,7 +278,7 @@ def _bounce_plain(rows, o3, d3, thr3, live, u3, coin, rng_sphere, record=False):
                                          (rf, brf), (rg, brg), (cl, bcl)))
         bpl = torch.where(ok, 0.0, bpl)
         bbxf = torch.where(ok, 1.0, bbxf)
-        if record:
+        if track:
             win = torch.where(ok, i | WORD_BOX, win)
 
     hit = best_t < 1e37
@@ -367,8 +373,60 @@ def _bounce_plain(rows, o3, d3, thr3, live, u3, coin, rng_sphere, record=False):
     nlh = 1.0 - lh
     o_n = (nlh * ox + lh * hx, nlh * oy + lh * hy, nlh * oz + lh * hz)
     d_n = (nlh * dx + lh * ndx, nlh * dy + lh * ndy, nlh * dz + lh * ndz)
+    if replay:
+        kind = torch.where(hit, torch.where(ispl, 2, 1), 0)
+        if b_rows:
+            kind = torch.where(hit & isbx, 3, kind)
+        if replay == "blockwise":
+            # the blockwise record kernel recomputes the root bit from the
+            # winner's sphere row, an all-zero row unless a sphere won
+            zb = ox * dx + oy * dy + oz * dz
+            zdisc = zb * zb - (ox * ox + oy * oy + oz * oz)
+            root = torch.where(kind == 1, root,
+                               (-zb - torch.sqrt(torch.clamp_min(zdisc, 0.0))) >= _MIN_HIT)
+            has_die = True
+        else:
+            # the unrolled kernel computes the Fresnel coin only where its
+            # tables hold a dielectric (its class-presence specialization)
+            has_die = any(r[9] == 2.0 for r in p_rows + s_rows) or any(r[11] == 2.0
+                                                                       for r in b_rows)
+        return rad, o_n, d_n, thr_n, af, _replay_record(
+            lv, kind, win & WORD_ROW, root, refl_bit & has_die, ldeg, hit, af, (ux, uy, uz), coin)
     word = torch.where(live_h, win, WORD_MISS) if record else None
     return rad, o_n, d_n, thr_n, af, word
+
+
+def _replay_record(lv, kind, idx, root, refl, ldeg, hit, af, u3, coin):
+    """One bounce's replay record, as the record kernels write it
+    (pallas_render.py:532-549): ``kind`` (0 miss, 1 sphere, 2 plane, 3
+    box), ``idx`` (within its class) and ``bits`` (1 the sphere's near
+    root, 2 the dielectric reflect, 4 the lambert degeneracy, 8 live and
+    missed, 16 live in, 32 alive out), all int32 and 0 for a ray that was
+    not live; the normalized unit vector and the coin of every ray."""
+    bits = (root.to(torch.int32) + 2 * refl.to(torch.int32) + 4 * ldeg.to(torch.int32)
+            + 8 * (lv & ~hit).to(torch.int32) + 16 + 32 * (af > 0.0).to(torch.int32))
+    rec = {"kind": torch.where(lv, kind, 0), "idx": torch.where(lv, idx, 0),
+           "bits": torch.where(lv, bits, 0)}
+    rec = {k: v.to(torch.int32) for k, v in rec.items()}
+    rec.update(urx=u3[0], ury=u3[1], urz=u3[2], coin=coin)
+    return rec
+
+
+def _raygen_plain(c, px, py, jx, jy, inv_w, inv_h):
+    """Camera rays through (px + jx, py + jy) of the camera vector ``c``
+    (Python floats), as trace.cuh's camera_ray: ``(o3, d3)``."""
+    r = c[3:12]
+    tan_half, aspect, near = c[12], c[13], c[14]
+    nx_ = 2.0 * (px + jx) * inv_w - 1.0
+    ny_ = 1.0 - 2.0 * (py + jy) * inv_h
+    dvx = nx_ * tan_half * aspect
+    dvy = ny_ * tan_half
+    dwx = r[0] * dvx + r[1] * dvy - r[2]
+    dwy = r[3] * dvx + r[4] * dvy - r[5]
+    dwz = r[6] * dvx + r[7] * dvy - r[8]
+    o3 = (c[0] + dwx * near, c[1] + dwy * near, c[2] + dwz * near)
+    inv = _rsqrt(dwx * dwx + dwy * dwy + dwz * dwz)
+    return o3, (dwx * inv, dwy * inv, dwz * inv)
 
 
 def render_tile_plain(spheres, planes, boxes, cam, seeds, *, size, spp,
@@ -401,9 +459,6 @@ def render_tile_plain(spheres, planes, boxes, cam, seeds, *, size, spp,
     py = (idx // w).to(torch.float32)
     inv_w, inv_h = _inv_size(w, h)
     c = cam.tolist()
-    cpx, cpy, cpz = c[0], c[1], c[2]
-    r = c[3:12]
-    tan_half, aspect, near = c[12], c[13], c[14]
     rows = (planes.tolist(), spheres.tolist(), boxes.tolist())
     rng_sphere = rng_mode == "sphere"
     per_sample = 2 + 4 * max_bounces
@@ -420,16 +475,7 @@ def render_tile_plain(spheres, planes, boxes, cam, seeds, *, size, spp,
             jx = jy = 0.5
         else:
             jx, jy = u01(base + 1), u01(base + 2)
-        nx_ = 2.0 * (px + jx) * inv_w - 1.0
-        ny_ = 1.0 - 2.0 * (py + jy) * inv_h
-        dvx = nx_ * tan_half * aspect
-        dvy = ny_ * tan_half
-        dwx = r[0] * dvx + r[1] * dvy - r[2]
-        dwy = r[3] * dvx + r[4] * dvy - r[5]
-        dwz = r[6] * dvx + r[7] * dvy - r[8]
-        o3 = (cpx + dwx * near, cpy + dwy * near, cpz + dwz * near)
-        inv = _rsqrt(dwx * dwx + dwy * dwy + dwz * dwz)
-        d3 = (dwx * inv, dwy * inv, dwz * inv)
+        o3, d3 = _raygen_plain(c, px, py, jx, jy, inv_w, inv_h)
         thr3 = (one, one, one)
         live = one
         for b in range(max_bounces):
@@ -648,3 +694,185 @@ def make_render_step(
         return img[0] if frames == 1 else img
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# the record kernel: one sample per pixel and the replay records
+# ---------------------------------------------------------------------------
+
+# the raw record set of one call: (B, N) per bounce, jitter (2, N)
+RECORD_KEYS = ("kind", "idx", "bits", "urx", "ury", "urz", "coin")
+
+
+def _record_plain(rows, cam, seeds, *, size, max_bounces, center_sample, rng_mode, replay):
+    """The record kernels' function, dense over pixels: ``rows`` as
+    :func:`_bounce_plain` takes them, ``replay`` the record conventions
+    ("unrolled" or "blockwise").  Returns ``(rad, recs)`` as
+    :func:`render_record_tile_plain`."""
+    w, h = size
+    dev = cam.device
+    n = w * h
+    idx = torch.arange(n, device=dev, dtype=torch.int64)
+    seed = int(seeds[0])
+    px = (idx % w).to(torch.float32)
+    py = (idx // w).to(torch.float32)
+    inv_w, inv_h = _inv_size(w, h)
+    jx, jy = hash_u01(idx, seed, 1), hash_u01(idx, seed, 2)
+    if center_sample:
+        jx, jy = torch.full_like(px, 0.5), torch.full_like(px, 0.5)
+    o3, d3 = _raygen_plain(cam.tolist(), px, py, jx, jy, inv_w, inv_h)
+    one = torch.ones_like(px)
+    thr3, live = (one, one, one), one
+    acc = [one * 0.0] * 3
+    per_bounce = []
+    for b in range(max_bounces):
+        ctr = 2 + 4 * b
+        u3 = (hash_u01(idx, seed, ctr + 1), hash_u01(idx, seed, ctr + 2),
+              hash_u01(idx, seed, ctr + 3))
+        rad, o3, d3, thr3, live, rec = _bounce_plain(rows, o3, d3, thr3, live, u3,
+                                                     hash_u01(idx, seed, ctr + 4),
+                                                     rng_mode == "sphere", replay=replay)
+        acc = [a + r for a, r in zip(acc, rad)]
+        per_bounce.append(rec)
+    recs = {k: (torch.stack([r[k] for r in per_bounce]) if max_bounces else
+                torch.zeros((0, n), dtype=torch.int32 if k in ("kind", "idx", "bits")
+                            else torch.float32, device=dev)) for k in RECORD_KEYS}
+    recs["jitter"] = torch.stack([jx, jy])
+    return torch.stack(acc, dim=-1).reshape(h, w, 3), recs
+
+
+def render_record_tile_plain(spheres, planes, boxes, cam, seeds, *, size, max_bounces,
+                             center_sample, rng_mode="reference"):
+    """Plain PyTorch version of the record kernel, on the device of ``cam``.
+
+    Arguments as :func:`render_tile_plain` with one sample: ``seeds`` (1,)
+    int32; ``center_sample`` puts the sample at the pixel centre.
+
+    Returns ``(rad, recs)``: the pre-gamma radiance (H, W, 3) float32 (the
+    1-spp frame of :func:`render_tile_plain` at the same seed), and the
+    raw records: for every bounce b and pixel i, ``recs[k][b, i]`` for k
+    in :data:`RECORD_KEYS` (kind, idx, bits: int32, 0 once the path has
+    ended; the normalized unit vector urx/ury/urz and the coin: float32,
+    every bounce's draws), and ``recs["jitter"]`` (2, N) float32.  Every
+    step mirrors the JAX kernel body with ``record=True``
+    (pallas_render.py:212-577), including its class-presence
+    specialization: the reflect bit is computed only where a table holds
+    a dielectric.  :func:`records_to_flat` decodes the records."""
+    return _record_plain((planes.tolist(), spheres.tolist(), boxes.tolist()), cam, seeds,
+                         size=size, max_bounces=max_bounces, center_sample=center_sample,
+                         rng_mode=rng_mode, replay="unrolled")
+
+
+@functools.cache
+def _record_kernel():
+    from ._build import load_library
+
+    fn = load_library("render_kernel").rt_render_record
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p, i, p, i, p, i, p, p, p, p, p, p, p, p, p, p, p, i, i, f, f, i, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _record_outputs(w, h, max_bounces, dev):
+    """Empty record outputs on ``dev``: rad (H, W, 3) and the raw records."""
+    n = w * h
+    recs = {k: torch.empty((max_bounces, n), dtype=torch.int32 if k in ("kind", "idx", "bits")
+                           else torch.float32, device=dev) for k in RECORD_KEYS}
+    recs["jitter"] = torch.empty((2, n), dtype=torch.float32, device=dev)
+    return torch.empty((h, w, 3), dtype=torch.float32, device=dev), recs
+
+
+def _record_pointers(rad, recs):
+    return [rad.data_ptr()] + [recs[k].data_ptr() for k in RECORD_KEYS + ("jitter",)]
+
+
+def render_record_tile(spheres, planes, boxes, cam, seeds, *, size, max_bounces, center_sample,
+                       rng_mode="reference"):
+    """One launch of the record kernel; arguments and result as
+    :func:`render_record_tile_plain`.  CPU tensors run the plain version;
+    CUDA tensors launch the kernel on the current stream (without
+    synchronizing) or raise."""
+    fn = "render_record_tile"
+    dev = cam.device
+    for name, t in (("spheres", spheres), ("planes", planes), ("boxes", boxes), ("seeds", seeds)):
+        if t.device != dev:
+            raise ValueError(f"{fn}: {name} is on {t.device} but cam on {dev}")
+    if rng_mode not in ("reference", "sphere"):
+        raise ValueError(f"unknown rng_mode {rng_mode!r}")
+    if dev.type == "cpu":
+        return render_record_tile_plain(spheres, planes, boxes, cam, seeds, size=size,
+                                        max_bounces=max_bounces, center_sample=center_sample,
+                                        rng_mode=rng_mode)
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: no kernel for device {dev}")
+    w, h = size
+    f32 = torch.float32
+    _check("spheres", spheres, f32, (None, 10), dev)
+    _check("planes", planes, f32, (None, 10), dev)
+    _check("boxes", boxes, f32, (None, 12), dev)
+    _check("cam", cam, f32, (16,), dev)
+    _check("seeds", seeds, torch.int32, (1,), dev)
+    if spheres.shape[0] + planes.shape[0] + boxes.shape[0] > MAX_UNROLL_PRIMS:
+        raise ValueError(f"{fn}: more than {MAX_UNROLL_PRIMS} primitives")
+    if w < 1 or h < 1 or max_bounces < 0 or w * h * max(max_bounces, 3) >= 2**31:
+        raise ValueError(f"{fn}: bad size {w}x{h} or max_bounces={max_bounces}")
+    rad, recs = _record_outputs(w, h, max_bounces, dev)
+    inv_w, inv_h = _inv_size(w, h)
+    with torch.cuda.device(dev):
+        err = _record_kernel()(
+            spheres.data_ptr(), spheres.shape[0], planes.data_ptr(), planes.shape[0],
+            boxes.data_ptr(), boxes.shape[0], cam.data_ptr(), seeds.data_ptr(),
+            *_record_pointers(rad, recs), w, h, inv_w, inv_h, max_bounces,
+            int(bool(center_sample)), int(rng_mode == "sphere"),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"record kernel launch failed: CUDA error {err}")
+    render_record_tile.launches += 1
+    return rad, recs
+
+
+render_record_tile.launches = 0
+
+
+def render_record(scene, size, seed: int, *, personality: str = "mg",
+                  max_bounces: Optional[int] = None, rng_mode: str = "reference",
+                  center_sample: bool = True, include_boxes: bool = False, device="cuda"):
+    """One sample per pixel through the record kernel (the counterpart of
+    ``render_record_pallas``).  Returns ``(rad, recs)`` on ``device``, as
+    :func:`render_record_tile` (kind=3 records and the box index with
+    ``include_boxes``); :func:`records_to_flat` decodes ``recs`` into the
+    layout :func:`rt_tpu_torch.replay.replay_radiance` takes."""
+    if not supported(scene, include_boxes):
+        raise ValueError("scene exceeds the unrolled megakernel limits")
+    dev = _device(device)
+    max_bounces = scene.max_bounces if max_bounces is None else max_bounces
+    s_cols, p_cols = _flatten_primitives(scene, personality)
+    b_cols = (_flatten_boxes(scene, personality) if include_boxes
+              else np.zeros((12, 0), np.float32))
+    spheres, planes, boxes = (_upload(c.T, dev) for c in (s_cols, p_cols, b_cols))
+    return render_record_tile(spheres, planes, boxes, _upload(_pack_camera(scene.camera, size), dev),
+                              _upload(np.asarray([seed], np.int32), dev), size=size,
+                              max_bounces=max_bounces, center_sample=center_sample,
+                              rng_mode=rng_mode)
+
+
+def records_to_flat(recs: dict) -> dict:
+    """Raw records (:func:`render_record_tile`) -> the flat dict of
+    ``pallas_render.records_to_flat``: kind and idx (B, N) int32, the six
+    decoded bits (B, N) bool, the unit vectors ``ur`` (B, N, 3), the coins
+    (B, N) and the jitter (N, 2)."""
+    bits = recs["bits"]
+    return {
+        "kind": recs["kind"],
+        "idx": recs["idx"],
+        "root_lo": (bits & 1) > 0,
+        "reflect_bit": (bits & 2) > 0,
+        "lam_deg": (bits & 4) > 0,
+        "miss": (bits & 8) > 0,
+        "live_in": (bits & 16) > 0,
+        "alive_out": (bits & 32) > 0,
+        "ur": torch.stack([recs["urx"], recs["ury"], recs["urz"]], dim=-1),
+        "coin": recs["coin"],
+        "jitter": recs["jitter"].T,
+    }

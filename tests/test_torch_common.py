@@ -37,3 +37,74 @@ def assert_frames_close(got, want):
     assert bad.mean() <= MAX_SHARE, (
         f"{bad.sum()} of {bad.size} pixels differ by more than {ATOL} "
         f"(max abs diff {diff.max()})")
+
+# tests/test_replay.py's box scene (a ground sphere, a lambert and a metal box)
+REPLAY_BOX_TOML = (
+    "samples_per_pixel = 2\n"
+    "max_bounces = 4\n"
+    "materials = [ { type = 'lambert', albedo = 'gray' },\n"
+    "              { type = 'metal', albedo = 'white', roughness = 0.1 },\n"
+    "              { type = 'lambert', albedo = 'red' } ]\n"
+    "spheres = [ { material = 0, position = [0,-1000,0], radius = 1000 } ]\n"
+    "boxes = [ { material = 2, position = [0, 0.5, -3], extents = [0.5, 0.5, 0.5] },\n"
+    "          { material = 1, position = [1.6, 0.4, -3.5], extents = [0.4, 0.4, 0.4] } ]\n"
+)
+
+
+def box_scene_toml(n_spheres: int, n_boxes: int) -> str:
+    """tests/test_pallas_blockwise.py's ``_box_scene_toml`` generator: a red
+    lambert ground plane, then spheres and boxes alternating lambert and
+    metal, their positions and sizes from numpy seed 9 (660 spheres and 24
+    boxes: past the render kernel's 640 primitives)."""
+    rng = np.random.default_rng(9)
+    lines = [
+        "samples_per_pixel = 1",
+        "max_bounces = 2",
+        "materials = [ { type = 'lambert', albedo = 'red' },",
+        "              { type = 'metal', albedo = [0.9,0.9,0.9], roughness = 0.1 } ]",
+        "planes  = [ { material = 0, position = [0,0,0], normal = 'up' } ]",
+    ]
+    sph = ["{ material = %d, position = [%.3f, %.3f, %.3f], radius = %.3f }"
+           % (i % 2, x, y, z, r)
+           for i, (x, y, z, r) in enumerate(zip(
+               rng.uniform(-6, 6, n_spheres), rng.uniform(0.2, 2, n_spheres),
+               rng.uniform(-9, -3, n_spheres), rng.uniform(0.1, 0.4, n_spheres)))]
+    if sph:
+        lines.append("spheres = [ " + ",\n  ".join(sph) + " ]")
+    box = ["{ material = %d, position = [%.3f, %.3f, %.3f], extents = [%.3f, %.3f, %.3f] }"
+           % (i % 2, x, y, z, ex, ey, ez)
+           for i, (x, y, z, ex, ey, ez) in enumerate(zip(
+               rng.uniform(-6, 6, n_boxes), rng.uniform(0.2, 2, n_boxes),
+               rng.uniform(-9, -3, n_boxes), rng.uniform(0.1, 0.5, n_boxes),
+               rng.uniform(0.1, 0.5, n_boxes), rng.uniform(0.1, 0.5, n_boxes)))]
+    lines.append("boxes = [ " + ",\n  ".join(box) + " ]")
+    return "\n".join(lines)
+
+
+def tiles_to_flat(a, n: int) -> np.ndarray:
+    """A JAX record-kernel output laid out (tiles, CH, rows, 128) as (CH, n)
+    (pallas_render.records_to_flat's reshape)."""
+    a = np.asarray(a)
+    t, ch, r, lanes = a.shape
+    return a.transpose(1, 0, 2, 3).reshape(ch, t * r * lanes)[:, :n]
+
+
+def assert_records_match(recs, jrecs, n: int, min_share: float = 1 - MAX_SHARE):
+    """The port's raw records against a JAX record kernel's: on the lanes
+    that are live at a bounce's entry, kind, idx and the bits word equal on
+    at least ``min_share`` of them (XLA's CPU backend contracts FMAs, which
+    can flip a grazing hit; on dead lanes the JAX kernels write what their
+    dense lanes happen to compute, the port 0); the unit vectors, coins and
+    jitter within 1e-6 everywhere."""
+    live = (tiles_to_flat(jrecs["bits"], n).astype(np.int32) & 16) > 0
+    assert live.any()
+    for k in ("kind", "idx", "bits"):
+        got = recs[k].numpy()
+        want = tiles_to_flat(jrecs[k], n).astype(np.int32)
+        assert got.shape == want.shape and got.dtype == np.int32, k
+        share = (got == want)[live].mean()
+        assert share >= min_share, f"{k}: {share:.4f} of live lanes equal"
+        assert (got[~live] == 0).all(), k
+    for k in ("urx", "ury", "urz", "coin", "jitter"):
+        np.testing.assert_allclose(recs[k].numpy(), tiles_to_flat(jrecs[k], n), rtol=0,
+                                   atol=1e-6, err_msg=k)

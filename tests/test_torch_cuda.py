@@ -426,3 +426,71 @@ def test_wavefront_entry_points_launch_the_kernels(cuda):
     losses = [float(step(params, i)) for i in range(4)]
     assert counts() == (before[0] + 16, before[1] + 16)
     assert losses[-1] < losses[0]
+
+
+# ---- the record kernels (queue 2 rows 2 and 6) and the FMA probe (row 10) ----
+
+
+@pytest.mark.parametrize("name,personality,include_boxes,rng_mode,center", [
+    ("basic.toml", "mg", False, "reference", True),
+    ("dielectric.toml", "sm", False, "reference", False),
+    ("cornell_spheres.toml", "sm", False, "sphere", True),
+    ("planes", "mg", False, "reference", False),
+    ("box", "mg", True, "reference", True),
+    ("proc64", "mg", False, "reference", False),
+])
+def test_record_kernels_match_plain(cuda, name, personality, include_boxes, rng_mode, center):
+    """Both record kernels bit for bit with their plain versions (every
+    record array and the radiance), and the radiance equal to the render
+    kernel's 1-spp frame at the same seed."""
+    from rt_tpu_torch.ops import blockwise as tb
+
+    scene = _scene(name)
+    size = (48, 32)
+    s_cols, p_cols = tr._flatten_primitives(scene, personality)
+    b_cols = (tr._flatten_boxes(scene, personality) if include_boxes
+              else np.zeros((12, 0), np.float32))
+    tabs = [torch.from_numpy(np.ascontiguousarray(c.T)).to(cuda) for c in (s_cols, p_cols, b_cols)]
+    cam = torch.from_numpy(tr._pack_camera(scene.camera, size)).to(cuda)
+    seeds = torch.tensor([-77], dtype=torch.int32, device=cuda)
+    kw = dict(size=size, max_bounces=6, center_sample=center, rng_mode=rng_mode)
+    bw_tabs = _bw_tables(cuda, scene, personality, include_boxes)
+    before = (tr.render_record_tile.launches, tb.render_record_blockwise_tile.launches)
+    runs = [(tr.render_record_tile(*tabs, cam, seeds, **kw),
+             tr.render_record_tile_plain(*tabs, cam, seeds, **kw)),
+            (tb.render_record_blockwise_tile(*bw_tabs, cam, seeds, **kw),
+             tb.render_record_blockwise_tile_plain(*bw_tabs, cam, seeds, **kw))]
+    assert (tr.render_record_tile.launches, tb.render_record_blockwise_tile.launches) == (
+        before[0] + 1, before[1] + 1)
+    frame = tr.render_tile(*tabs, cam, seeds, spp=1, **kw)[0]
+    torch.cuda.synchronize()
+    for (rad, recs), (want_rad, want) in runs:
+        assert torch.equal(rad, want_rad) and torch.equal(rad, frame)
+        for k in want:
+            assert torch.equal(recs[k], want[k]), k
+
+
+@pytest.mark.parametrize("k_fma", [64, 1024])
+def test_fma_peak_matches_plain(cuda, k_fma):
+    from rt_tpu_torch import roofline
+
+    x = torch.full((256, 128), 1.0 + 3e-6, device=cuda)
+    x[5, 7] = 0.75
+    before = roofline.fma_peak.launches
+    got = roofline.fma_peak(x, k_fma)
+    assert roofline.fma_peak.launches == before + 1
+    want = roofline.fma_peak_plain(x, k_fma)
+    torch.cuda.synchronize()
+    # the plain version rounds each FMA through float64 (a double rounding
+    # that the hardware FMA does not make, in rare halfway cases)
+    assert ((got - want).abs() <= 1e-5 * want.abs().clamp_min(1.0)).all()
+
+
+def test_fma_peak_k_scaling(cuda):
+    """The probe's validity check: 4x the chain costs 2.5-6x the time."""
+    from rt_tpu_torch import roofline
+
+    tf_1k, dt_1k = roofline.measure_fma_peak(1024)
+    tf_4k, dt_4k = roofline.measure_fma_peak(4096)
+    assert 2.5 <= dt_4k / dt_1k <= 6.0, (dt_1k, dt_4k)
+    assert 1.0 < tf_4k < 200.0

@@ -263,3 +263,50 @@ def test_profiling_needs_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         rt_tpu_torch.profiling.device_times(lambda i: None)
     assert rt_tpu_torch.profiling.mrays_per_sec((800, 600), 4, 0.001) == pytest.approx(1920.0)
+
+
+def test_package_data_covers_kernel_includes():
+    """Every ``#include "..."`` of a kernel source matches a pattern of
+    pyproject.toml's package data, so an installed package can build its
+    kernels."""
+    import fnmatch
+    import re
+    import tomllib
+
+    data = tomllib.loads((REPO / "pyproject.toml").read_text())
+    patterns = data["tool"]["setuptools"]["package-data"]["rt_tpu_torch"]
+    csrc = REPO / "rt_tpu_torch" / "csrc"
+    sources = sorted(csrc.glob("*.cu"))
+    assert sources
+    for src in sources + sorted(csrc.glob("*.cuh")):
+        assert any(fnmatch.fnmatch(f"csrc/{src.name}", p) for p in patterns), src.name
+        for inc in re.findall(r'#include "([^"]+)"', src.read_text()):
+            assert (csrc / inc).is_file(), (src.name, inc)
+            assert any(fnmatch.fnmatch(f"csrc/{inc}", p) for p in patterns), (src.name, inc)
+
+
+def test_fma_peak_plain_on_the_cpu():
+    """The FMA probe's wrapper runs its plain version on a CPU tensor (no
+    launch), which is the float64 reference of the two chains rounded to
+    float32 at every step; measuring needs the card."""
+    from rt_tpu_torch import roofline
+
+    x = torch.full((256, 128), 1.0 + 3e-6)
+    x[5, 7] = 0.75
+    before = roofline.fma_peak.launches
+    out = roofline.fma_peak(x, 8, tiles=2)
+    assert roofline.fma_peak.launches == before and out.shape == (512, 128)
+    a = np.float32(0.75) * np.float32(1.0 + np.float32(1e-9))  # tile 1
+    m1 = np.float32(np.float32(a * np.float32(0.4999999)) + np.float32(0.5))
+    m2 = np.float32(np.float32(a * np.float32(0.5000001)) + np.float32(0.5))
+    d = np.float32(a * np.float32(1e-7))
+    b, c = np.float32(a), np.float32(np.float32(a) + d)
+    for _ in range(4):
+        b = np.float32(np.float64(b) * np.float64(m1) + np.float64(d))
+        c = np.float32(np.float64(c) * np.float64(m2) - np.float64(d))
+    assert out[256 + 5, 7].item() == pytest.approx(float(b + c), rel=1e-6)
+    with pytest.raises(ValueError, match="k_fma"):
+        roofline.fma_peak(x, 3)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            roofline.measure_fma_peak(64)
