@@ -18,16 +18,21 @@ Phases (an exception in any phase exits non-zero before the result line):
    (mg) at 800x600 4 spp and cornell_spheres.toml (sm, planes and
    dielectrics) at 320x240 2 spp, the per-sample kernel on dielectric.toml
    (sm) at 800x600 (2 samples) and on 500 spheres at 320x180, all at depth
-   8 and again at 64x48; every output within 1e-5 of the sum of the
+   8 and again at 64x48, and what the warp-level sums could get wrong: a
+   ragged 37x23 frame (mono, 4 spp, and per-sample), 90 spheres at 64x48
+   2 spp (many winners in a warp, still the mono route) and 640 spheres
+   per-sample at 320x180; every output within 1e-5 of the sum of the
    magnitudes of its per-(pixel, sample) contributions (the kernels sum
-   per-primitive gradients with atomics; the run-to-run spread of two
-   launches is printed).  Blockwise forward kernel, depth 8, bit for bit:
-   4 spp on basic.toml at 800x600, cornell_spheres.toml (sm) and basic+box
-   (--boxes) at 320x240, 500 spheres at 320x180 and 1000 spheres (past the
-   render kernel's 640) at 160x90; at the main paths' shapes, 500 spheres
-   at 1920x1080 1 spp (a train-step launch) and 1000 spheres at 1920x1080
-   4 spp (a CLI chunk); and against the render kernel on basic and cornell
-   at the same seeds.  Blockwise gradient kernel, one sample, depth 8,
+   per-primitive gradients per warp, then per block, the per-sample
+   kernel's blocks with atomics; the run-to-run spread of two launches is
+   printed, and whether they are equal).  Blockwise forward kernel, depth
+   8, bit for bit: 4 spp on basic.toml at 800x600, cornell_spheres.toml
+   (sm) and basic+box (--boxes) at 320x240, 500 spheres at 320x180 and
+   1000 spheres (past the render kernel's 640) at 160x90; at the main
+   paths' shapes, 500 spheres at 1920x1080 1 spp (a train-step launch)
+   and 1000 spheres at 1920x1080 4 spp (a CLI chunk); and against the
+   render kernel on basic and cornell at the same seeds.  Blockwise
+   gradient kernel, one sample, depth 8,
    within 1e-5 x L1 with the run-to-run spread: 500 spheres at 320x180 and
    at 1920x1080 (a train-step launch), cornell (sm) at 160x120; and the
    blockwise step against make_mse_step(mode="multi") on basic.toml at the
@@ -91,7 +96,10 @@ Phases (an exception in any phase exits non-zero before the result line):
    difference is printed beside it) within 3e-2; peak device memory
    printed; (d) the roofline probe at k = 1024 and 4096.
 5. Timing: CUDA events around back-to-back calls
-   (rt_tpu_torch.profiling.sustained) for every kernel, its plain version,
+   (rt_tpu_torch.profiling.sustained) for every kernel (the mono and
+   per-sample gradient kernels also by their CUPTI device time, which the
+   kernels line adds as device_ms: their wrappers' host work is as long as
+   the per-sample kernel), its plain version,
    make_render_step and make_mse_step (fwd+bwd Mrays/s), the step over the
    same-shape forward in interleaved windows (ratio_step_over_fwd, as
    bench.py measures it), config 3's step, the blockwise kernels (beside
@@ -296,6 +304,16 @@ def window_s(fn, iters):
     return start.elapsed_time(end) / 1e3 / iters
 
 
+def kernel_device_ms(fn, name, iters=16):
+    """The device ms per call of fn(i) spent in kernels whose name holds
+    `name` (a CUPTI trace): a kernel's own time, where its wrapper's host
+    work may be as long as the kernel."""
+    from rt_tpu_torch import profiling
+
+    return sum(v for k, v in profiling.device_times(fn, iters=iters).items()
+               if name in k and "bw_" not in k)
+
+
 def card_tables(scene, personality, size, include_boxes=False):
     """The kernels' tables (spheres, planes, boxes) and camera vector, on the card."""
     import numpy as np
@@ -334,6 +352,17 @@ def grad_parity(scenes, report):
         ("per-sample proc500/mg", "proc500", "mg", (320, 180), 1, False),
     ]
     cases += [(label, key, pers, (64, 48), spp, mono) for label, key, pers, _, spp, mono in cases]
+    # what the warp-level aggregation could get wrong: a ragged last warp
+    # (37x23 = 851 pixels, no multiple of 32), many winners in one warp on
+    # the mono route (90 spheres, which the router keeps there) and the
+    # per-sample route's largest table (640 primitives)
+    cases += [
+        ("mono basic/mg ragged", "basic", "mg", (37, 23), 4, True),
+        ("mono proc90/mg", "proc90", "mg", (64, 48), 2, True),
+        ("per-sample dielectric/sm ragged", "dielectric", "sm", (37, 23), 2, False),
+        ("per-sample proc640/mg", "proc640", "mg", (320, 180), 1, False),
+    ]
+    check(G.route(90, 2, 8) == "mono", "the router no longer keeps 90 spheres on the mono route")
     errs = {"mse_step_kernel": 0.0, "grad_kernel": 0.0}
     report["grad_parity"] = []
     for label, key, pers, size, spp, mono in cases:
@@ -364,12 +393,13 @@ def grad_parity(scenes, report):
                                     for g, a, w, l in outs),
                 "run_to_run_ratio_l1": max(((g - a).abs() / l.clamp_min(1e-30)).max().item()
                                            for g, a, w, l in outs),
+                "run_to_run_equal": all(torch.equal(g, a) for g, a, w, l in outs),
             }
             report["grad_parity"].append(row)
             log(f"[3] {label} {size[0]}x{size[1]} {spp}spp d8"
                 f"{'' if mono else f' sample {s}'}: max|d| {row['max_abs']:.3g}, "
                 f"max |d|/L1 {row['max_ratio_l1']:.3g} (tolerance {GRAD_TOL}), run-to-run "
-                f"|d|/L1 {row['run_to_run_ratio_l1']:.3g}")
+                f"|d|/L1 {row['run_to_run_ratio_l1']:.3g} (equal {row['run_to_run_equal']})")
             for g, a, w, l in outs:
                 check(((g - w).abs() <= GRAD_TOL * l).all().item(),
                       f"{label}: kernel differs from its plain version beyond {GRAD_TOL} x L1")
@@ -499,6 +529,8 @@ def grad_timing(scenes, step, step3, card, report):
     seeds_t = torch.from_numpy(seeds).to(cam.device)
     kw = dict(size=size, max_bounces=8)
     mk = profiling.sustained(lambda i: G.mse_step_tile(sp, pl, cam, seeds_t, tgt, **kw), iters=16)
+    md = kernel_device_ms(lambda i: G.mse_step_tile(sp, pl, cam, seeds_t, tgt, **kw),
+                          "mse_step_kernel")
     mp = profiling.sustained(lambda i: G.mse_step_tile_plain(sp, pl, cam, seeds_t, tgt, **kw),
                              iters=1, windows=3)
     work = live_work(sp, pl, cam, seeds.tolist(), [0] * 4, [True, False, False, False], size, 8,
@@ -510,6 +542,7 @@ def grad_timing(scenes, step, step3, card, report):
                     forward_ops(work, sp.shape[0], pl.shape[0]) + reverse_ops(work)
                     + n * OPS["loss"])
     mono = {"ms": mk["median"] * 1e3, "spread_ms": [mk["min"] * 1e3, mk["max"] * 1e3],
+            "device_ms": md,
             "plain_ms": mp["median"] * 1e3, "bound_ms": m_bound[0], "bound_by": m_bound[1],
             "live_work": work, "stash_bytes": 4 * 4 * 8 * 10 * n}
 
@@ -520,6 +553,8 @@ def grad_timing(scenes, step, step3, card, report):
     cot3 = pix3 * 1e-6
     gk = profiling.sustained(lambda i: G.grad_tile(sp3, pl3, cam3, s1, cot3, center_sample=False,
                                                    **kw), iters=32)
+    gd = kernel_device_ms(lambda i: G.grad_tile(sp3, pl3, cam3, s1, cot3, center_sample=False,
+                                                **kw), "grad_kernel")
     gp = profiling.sustained(lambda i: G.grad_tile_plain(sp3, pl3, cam3, s1, cot3,
                                                          center_sample=False, **kw),
                              iters=1, windows=3)
@@ -528,6 +563,7 @@ def grad_timing(scenes, step, step3, card, report):
                     + 4 * blocks * (9 * sp3.shape[0] + 5 * pl3.shape[0] + 16),
                     forward_ops(work3, sp3.shape[0], pl3.shape[0]) + reverse_ops(work3))
     per_sample = {"ms": gk["median"] * 1e3, "spread_ms": [gk["min"] * 1e3, gk["max"] * 1e3],
+                  "device_ms": gd,
                   "plain_ms": gp["median"] * 1e3, "bound_ms": g_bound[0],
                   "bound_by": g_bound[1], "live_work": work3, "stash_bytes": 4 * 8 * 10 * n}
 
@@ -561,11 +597,13 @@ def grad_timing(scenes, step, step3, card, report):
                "step_busy_share": sum(dt3.values()) / (t3["median"] * 1e3)}
     report["grad_timing"] = {"mse_step_kernel": mono, "grad_kernel": per_sample,
                              "headline_step": headline, "config3_step": config3}
-    log(f"[5] mse_step_kernel basic 800x600 4spp d8: kernel {mono['ms']:.4f} ms, plain "
+    log(f"[5] mse_step_kernel basic 800x600 4spp d8: kernel {mono['ms']:.4f} ms (device "
+        f"{mono['device_ms']:.4f} ms), plain "
         f"{mono['plain_ms']:.1f} ms, bound {mono['bound_ms']:.4f} ms ({mono['bound_by']}); "
         f"live bounces {work['live']} of {work['rays'] * 8}, warp slots {work['warp_live']} "
         f"| {card}")
-    log(f"[5] grad_kernel dielectric/sm 800x600 1 sample d8: kernel {per_sample['ms']:.4f} ms, "
+    log(f"[5] grad_kernel dielectric/sm 800x600 1 sample d8: kernel {per_sample['ms']:.4f} ms "
+        f"(device {per_sample['device_ms']:.4f} ms), "
         f"plain {per_sample['plain_ms']:.1f} ms, bound {per_sample['bound_ms']:.4f} ms "
         f"({per_sample['bound_by']}); live bounces {work3['live']} of {work3['rays'] * 8}, "
         f"warp slots {work3['warp_live']} | {card}")
@@ -1874,7 +1912,9 @@ def main() -> int:
             (ROOT / "scenes" / "basic.toml").read_text()
             + "\nboxes = [ { material = 2, position = [-1, 0.5, 0.3], "
               "extents = [0.3, 0.5, 0.3] } ]\n"),
+        "proc90": rt_tpu_torch.scene.make_procedural_scene(90),
         "proc500": rt_tpu_torch.scene.make_procedural_scene(500),
+        "proc640": rt_tpu_torch.scene.make_procedural_scene(640),
         "proc1000": rt_tpu_torch.scene.make_procedural_scene(1000),
         "proc2000": rt_tpu_torch.scene.make_procedural_scene(2000),
         "proc5000": rt_tpu_torch.scene.make_procedural_scene(5000),
@@ -2038,6 +2078,7 @@ def main() -> int:
             "replaces": replaces, "launches": grad_launches[name],
             "max_abs_err": grad_errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+            "device_ms": row["device_ms"],
         })
     for name, replaces in (("blockwise_kernel", "rt_tpu/ops/pallas_blockwise.py:1073"),
                            ("bw_grad_kernel", "rt_tpu/ops/pallas_blockwise_grad.py:92")):

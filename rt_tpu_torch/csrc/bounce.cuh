@@ -328,17 +328,55 @@ __device__ void forward_sample(const float* s_pl, int n_planes, const float* s_s
   st.nb[static_cast<size_t>(s) * st.n + gid] = b;
 }
 
+// The winner's payload cotangents of one bounce: key = 2 * row + 1 for a
+// plane, 2 * row for a sphere, -1 unless the ray hit while live (and then
+// g is not set); g holds the 9 sphere slots (centre x/y/z, radius, albedo
+// r/g/b, reflectivity, roughness), and for a plane zeros and then its 5
+// material slots, so that g[4 + k] is material slot k of either.
+struct PrimGrad {
+  int key;
+  float g[kSSlots];
+};
+
+template <bool kAtomic, typename Acc>
+__device__ __forceinline__ void add_acc(Acc* a, Acc v) {
+  if (kAtomic) {
+    atomicAdd(a, v);
+  } else {
+    *a = *a + v;
+  }
+}
+
+// Adds p to slot-major tables (slot k of row i at k * n + i: sphere (9, S),
+// plane material (5, P)), slot by slot: with atomicAdd (kAtomic), or with
+// plain adds where no other thread adds to the tables; Acc is float or
+// double.
+template <bool kAtomic = true, typename Acc>
+__device__ __forceinline__ void add_prim_grad(const PrimGrad& p, Acc* acc_s, Acc* acc_p,
+                                              int n_spheres, int n_planes) {
+  if (p.key < 0) return;
+  const int row = p.key >> 1;
+  if (p.key & 1) {
+    for (int k = 0; k < kPSlots; ++k)
+      add_acc<kAtomic>(acc_p + k * n_planes + row, static_cast<Acc>(p.g[4 + k]));
+  } else {
+    for (int k = 0; k < kSSlots; ++k)
+      add_acc<kAtomic>(acc_s + k * n_spheres + row, static_cast<Acc>(p.g[k]));
+  }
+}
+
 // Hand-written transpose of one pinned bounce (pallas_grad _bounce_smooth),
 // in place on the carried cotangents co, cd, ct; crad is the pixel
-// cotangent.  Adds the winner's payload cotangents to the accumulators
-// (sphere: 9 slots, plane: 5 material slots, slot-major: slot k of row i at
-// k * n + i) with atomicAdd when the ray hit while live; Acc is float or
-// double.
-template <int kStride, typename Acc>
-__device__ void bounce_adjoint(const float* s_pl, const float* s_sp, Acc* acc_s, Acc* acc_p,
-                               int n_spheres, int n_planes, const float v[kStashF],
-                               uint32_t word, float ux, float uy, float uz, const float crad[3],
-                               float co[3], float cd[3], float ct[3]) {
+// cotangent.  Returns the winner's payload cotangents (PrimGrad) for the
+// caller to add.  word 0 (no bit set) is the exact identity on co, cd and
+// ct and returns key -1: not live_h, not miss and not alive, every
+// cotangent is copied through untouched, and no other branch runs.
+template <int kStride>
+__device__ PrimGrad bounce_adjoint(const float* s_pl, const float* s_sp, const float v[kStashF],
+                                   uint32_t word, float ux, float uy, float uz,
+                                   const float crad[3], float co[3], float cd[3], float ct[3]) {
+  PrimGrad pg;
+  pg.key = -1;
   const float ox = v[0], oy = v[1], oz = v[2], dx = v[3], dy = v[4], dz = v[5];
   const float tr = v[6], tg = v[7], tb = v[8];
   const bool live_h = word & kLiveH, miss = word & kMiss, alive = word & kAlive;
@@ -524,12 +562,9 @@ __device__ void bounce_adjoint(const float* s_pl, const float* s_sp, Acc* acc_s,
       const float cndd = nz_ok ? -(ctt * t) / safe : 0.0f;
       cox = cox + cnum * pnx; coy = coy + cnum * pny; coz = coz + cnum * pnz;
       cdx = cdx + cndd * pnx; cdy = cdy + cndd * pny; cdz = cdz + cndd * pnz;
-      Acc* a = acc_p + win;
-      atomicAdd(a + 0 * n_planes, static_cast<Acc>(cbar));
-      atomicAdd(a + 1 * n_planes, static_cast<Acc>(cbag));
-      atomicAdd(a + 2 * n_planes, static_cast<Acc>(cbab));
-      atomicAdd(a + 3 * n_planes, static_cast<Acc>(cbrf));
-      atomicAdd(a + 4 * n_planes, static_cast<Acc>(cbrg));
+      pg.key = 2 * win + 1;
+      pg.g[0] = 0.0f; pg.g[1] = 0.0f; pg.g[2] = 0.0f; pg.g[3] = 0.0f;
+      pg.g[4] = cbar; pg.g[5] = cbag; pg.g[6] = cbab; pg.g[7] = cbrf; pg.g[8] = cbrg;
     } else {
       // t = where(root, -bq - sq, -bq + sq), sq = sqrt(max(disc, 1e-12))
       float cbq = -ctt;
@@ -544,21 +579,15 @@ __device__ void bounce_adjoint(const float* s_pl, const float* s_sp, Acc* acc_s,
       cdx = cdx + cbq * ocx; cdy = cdy + cbq * ocy; cdz = cdz + cbq * ocz;
       cox = cox + cocx; coy = coy + cocy; coz = coz + cocz;
       cbcx = cbcx - cocx; cbcy = cbcy - cocy; cbcz = cbcz - cocz;
-      Acc* a = acc_s + win;
-      atomicAdd(a + 0 * n_spheres, static_cast<Acc>(cbcx));
-      atomicAdd(a + 1 * n_spheres, static_cast<Acc>(cbcy));
-      atomicAdd(a + 2 * n_spheres, static_cast<Acc>(cbcz));
-      atomicAdd(a + 3 * n_spheres, static_cast<Acc>(cbrad));
-      atomicAdd(a + 4 * n_spheres, static_cast<Acc>(cbar));
-      atomicAdd(a + 5 * n_spheres, static_cast<Acc>(cbag));
-      atomicAdd(a + 6 * n_spheres, static_cast<Acc>(cbab));
-      atomicAdd(a + 7 * n_spheres, static_cast<Acc>(cbrf));
-      atomicAdd(a + 8 * n_spheres, static_cast<Acc>(cbrg));
+      pg.key = 2 * win;
+      pg.g[0] = cbcx; pg.g[1] = cbcy; pg.g[2] = cbcz; pg.g[3] = cbrad;
+      pg.g[4] = cbar; pg.g[5] = cbag; pg.g[6] = cbab; pg.g[7] = cbrf; pg.g[8] = cbrg;
     }
   }
   co[0] = cox; co[1] = coy; co[2] = coz;
   cd[0] = cdx; cd[1] = cdy; cd[2] = cdz;
   ct[0] = ctr; ct[1] = ctg; ct[2] = ctb;
+  return pg;
 }
 
 // Sum of v over the block, in a fixed order; the result is valid in thread 0.

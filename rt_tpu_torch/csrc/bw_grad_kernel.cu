@@ -40,7 +40,8 @@
 //     live-bounce count; the payload is re-read from the winner's row and
 //     the random numbers are recomputed from the counter hash;
 //   * per-row gradients go straight to the global (9, S) and (5, P) tables
-//     with atomicAdd: 9 * 16384 floats do not fit in shared memory, and
+//     with atomicAdd (add_prim_grad, from the PrimGrad that bounce_adjoint
+//     returns): 9 * 16384 floats do not fit in shared memory, and
 //     per-block partials of that table would take gigabytes at 1080p.  The
 //     tables are float64: the order of the atomics varies from run to run,
 //     and in float32 a row hit by most of 57,600 rays (the ground sphere
@@ -69,7 +70,9 @@ struct Args {
   float inv_w, inv_h;
 };
 
-__global__ void __launch_bounds__(kThreads) bw_grad_kernel(Args A) {
+// At least 4 blocks per SM (at most 128 registers): left free, ptxas picks
+// 96 registers for this kernel and spills, 1% slower (chip_ab.py).
+__global__ void __launch_bounds__(kThreads, 4) bw_grad_kernel(Args A) {
   __shared__ float red[kThreads];
   const int n = A.width * A.height;
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -103,8 +106,9 @@ __global__ void __launch_bounds__(kThreads) bw_grad_kernel(Args A) {
       const uint32_t word = static_cast<uint32_t>(A.stash.word[A.stash.wi(0, b, gid)]);
       float ux, uy, uz;
       unit_draws(pix, seed, b, A.rng_sphere, ux, uy, uz);
-      bounce_adjoint<kCols>(A.planes, A.spheres, A.sg, A.pg, A.n_spheres, A.n_planes, v, word,
-                            ux, uy, uz, crad, co, cd, ct);
+      add_prim_grad(bounce_adjoint<kCols>(A.planes, A.spheres, v, word, ux, uy, uz, crad, co,
+                                          cd, ct),
+                    A.sg, A.pg, A.n_spheres, A.n_planes);
     }
     raygen_adjoint(cam, rp, co, cd, cam_acc);
   }

@@ -23,20 +23,14 @@
 // its stash traffic (40 bytes written and 40 read back per live (sample,
 // bounce) of a pixel, ~250 MB per headline step) would each take under
 // 0.1 ms per headline step (basic.toml 800x600, 4 spp, depth 8) at an
-// H100's peak rates; the kernel takes ~0.9 ms there.  What may hold it
-// above both: IEEE division and square root are instruction sequences
-// (each counts as one operation above), ~125 registers per thread leave
-// 16 warps per SM to hide latency, a lane whose ray died waits for the
-// rest of its warp, and every hit adds 9 shared-memory atomics, mostly to
-// the same primitive's slots across the warp.  Which of these dominates
-// is not measured yet (PERF.md).  The design is the simple one, and
-// follows the render kernel's:
+// H100's peak rates.  The first design took ~0.88 ms there, two thirds of
+// it in the per-primitive sums: 9 shared-memory float atomicAdds per hit,
+// each a compare-and-swap loop in the SASS (ATOMS.CAST.SPIN), with most
+// lanes of a warp adding to the same sphere's slots (chip_ab.py's
+// ablation split, PERF.md).  The design:
 //   * one thread per pixel; all samples of the pixel in that thread;
 //   * the primitive tables (<= 640 rows) in shared memory, read as
-//     warp-wide broadcasts, and a dead ray leaves its bounce loop
-//     (`break`); the reverse starts at the last bounce the ray lived
-//     through.  Both are exact: a dead bounce is the identity on the
-//     carried values and their cotangents and adds no gradient;
+//     warp-wide broadcasts; a dead ray leaves its forward loop (`break`);
 //   * the stash lives in a scratch tensor the wrapper allocates, laid out
 //     pixel-minor ([sample][bounce][field][pixel]) so that a warp's 32
 //     threads touch 128 contiguous bytes: origin, direction, throughput
@@ -45,11 +39,23 @@
 //     count;
 //   * the random numbers are recomputed from the counter hash in the
 //     reverse sweep instead of stashed;
-//   * per-primitive gradients go to shared-memory accumulators with
-//     atomicAdd (their order of summation varies from run to run; the
-//     card check in chip_smoke.py prints the spread), and the loss and
-//     camera sums go through a fixed-order tree reduction of the block.
-//
+//   * the reverse sweep is warp-uniform: every lane runs the warp's
+//     longest path, a lane past its own live bounces (or past the frame)
+//     with word 0, which bounce_adjoint passes through as the exact
+//     identity and which adds no gradient;
+//   * so all 32 lanes reach the per-primitive sums together, and they are
+//     summed per warp first (warp_add_prim_grad): lanes grouped by winner
+//     with __match_any_sync, each group's 9 floats summed by a butterfly
+//     of shuffles, one add per group and slot.  The mono kernel keeps a
+//     slot set per warp in shared memory and needs no atomic: its
+//     partials are the same from run to run.  The per-sample kernel,
+//     whose tables may hold 640 primitives (four slot sets would take
+//     92 KB), keeps one set per block, which the groups' leaders add to
+//     atomically (per-warp sets were 4.6% faster at 7 spheres and 9.8%
+//     slower at 500, chip_ab.py);
+//   * the loss and camera sums go over the warp by shuffles and then over
+//     the block's 4 warps in a fixed order.
+
 // The per-ray code and its bit-level contract with the plain versions
 // are in bounce.cuh, which the blockwise gradient kernel shares.
 
@@ -58,6 +64,9 @@
 namespace {
 
 constexpr int kCols = 10;  // [cx|nx, cy|ny, cz|nz, r|d, alb r g b, refl, rough, cls]
+constexpr int kWarps = kThreads / 32;
+constexpr int kRed = kCam + 1;  // block partials: the camera floats, then the loss
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
   const float* spheres; int n_spheres;
@@ -73,33 +82,78 @@ struct Args {
   float inv_w, inv_h, inv_spp, cot_scale;
 };
 
+// Sum of v over the warp by a butterfly of shuffles: every lane gets the
+// same sum, added in the same fixed order.
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = v + __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// Adds one bounce's payload cotangents of the warp's 32 lanes to the slot
+// set (acc_s, acc_p).  All 32 lanes call it together.  The lanes are
+// grouped by winner; a lane alone in its group adds its own values, and
+// each larger group sums its values with a butterfly (warp_sum over the
+// group's values, zeros elsewhere) whose lowest lane then adds the sums.
+// So each slot takes at most one add per warp and bounce.  With a slot set
+// per warp (kShared false) the adds need no atomic and land in a fixed
+// order; with the block's set (kShared) the group leaders of its warps add
+// atomically (at most kWarps-way contention).
+template <bool kShared>
+__device__ __forceinline__ void warp_add_prim_grad(const PrimGrad& p, float* acc_s, float* acc_p,
+                                                   int n_spheres, int n_planes) {
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(kFull, p.key);
+  const bool live = p.key >= 0;
+  const bool alone = __popc(peers) == 1;
+  if (live && alone) add_prim_grad<kShared>(p, acc_s, acc_p, n_spheres, n_planes);
+  for (unsigned todo = __ballot_sync(kFull, live && !alone); todo != 0;) {
+    const int leader = __ffs(todo) - 1;
+    const unsigned group = __shfl_sync(kFull, peers, leader);
+    const bool in = (group >> lane) & 1u;
+    PrimGrad sum;
+    sum.key = p.key;
+    for (int k = 0; k < kSSlots; ++k) sum.g[k] = warp_sum(in ? p.g[k] : 0.0f);
+    if (lane == leader) add_prim_grad<kShared>(sum, acc_s, acc_p, n_spheres, n_planes);
+    todo &= ~group;
+  }
+  __syncwarp();  // the next call's adds see these
+}
+
+// The mono kernel keeps one slot set per warp (<= 96 primitives in the
+// router, 13.8 KB at 96), the per-sample kernel one per block (up to 640
+// primitives, where four sets would take 92 KB and cut the blocks per SM);
+// rt_grad_fused sizes the shared memory to match.
 template <bool kMono>
 __device__ __forceinline__ void fused_body(const Args& A) {
   extern __shared__ float smem[];
+  const int ns = A.n_spheres * kSSlots, np = A.n_planes * kPSlots;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* s_pl = smem;
   float* s_sp = s_pl + A.n_planes * kCols;
-  float* acc_s = s_sp + A.n_spheres * kCols;
-  float* acc_p = acc_s + A.n_spheres * kSSlots;
-  float* red = acc_p + A.n_planes * kPSlots;
+  float* acc = s_sp + A.n_spheres * kCols;  // n_sets slot sets of ns + np
+  const int n_sets = kMono ? kWarps : 1;
+  float* red = acc + n_sets * (ns + np);     // (kWarps, kRed)
   for (int i = threadIdx.x; i < A.n_planes * kCols; i += blockDim.x) s_pl[i] = A.planes[i];
   for (int i = threadIdx.x; i < A.n_spheres * kCols; i += blockDim.x) s_sp[i] = A.spheres[i];
-  const int n_acc = A.n_spheres * kSSlots + A.n_planes * kPSlots;
-  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) acc_s[i] = 0.0f;
+  for (int i = threadIdx.x; i < n_sets * (ns + np); i += blockDim.x) acc[i] = 0.0f;
   __syncthreads();
+  float* acc_s = acc + (kMono ? warp * (ns + np) : 0);
+  float* acc_p = acc_s + ns;
 
   const int n = A.width * A.height;
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in_frame = gid < n;
+  const Cam cam = load_cam(A.cam);
+  const float px = static_cast<float>(gid % A.width);
+  const float py = static_cast<float>(gid / A.width);
+  const uint32_t pix = static_cast<uint32_t>(gid);
   float loss = 0.0f;
   float cam_acc[kCam];
   for (int i = 0; i < kCam; ++i) cam_acc[i] = 0.0f;
 
-  if (gid < n) {  // no early return: every thread reaches the barriers below
-    const Cam cam = load_cam(A.cam);
-    const float px = static_cast<float>(gid % A.width);
-    const float py = static_cast<float>(gid / A.width);
-    const uint32_t pix = static_cast<uint32_t>(gid);
-
-    // ---- forward sweeps ----
+  // ---- forward sweeps and the pixel cotangent ----
+  float crad[3] = {0.0f, 0.0f, 0.0f};
+  if (in_frame) {
     float img[3] = {0.0f, 0.0f, 0.0f};
     for (int s = 0; s < A.spp; ++s) {
       const uint32_t seed = static_cast<uint32_t>(A.seeds[s]);
@@ -109,9 +163,6 @@ __device__ __forceinline__ void fused_body(const Args& A) {
       forward_sample<kCols>(s_pl, A.n_planes, s_sp, A.n_spheres, cam, rp, pix, seed, s, gid,
                             A.rng_sphere, A.stash, img);
     }
-
-    // ---- pixel cotangent ----
-    float crad[3];
     if (kMono) {
       float diff[3];
       for (int c = 0; c < 3; ++c) diff[c] = img[c] * A.inv_spp - A.pix_in[gid * 3 + c];
@@ -120,21 +171,30 @@ __device__ __forceinline__ void fused_body(const Args& A) {
     } else {
       for (int c = 0; c < 3; ++c) crad[c] = A.pix_in[gid * 3 + c];
     }
+  }
 
-    // ---- reverse sweeps ----
-    for (int s = 0; s < A.spp; ++s) {
-      const uint32_t seed = static_cast<uint32_t>(A.seeds[s]);
-      float co[3] = {0.0f, 0.0f, 0.0f}, cd[3] = {0.0f, 0.0f, 0.0f}, ct[3] = {0.0f, 0.0f, 0.0f};
-      const int nb = A.stash.nb[static_cast<size_t>(s) * n + gid];
-      for (int b = nb - 1; b >= 0; --b) {
-        float v[kStashF];
+  // ---- reverse sweeps, warp-uniform ----
+  // Every lane runs the warp's longest path: a lane past its own live
+  // bounces, or past the frame, runs word 0 (the identity, no gradient)
+  // and loads nothing, so all 32 lanes reach warp_add_prim_grad together.
+  for (int s = 0; s < A.spp; ++s) {
+    const uint32_t seed = static_cast<uint32_t>(A.seeds[s]);
+    float co[3] = {0.0f, 0.0f, 0.0f}, cd[3] = {0.0f, 0.0f, 0.0f}, ct[3] = {0.0f, 0.0f, 0.0f};
+    const int nb = in_frame ? A.stash.nb[static_cast<size_t>(s) * n + gid] : 0;
+    for (int b = __reduce_max_sync(kFull, nb) - 1; b >= 0; --b) {
+      float v[kStashF];
+      uint32_t word = 0u;
+      float ux = 0.0f, uy = 0.0f, uz = 0.0f;
+      for (int k = 0; k < kStashF; ++k) v[k] = 0.0f;
+      if (b < nb) {
         for (int k = 0; k < kStashF; ++k) v[k] = A.stash.f[A.stash.fi(s, b, k, gid)];
-        const uint32_t word = static_cast<uint32_t>(A.stash.word[A.stash.wi(s, b, gid)]);
-        float ux, uy, uz;
+        word = static_cast<uint32_t>(A.stash.word[A.stash.wi(s, b, gid)]);
         unit_draws(pix, seed, b, A.rng_sphere, ux, uy, uz);
-        bounce_adjoint<kCols>(s_pl, s_sp, acc_s, acc_p, A.n_spheres, A.n_planes, v, word, ux,
-                              uy, uz, crad, co, cd, ct);
       }
+      const PrimGrad g = bounce_adjoint<kCols>(s_pl, s_sp, v, word, ux, uy, uz, crad, co, cd, ct);
+      warp_add_prim_grad<!kMono>(g, acc_s, acc_p, A.n_spheres, A.n_planes);
+    }
+    if (in_frame) {
       float jx = hash_u01(pix, seed, 1u), jy = hash_u01(pix, seed, 2u);
       if (s == 0 && A.center0) { jx = 0.5f; jy = 0.5f; }
       const RayParts rp = raygen_parts(cam, px, py, jx, jy, A.inv_w, A.inv_h);
@@ -142,22 +202,34 @@ __device__ __forceinline__ void fused_body(const Args& A) {
     }
   }
 
-  // ---- block partials ----
-  if (kMono) {
-    const float l = block_sum(red, loss);
-    if (threadIdx.x == 0) A.loss_out[blockIdx.x] = l;
-  }
+  // ---- block partials: over the warp by shuffles, then over the warps in order ----
   for (int i = 0; i < kCam; ++i) {
-    const float c = block_sum(red, cam_acc[i]);
-    if (threadIdx.x == 0) A.cg_out[blockIdx.x * kCam + i] = c;
+    const float c = warp_sum(cam_acc[i]);
+    if (lane == 0) red[warp * kRed + i] = c;
   }
-  // block_sum ended with a barrier, so every atomicAdd has landed
-  const int ns = A.n_spheres * kSSlots;
-  for (int i = threadIdx.x; i < ns; i += blockDim.x)
-    A.sg_out[static_cast<size_t>(blockIdx.x) * ns + i] = acc_s[i];
-  const int np = A.n_planes * kPSlots;
-  for (int i = threadIdx.x; i < np; i += blockDim.x)
-    A.pg_out[static_cast<size_t>(blockIdx.x) * np + i] = acc_p[i];
+  if (kMono) {
+    const float l = warp_sum(loss);
+    if (lane == 0) red[warp * kRed + kCam] = l;
+  }
+  __syncthreads();  // every partial and every slot add has landed
+  for (int i = threadIdx.x; i < (kMono ? kRed : kCam); i += blockDim.x) {
+    float t = red[i];
+    for (int w = 1; w < kWarps; ++w) t = t + red[w * kRed + i];
+    if (i < kCam) {
+      A.cg_out[blockIdx.x * kCam + i] = t;
+    } else {
+      A.loss_out[blockIdx.x] = t;
+    }
+  }
+  for (int i = threadIdx.x; i < ns + np; i += blockDim.x) {
+    float t = acc[i];
+    for (int w = 1; w < n_sets; ++w) t = t + acc[w * (ns + np) + i];
+    if (i < ns) {
+      A.sg_out[static_cast<size_t>(blockIdx.x) * ns + i] = t;
+    } else {
+      A.pg_out[static_cast<size_t>(blockIdx.x) * np + (i - ns)] = t;
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) mse_step_kernel(Args a) { fused_body<true>(a); }
@@ -192,8 +264,10 @@ extern "C" int rt_grad_fused(
   a.inv_spp = inv_spp; a.cot_scale = cot_scale;
   const int blocks = (width * height + kThreads - 1) / kThreads;
   const size_t smem = sizeof(float) * (static_cast<size_t>(n_spheres + n_planes) * kCols +
-                                       static_cast<size_t>(n_spheres) * kSSlots +
-                                       static_cast<size_t>(n_planes) * kPSlots + kThreads);
+                                       static_cast<size_t>(mono ? kWarps : 1) *
+                                           (static_cast<size_t>(n_spheres) * kSSlots +
+                                            static_cast<size_t>(n_planes) * kPSlots) +
+                                       kWarps * kRed);
   const void* fn = mono ? reinterpret_cast<const void*>(mse_step_kernel)
                         : reinterpret_cast<const void*>(grad_kernel);
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -36,8 +36,8 @@
 //     identity on its cotangents and adds no gradient, so its thread
 //     returns at once, and threads past the live prefix read nothing;
 //   * per-row gradients go to one float64 (9, S) and (5, P) table per
-//     step with global atomics, as bw_grad_kernel.cu does (float32
-//     atomics in varying order reached half the card check's tolerance
+//     step with global atomics (add_prim_grad), as bw_grad_kernel.cu does
+//     (float32 atomics in varying order reached half the card check's tolerance
 //     there); the camera sums of the gen launch through a fixed-order tree
 //     reduction of the block and one float64 atomic per block and float.
 
@@ -107,8 +107,8 @@ __device__ __forceinline__ void reverse_ray(const Args& A, uint32_t pix, uint32_
   const uint32_t word = decisions<kCols>(A.planes, A.spheres, ox, oy, oz, dx, dy, dz, true, best,
                                          win, ispl, root, ux, uy, uz, coin);
   const float crad[3] = {A.cot_pix[pix * 3 + 0], A.cot_pix[pix * 3 + 1], A.cot_pix[pix * 3 + 2]};
-  bounce_adjoint<kCols, double>(A.planes, A.spheres, A.sg, A.pg, A.n_spheres, A.n_planes, v, word,
-                                ux, uy, uz, crad, co, cd, ct);
+  add_prim_grad(bounce_adjoint<kCols>(A.planes, A.spheres, v, word, ux, uy, uz, crad, co, cd, ct),
+                A.sg, A.pg, A.n_spheres, A.n_planes);
 }
 
 __global__ void __launch_bounds__(kThreads) wf_rev_kernel(Args A) {

@@ -34,8 +34,8 @@ def _scene(name):
         return rt_tpu_torch.loads(PLANES_TOML)
     if name == "box":
         return rt_tpu_torch.loads((SCENES / "basic.toml").read_text() + BOX_TOML)
-    if name == "proc64":
-        return rt_tpu_torch.scene.make_procedural_scene(64)
+    if name.startswith("proc"):
+        return rt_tpu_torch.scene.make_procedural_scene(int(name[4:]))
     return rt_tpu_torch.load(str(SCENES / name))
 
 
@@ -114,9 +114,10 @@ def _grad_args(cuda, name, personality, size, seed=1):
 
 def _assert_within_l1(got, want, l1):
     # same per-ray arithmetic (--fmad=false, same expression order); only
-    # the order of the sums over pixels and samples differs, and the
-    # kernel's per-primitive sums use shared-memory atomics: each entry
-    # agrees within 1e-5 of the sum of its contributions' magnitudes
+    # the order of the sums over pixels and samples differs (the kernels
+    # sum per warp, per block and then over blocks, the per-sample kernel's
+    # per-primitive sums with shared-memory atomics): each entry agrees
+    # within 1e-5 of the sum of its contributions' magnitudes
     for g, w_, l in zip(got, want, l1):
         assert torch.isfinite(g).all()
         assert ((g - w_).abs() <= 1e-5 * l).all(), ((g - w_).abs() / l.clamp_min(1e-30)).max()
@@ -154,6 +155,36 @@ def test_grad_kernel_matches_plain(cuda, name, personality, center):
     assert tg.grad_tile.launches == before + 1
     want, l1 = tg.grad_tile_plain(sp, pl, cam, seeds, cot * 1e-4, with_l1=True, **kw)
     torch.cuda.synchronize()
+    _assert_within_l1(got, want, l1)
+
+
+@pytest.mark.parametrize("name,personality,size,spp,mono", [
+    ("basic.toml", "mg", (37, 23), 3, True),        # ragged: 851 pixels
+    ("proc90", "mg", (64, 48), 2, True),            # many winners per warp
+    ("dielectric.toml", "sm", (37, 23), 1, False),  # ragged, per-sample
+    ("proc640", "mg", (48, 32), 1, False),          # the per-sample route's largest table
+])
+def test_grad_kernels_warp_aggregation(cuda, name, personality, size, spp, mono):
+    """Cases the warp-level aggregation of the gradient kernels could get
+    wrong: a last warp that runs past the frame (37x23 is no multiple of
+    32), many winners in one warp on the mono route, and 640 primitives on
+    the per-sample route.  The mono kernel keeps a slot set per warp and
+    sums them in a fixed order, so two of its launches agree bit for bit."""
+    sp, pl, cam, pix = _grad_args(cuda, name, personality, size)
+    if mono:
+        assert tg.route(sp.shape[0] + pl.shape[0], spp, 8) == "mono"
+        seeds = torch.from_numpy(tg._sample_seeds(5, spp)).to(cuda)
+        kw = dict(size=size, max_bounces=8)
+        got, again = (tg.mse_step_tile(sp, pl, cam, seeds, pix, **kw) for _ in range(2))
+        want, l1 = tg.mse_step_tile_plain(sp, pl, cam, seeds, pix, with_l1=True, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
+    else:
+        seeds = torch.tensor([-31], dtype=torch.int32, device=cuda)
+        kw = dict(size=size, max_bounces=8, center_sample=False)
+        got = tg.grad_tile(sp, pl, cam, seeds, pix * 1e-4, **kw)
+        want, l1 = tg.grad_tile_plain(sp, pl, cam, seeds, pix * 1e-4, with_l1=True, **kw)
+        torch.cuda.synchronize()
     _assert_within_l1(got, want, l1)
 
 
