@@ -31,12 +31,15 @@ Phases (an exception in any phase exits non-zero before the result line):
    1000 spheres (past the render kernel's 640) at 160x90; at the main
    paths' shapes, 500 spheres at 1920x1080 1 spp (a train-step launch)
    and 1000 spheres at 1920x1080 4 spp (a CLI chunk); and against the
-   render kernel on basic and cornell at the same seeds.  Blockwise
-   gradient kernel, one sample, depth 8,
-   within 1e-5 x L1 with the run-to-run spread: 500 spheres at 320x180 and
-   at 1920x1080 (a train-step launch), cornell (sm) at 160x120; and the
-   blockwise step against make_mse_step(mode="multi") on basic.toml at the
-   same seeds.  Wavefront kernels, depth 8: every launch of a sample chunk
+   render kernel on basic and cornell at the same seeds; at 1 spp also
+   the words form (the train step's launch: frame and winner words) bit for
+   bit.  Blockwise gradient kernel, one sample, depth 8, along its forward
+   launch's winner words, within 1e-5 x L1 with the run-to-run spread: 500
+   spheres at 320x180 and at 1920x1080 (a train-step launch), cornell and
+   dielectric (sm) at 160x120, each with the count of refractions with
+   sin2 == 1 (where the render bounce and the gradient sweep could part);
+   and the blockwise step against make_mse_step(mode="multi") on basic.toml
+   at the same seeds.  Wavefront kernels, depth 8: every launch of a sample chunk
    (gen, then bounces 1-7 with the compaction sorts and the live-prefix
    limit), in plain and record mode, bit for bit with wf_bounce_plain on
    basic.toml (mg), cornell_spheres.toml (sm) and basic+box (--boxes) at
@@ -45,7 +48,12 @@ Phases (an exception in any phase exits non-zero before the result line):
    2000-sphere chunks within 1e-5 x L1 of wf_rev_plain, with the
    run-to-run spread; and at the main path's shape, one 2-spp chunk of
    BASELINE config 5's slice (5000 spheres, 960x540), both kernels against
-   their plain versions (the plain times are printed).  Record kernels,
+   their plain versions (the plain times are printed); the split scan of
+   the later bounces on a tie-heavy scene (sphere rows duplicated side by
+   side and across the table, two equal boxes, --boxes) and a mostly-sky
+   one at 640x480, every launch of a chunk bit for bit and the chunk equal
+   to the blockwise kernel's, and bounce 1 at live-prefix limits that give
+   each ray 1, 2, 4, 8, 16 and 32 lanes.  Record kernels,
    depth 8, both centre-sample settings, bit for bit (every record array
    and the radiance) with their plain versions and their radiance equal to
    the 1-spp frame at the same seed: the render kernel's record form and
@@ -70,8 +78,9 @@ Phases (an exception in any phase exits non-zero before the result line):
    spheres, 1920x1080, depth 8; 16 spp, cut from 128 for run time), Adam
    on materials.albedo at lr 5e-2 as in examples/big_scene_training.py:
    the loss must fall, each step must launch 16 forward and 16 gradient
-   kernels, copy nothing to the card but the seeds and build nothing; and
-   bench.py's gradient check through bw_mse_loss_and_grad.  The wavefront
+   kernels, copy nothing to the card but the seeds and build nothing (its
+   peak device memory is printed); and bench.py's gradient check through
+   bw_mse_loss_and_grad.  The wavefront
    route, on BASELINE config 5's slice (5000 spheres, 960x540, 2 spp,
    depth 8): the CLI (mg_auto) renders it with 8 wavefront launches, equal
    to render_forward_blockwise's frame at the same seed (torch.equal); the
@@ -99,15 +108,20 @@ Phases (an exception in any phase exits non-zero before the result line):
    (rt_tpu_torch.profiling.sustained) for every kernel (the mono and
    per-sample gradient kernels also by their CUPTI device time, which the
    kernels line adds as device_ms: their wrappers' host work is as long as
-   the per-sample kernel), its plain version,
+   the per-sample kernel; the blockwise kernels at 320x180 and, as the
+   kernels line gives them, at a config-4 train-step launch, 1920x1080 one
+   sample: the forward's words and serving forms and the gradient kernel,
+   with a whole step's count of sin2 == 1 refractions), its plain version,
    make_render_step and make_mse_step (fwd+bwd Mrays/s), the step over the
    same-shape forward in interleaved windows (ratio_step_over_fwd, as
    bench.py measures it), config 3's step, the blockwise kernels (beside
    the render and per-sample kernels on the same 500-sphere inputs) and
    the config-4 train step, and a profiler trace (profiling.device_times)
    for the kernels' device time and the card's busy share within a step.
-   The wavefront kernels per launch on the 1-spp config-5 chunk (CUPTI
-   device time), and the config-5 slice's frame and train step each beside
+   The wavefront kernels per launch on the 2-spp config-5 chunk (CUPTI
+   device time), and per bounce (CUDA events around each launch, the stream
+   held while the host queues the chunk) with each bounce's live rays,
+   lanes per ray and bound; the config-5 slice's frame and train step each beside
    the blockwise route's in 5 interleaved windows (and the frame with a
    sort before every bounce, which must be the same frame).  Each record
    kernel per launch (the render kernel's at the headline shape, the
@@ -219,14 +233,23 @@ OPS = dict(raygen=40, scan_plane=20, scan_sphere=30, fwd_miss=12, fwd_hit=35, fw
 GRAD_TOL = 1e-5
 
 
-def live_work(spheres, planes, cam, seeds, bases, centers, size, max_bounces, rng_mode):
+def live_work(spheres, planes, cam, seeds, bases, centers, size, max_bounces, rng_mode,
+              words=None):
     """Live work of these inputs, counted from the plain forward's
     per-bounce masks (rt_tpu_torch.ops._grad_math): rays, live bounces,
     misses, sphere and plane hits, and hits per material class.  ``seeds``,
     ``bases`` (counter offsets) and ``centers`` give each sample's draws.
     ``warp_live`` counts the bounce slots the kernels' warps issue: per warp
     of 32 consecutive pixels and per sample, 32 times the most live bounces
-    of any of its pixels (a lane whose ray died waits for the others)."""
+    of any of its pixels (a lane whose ray died waits for the others).
+    ``words`` (per sample, the forward kernel's (max_bounces, N) winner
+    words, one-sample calls at counter base 0) replays each bounce's winner
+    (``_grad_math.replay_winner``, as the blockwise gradient kernel does)
+    in place of the scan, which is far cheaper at 1080p; the sweep is the
+    gradient's (``_bounce_forward``).  ``refractions`` counts the live
+    dielectric hits that refract and ``sin2_one`` those of them with sin2
+    == 1.0f exactly, the one case where the render bounce and the gradient
+    sweep part (csrc/bw_grad_kernel.cu)."""
     import torch
     from rt_tpu_torch.ops import _grad_math as gm
     from rt_tpu_torch.ops.render import _inv_size, hash_u01
@@ -239,9 +262,9 @@ def live_work(spheres, planes, cam, seeds, bases, centers, size, max_bounces, rn
     inv_w, inv_h = _inv_size(w, h)
     c = cam.tolist()
     keys = ("live", "miss", "sphere", "plane", "lambert", "metal", "dielectric")
-    counts = dict.fromkeys(keys + ("warp_live",), 0)
+    counts = dict.fromkeys(keys + ("warp_live", "refractions", "sin2_one"), 0)
     counts["rays"] = n * len(seeds)
-    for seed, base, center in zip(seeds, bases, centers):
+    for si, (seed, base, center) in enumerate(zip(seeds, bases, centers)):
         jx, jy = (0.5, 0.5) if center else (hash_u01(idx, seed, base + 1),
                                             hash_u01(idx, seed, base + 2))
         o3, d3 = gm.raygen(c, px, py, jx, jy, inv_w, inv_h)
@@ -252,9 +275,16 @@ def live_work(spheres, planes, cam, seeds, bases, centers, size, max_bounces, rn
             nb[:n] += live
             u3 = gm.unit_draws(idx, seed, base + 3 + 4 * b, rng_mode == "sphere")
             coin = hash_u01(idx, seed, base + 6 + 4 * b)
-            best, bidx, ispl, root = gm.scan(spheres, planes, o3, d3)
+            if words is None:
+                best, bidx, ispl, root = gm.scan(spheres, planes, o3, d3)
+            else:
+                best, bidx, ispl, root = gm.replay_winner(spheres, planes, o3, d3, words[si][b])
             pay, cls = gm.payload(spheres, planes, best < 1e37, ispl, bidx)
             lv = live
+            bits, geo = gm._decide(o3, d3, live, best, pay, cls, ispl, root, u3, coin)
+            refract = bits["live_h"] & bits["is_die"] & ~bits["refl"]
+            counts["refractions"] += int(refract.sum())
+            counts["sin2_one"] += int((refract & (geo["sin2"] == 1.0)).sum())
             o3, d3, thr3, _, bits = gm.bounce_forward(o3, d3, thr3, best, pay, cls, ispl, root,
                                                       live, u3, coin)
             lh = bits["live_h"]
@@ -283,6 +313,25 @@ def reverse_ops(work):
             + work["sphere"] * OPS["rev_sphere"] + work["plane"] * OPS["rev_plane"]
             + work["lambert"] * OPS["rev_lambert"] + work["metal"] * OPS["rev_metal"]
             + work["dielectric"] * OPS["rev_dielectric"])
+
+
+def grad_ops(work):
+    """FP32 operations of the blockwise gradient kernel on this live work:
+    per live hit its winner's own test (replay_winner: one sphere or plane
+    row, no scan; a miss needs none), the rest of the forward bounce and
+    the reverse."""
+    return (forward_ops(work, 0, 0) + work["sphere"] * OPS["scan_sphere"]
+            + work["plane"] * OPS["scan_plane"] + reverse_ops(work))
+
+
+def grad_bytes(work, n, n_spheres, n_planes):
+    """Bytes the blockwise gradient kernel must move on this live work,
+    each input read once and each output written once: the used rows of the
+    tables, the camera and seed, the pixel cotangent, the winner word of
+    every live bounce, and the float64 gradient tables (read and written:
+    they are added to)."""
+    return (64 * (n_spheres + n_planes) + 4 * (16 + 1) + 12 * n + 4 * work["live"]
+            + 2 * 8 * (9 * n_spheres + 5 * n_planes + 16))
 
 
 def bound(n_bytes, n_ops):
@@ -650,12 +699,23 @@ def blockwise_parity(scenes, report):
         ("proc500/mg train-step launch", "proc500", "mg", (1920, 1080), False, 1, False),
         ("proc1000/mg cli chunk", "proc1000", "mg", (1920, 1080), False, 4, True),
     ]
+    words_of = {}  # (scene, size, centre) -> the words form's winner words, checked
     for label, key, pers, size, boxes, spp, center in cases:
         sp, pl, bx, counts = bw_tables(scenes[key], pers, boxes)
         cam = torch.from_numpy(R._pack_camera(scenes[key].camera, size)).cuda()
         kw = dict(size=size, spp=spp, max_bounces=8, center_sample=center)
         got = BW.render_blockwise_tile(sp, pl, bx, counts, cam, seeds, **kw)
-        want = BW.render_blockwise_tile_plain(sp, pl, bx, counts, cam, seeds, **kw)
+        if spp == 1:  # the train step's launch: its words form too, frame and words
+            want, w_want = BW.render_blockwise_tile_plain(sp, pl, bx, counts, cam, seeds,
+                                                          words=True, **kw)
+            got_w, w_got = BW.render_blockwise_tile(sp, pl, bx, counts, cam, seeds, words=True,
+                                                    **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got_w, want) and torch.equal(w_got, w_want),
+                  f"blockwise {label}: the words form differs from its plain version")
+            words_of[key, size, center] = w_got
+        else:
+            want = BW.render_blockwise_tile_plain(sp, pl, bx, counts, cam, seeds, **kw)
         # the render kernel on the same scene, where it takes it
         unrolled = (R.render_tile(*card_tables(scenes[key], pers, size, boxes)[:3], cam, seeds,
                                   **kw)[0] if sum(counts) <= R.MAX_UNROLL_PRIMS else None)
@@ -671,6 +731,7 @@ def blockwise_parity(scenes, report):
         report["bw_parity"].append(row)
         log(f"[3] blockwise {label} {size[0]}x{size[1]} {spp}spp d8 ({counts} rows): max|d| "
             f"{row['max_abs']:.3g}, exact {row['exact_share']:.5f}"
+            + ("; words form (frame and winner words) bit for bit" if spp == 1 else "")
             + (f"; vs render kernel max|d| {row['vs_render_kernel_max_abs']:.3g}, exact "
                f"{row['vs_render_kernel_exact_share']:.5f}" if "vs_render_kernel_max_abs" in row
                else ""))
@@ -686,18 +747,30 @@ def blockwise_parity(scenes, report):
     # config-4 train step (16 spp), 2,073,600 rays on the same 500 rows
     grad_cases = [("proc500/mg", "proc500", "mg", (320, 180), False, 1e-6),
                   ("cornell_spheres/sm", "cornell", "sm", (160, 120), True, 1e-6),
+                  ("dielectric/sm", "dielectric", "sm", (160, 120), False, 1e-6),
                   ("proc500/mg train-step launch", "proc500", "mg", (1920, 1080), False,
                    2.0 / (3 * 1920 * 1080 * 16))]
     for label, key, pers, size, center, scale in grad_cases:
-        sp, pl, _, counts = bw_tables(scenes[key], pers)
+        sp, pl, bx, counts = bw_tables(scenes[key], pers)
         cam = torch.from_numpy(R._pack_camera(scenes[key].camera, size)).cuda()
         w, h = size
         cot = torch.from_numpy(np.random.default_rng(3).uniform(0.0, 0.5, (h, w, 3))
                                .astype(np.float32)).cuda() * scale
         kw = dict(size=size, max_bounces=8, center_sample=center)
-        got = BG.bw_grad_tile(sp, pl, counts[:2], cam, seeds, cot, **kw)
-        again = BG.bw_grad_tile(sp, pl, counts[:2], cam, seeds, cot, **kw)
-        want, l1 = BG.bw_grad_tile_plain(sp, pl, counts[:2], cam, seeds, cot, with_l1=True, **kw)
+        words = words_of.get((key, size, center))
+        if words is None:  # the sample's forward launch in its words form
+            _, words = BW.render_blockwise_tile(sp, pl, bx, counts, cam, seeds, spp=1,
+                                                words=True, **kw)
+            _, w_want = BW.render_blockwise_tile_plain(sp, pl, bx, counts, cam, seeds, spp=1,
+                                                       words=True, **kw)
+            check(torch.equal(words, w_want), f"bw_grad {label}: the forward's words differ "
+                                              "from the plain version's")
+        got = BG.bw_grad_tile(sp, pl, counts[:2], cam, seeds, cot, words, **kw)
+        again = BG.bw_grad_tile(sp, pl, counts[:2], cam, seeds, cot, words, **kw)
+        want, l1 = BG.bw_grad_tile_plain(sp, pl, counts[:2], cam, seeds, cot, words,
+                                         with_l1=True, **kw)
+        work = live_work(sp[:counts[0], :10], pl[:counts[1], :10], cam, [11], [0], [center],
+                         size, 8, "reference", words=[words])
         torch.cuda.synchronize()
         outs = [(g, a, w_, l) for g, a, w_, l in zip(got, again, want, l1) if g.numel()]
         row = {
@@ -707,11 +780,13 @@ def blockwise_parity(scenes, report):
                                 for g, a, w_, l in outs),
             "run_to_run_ratio_l1": max(((g - a).abs() / l.clamp_min(1e-30)).max().item()
                                        for g, a, w_, l in outs),
+            "refractions": work["refractions"], "sin2_one": work["sin2_one"],
         }
         report["bw_grad_parity"].append(row)
-        log(f"[3] bw_grad {label} {w}x{h} 1 sample d8: max|d| {row['max_abs']:.3g}, max |d|/L1 "
-            f"{row['max_ratio_l1']:.3g} (tolerance {GRAD_TOL}), run-to-run |d|/L1 "
-            f"{row['run_to_run_ratio_l1']:.3g}")
+        log(f"[3] bw_grad {label} {w}x{h} 1 sample d8 (the forward's winner words): max|d| "
+            f"{row['max_abs']:.3g}, max |d|/L1 {row['max_ratio_l1']:.3g} (tolerance "
+            f"{GRAD_TOL}), run-to-run |d|/L1 {row['run_to_run_ratio_l1']:.3g}; refractions with "
+            f"sin2 == 1: {row['sin2_one']} of {row['refractions']}")
         for g, a, w_, l in outs:
             check(torch.isfinite(g).all().item(), f"bw_grad {label}: output not finite")
             check(((g - w_).abs() <= GRAD_TOL * l).all().item(),
@@ -824,11 +899,22 @@ def blockwise_main_paths(scenes, report):
     copies = htod_copies(lambda: step(params, 6))
     read("config-4 train step under the profiler, 1 step", blockwise_kernel=spp,
          bw_grad_kernel=spp)
-    log(f"[4] config-4 train losses {losses}; host-to-device copies in a step: {copies}")
+    # the step's peak device memory (its 16 samples' winner words, 66 MB each
+    # at depth 8, live together between the forward and gradient launches)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(params, 7)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[4] config-4 train losses {losses}; host-to-device copies in a step: {copies}; peak "
+        f"device memory {peak / 2**30:.3f} GiB ({(peak - held) / 2**30:.3f} GiB above the "
+        f"{held / 2**30:.3f} GiB held before the step)")
     check(losses[-1] < losses[0], "the train step did not lower the loss")
     check(copies == 1, f"{copies} host-to-device copies in a train step, expected 1 (the seeds)")
     check(_build.load_library.cache_info().misses == built, "a train step built a library")
-    out.update(train_losses=losses, train_htod_copies=copies)
+    out.update(train_losses=losses, train_htod_copies=copies, train_peak_bytes=peak,
+               train_held_bytes=held)
 
     # bench.py's gradient check through the blockwise step's own loss
     reset()
@@ -892,22 +978,73 @@ def blockwise_timing(scenes, step, params, card, report):
            "plain_ms": fp["median"] * 1e3, "render_kernel_ms": fr["median"] * 1e3,
            "bound_ms": f_bound[0], "bound_by": f_bound[1], "live_work": f_work}
 
-    # the gradient kernel on the same inputs, one sample (not the centre one)
+    # the gradient kernel on the same inputs, one sample (not the centre
+    # one), along its forward launch's winner words
     cot = torch.full((h, w, 3), 1e-6, device="cuda")
     gkw = dict(size=size, max_bounces=8, center_sample=False)
-    gk = profiling.sustained(lambda i: BG.bw_grad_tile(sp, pl, counts[:2], cam, seeds, cot,
+    _, words = BW.render_blockwise_tile(sp, pl, bx, counts, cam, seeds, spp=1, words=True, **gkw)
+    gk = profiling.sustained(lambda i: BG.bw_grad_tile(sp, pl, counts[:2], cam, seeds, cot, words,
                                                        **gkw), iters=16)
     gp = profiling.sustained(lambda i: BG.bw_grad_tile_plain(sp, pl, counts[:2], cam, seeds, cot,
-                                                             **gkw), iters=1, windows=3)
+                                                             words, **gkw), iters=1, windows=3)
     sp10, pl10 = sp[:ns, :10].contiguous(), pl[:npl, :10].contiguous()
     gs = profiling.sustained(lambda i: G.grad_tile(sp10, pl10, cam, seeds, cot, **gkw), iters=16)
-    g_work = live_work(sp10, pl10, cam, [11], [0], [False], size, 8, "reference")
-    g_bound = bound(table_bytes + 4 * (16 + 1 + 3 * n) + 4 * (9 * ns + 5 * npl + 16),
-                    forward_ops(g_work, ns, npl) + reverse_ops(g_work))
+    g_work = live_work(sp10, pl10, cam, [11], [0], [False], size, 8, "reference", words=[words])
+    g_bound = bound(grad_bytes(g_work, n, ns, npl), grad_ops(g_work))
     grad = {"ms": gk["median"] * 1e3, "spread_ms": [gk["min"] * 1e3, gk["max"] * 1e3],
             "plain_ms": gp["median"] * 1e3, "grad_kernel_ms": gs["median"] * 1e3,
-            "bound_ms": g_bound[0], "bound_by": g_bound[1], "live_work": g_work,
-            "stash_bytes_1080p_d8": 4 * 8 * 10 * 1920 * 1080}
+            "bound_ms": g_bound[0], "bound_by": g_bound[1], "live_work": g_work}
+
+    # rows 5 and 7 at their main-path shape: one sample of the config-4 train
+    # step (500 spheres, 1920x1080, depth 8), the forward in its words form
+    # (and the serving form at the same shape beside it), then the gradient
+    # kernel along those words; the plain versions are timed above, at
+    # 320x180 (at 1080p they take tens of seconds)
+    m_size = (1920, 1080)
+    mw, mh = m_size
+    m_n = mw * mh
+    m_cam = torch.from_numpy(R._pack_camera(scene.camera, m_size)).cuda()
+    m_kw = dict(size=m_size, max_bounces=8, center_sample=False)
+    m_seeds = torch.from_numpy(G._sample_seeds(100, 16)).cuda()
+    s1 = m_seeds[1:2]
+    mf = profiling.sustained(lambda i: BW.render_blockwise_tile(sp, pl, bx, counts, m_cam, s1,
+                                                                spp=1, words=True, **m_kw),
+                             iters=8)
+    ms_ = profiling.sustained(lambda i: BW.render_blockwise_tile(sp, pl, bx, counts, m_cam, s1,
+                                                                 spp=1, **m_kw), iters=8)
+    _, m_words = BW.render_blockwise_tile(sp, pl, bx, counts, m_cam, s1, spp=1, words=True,
+                                          **m_kw)
+    m_cot = torch.full((mh, mw, 3), 2.0 / (3 * m_n * 16), device="cuda")
+    mg = profiling.sustained(lambda i: BG.bw_grad_tile(sp, pl, counts[:2], m_cam, s1, m_cot,
+                                                       m_words, **m_kw), iters=8)
+    m_work = live_work(sp10, pl10, m_cam, [int(s1)], [0], [False], m_size, 8, "reference",
+                       words=[m_words])
+    mf_bound = bound(table_bytes + 4 * (16 + 1 + 3 * m_n) + 4 * m_work["live"],
+                     forward_ops(m_work, ns, npl))
+    mg_bound = bound(grad_bytes(m_work, m_n, ns, npl), grad_ops(m_work))
+    fwd.update(ms_320x180=fwd["ms"], bound_ms_320x180=fwd["bound_ms"], plain_shape="320x180 4spp",
+               ms=mf["median"] * 1e3, spread_ms=[mf["min"] * 1e3, mf["max"] * 1e3],
+               serving_form_ms=ms_["median"] * 1e3, bound_ms=mf_bound[0], bound_by=mf_bound[1],
+               shape="proc500 1920x1080 1 sample d8, words form (a config-4 train-step launch)",
+               live_work_1080p=m_work)
+    grad.update(ms_320x180=grad["ms"], bound_ms_320x180=grad["bound_ms"],
+                plain_shape="320x180 1 sample", ms=mg["median"] * 1e3,
+                spread_ms=[mg["min"] * 1e3, mg["max"] * 1e3], bound_ms=mg_bound[0],
+                bound_by=mg_bound[1],
+                shape="proc500 1920x1080 1 sample d8 (a config-4 train-step launch)",
+                live_work_1080p=m_work)
+
+    # a whole config-4 step's samples: the words' refractions with sin2 == 1
+    c4_words = []
+    for s in range(16):
+        c4_words.append(BW.render_blockwise_tile(sp, pl, bx, counts, m_cam, m_seeds[s:s + 1],
+                                                 spp=1, words=True, size=m_size, max_bounces=8,
+                                                 center_sample=(s == 0))[1])
+    c4_work = live_work(sp10, pl10, m_cam, m_seeds.tolist(), [0] * 16,
+                        [True] + [False] * 15, m_size, 8, "reference", words=c4_words)
+    del c4_words
+    grad["config4_step_sin2_one"] = c4_work["sin2_one"]
+    grad["config4_step_refractions"] = c4_work["refractions"]
 
     # the 1000-sphere frame the CLI renders, through the entry point (which
     # flattens and uploads the tables on every call, as JAX's does)
@@ -939,12 +1076,20 @@ def blockwise_timing(scenes, step, params, card, report):
     report["bw_timing"] = {"blockwise_kernel": fwd, "bw_grad_kernel": grad,
                            "serve_1000_1920x1080_8spp_d8": serve_row,
                            "config4_train_step": train_row}
-    log(f"[5] blockwise_kernel proc500 320x180 4spp d8: kernel {fwd['ms']:.4f} ms (render kernel "
-        f"on the same inputs {fwd['render_kernel_ms']:.4f} ms), plain {fwd['plain_ms']:.1f} ms, "
-        f"bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']}) | {card}")
-    log(f"[5] bw_grad_kernel proc500 320x180 1 sample d8: kernel {grad['ms']:.4f} ms (per-sample "
-        f"kernel on the same inputs {grad['grad_kernel_ms']:.4f} ms), plain "
-        f"{grad['plain_ms']:.1f} ms, bound {grad['bound_ms']:.4f} ms ({grad['bound_by']}) | {card}")
+    log(f"[5] blockwise_kernel proc500 320x180 4spp d8: kernel {fwd['ms_320x180']:.4f} ms "
+        f"(render kernel on the same inputs {fwd['render_kernel_ms']:.4f} ms), plain "
+        f"{fwd['plain_ms']:.1f} ms, bound {fwd['bound_ms_320x180']:.4f} ms | {card}")
+    log(f"[5] blockwise_kernel proc500 1920x1080 1 sample d8 (config-4 train-step launch): words "
+        f"form {fwd['ms']:.4f} ms, serving form {fwd['serving_form_ms']:.4f} ms, bound "
+        f"{fwd['bound_ms']:.4f} ms ({fwd['bound_by']}); live bounces {m_work['live']} of "
+        f"{m_n * 8} | {card}")
+    log(f"[5] bw_grad_kernel proc500 320x180 1 sample d8: kernel {grad['ms_320x180']:.4f} ms "
+        f"(per-sample kernel, which scans, on the same inputs {grad['grad_kernel_ms']:.4f} ms), "
+        f"plain {grad['plain_ms']:.1f} ms, bound {grad['bound_ms_320x180']:.4f} ms | {card}")
+    log(f"[5] bw_grad_kernel proc500 1920x1080 1 sample d8 (config-4 train-step launch): "
+        f"{grad['ms']:.4f} ms, bound {grad['bound_ms']:.4f} ms ({grad['bound_by']}); over a "
+        f"config-4 step's 16 samples, refractions with sin2 == 1: "
+        f"{grad['config4_step_sin2_one']} of {grad['config4_step_refractions']} | {card}")
     log(f"[5] 1000-sphere frame 1920x1080 8spp d8 (render_forward_blockwise): "
         f"{serve_row['frame_ms']:.2f} ms = {serve_row['mrays_s']:.1f} Mrays/s (kernel "
         f"{serve_row['kernel_device_ms']:.2f} ms of device time, device busy "
@@ -1051,20 +1196,26 @@ def wf_rev_checked(tables, cam, seeds, size, depth, saved, cot_pix, label, repor
     return worst["max_abs"], plain_s
 
 
-def wf_work(tables, saved):
+def wf_work(tables, saved, per_bounce=False):
     """Live work of a recorded chunk, counted from its saved tables and
     winner words (the keys of live_work): rays, live bounces, misses,
     sphere and plane hits, hits per material class, and `rows`: the distinct
-    winner rows of each bounce, summed over the bounces."""
+    winner rows of each bounce, summed over the bounces; with
+    ``per_bounce`` a list of one such dict per bounce."""
     import torch
     from rt_tpu_torch.ops.render import WORD_MISS, WORD_PLANE, WORD_ROW
 
     sp, pl, _, counts = tables
     n = saved[0][2].shape[0]
-    work = dict.fromkeys(("live", "miss", "sphere", "plane", "lambert", "metal", "dielectric",
-                          "rows"), 0)
+    keys = ("live", "miss", "sphere", "plane", "lambert", "metal", "dielectric", "rows")
+    work = dict.fromkeys(keys, 0)
     work["rays"] = n
+    each = []
     for state, ids, words, limit in saved:
+        if per_bounce:
+            work = dict.fromkeys(keys, 0)
+            work["rays"] = n
+            each.append(work)
         live = (torch.ones(n, dtype=torch.bool, device=words.device) if state is None
                 else state[12] > 0)
         w = words.long()
@@ -1079,7 +1230,42 @@ def wf_work(tables, saved):
                      ("dielectric", hit & (cls == 2.0)),
                      ("lambert", hit & (cls != 1.0) & (cls != 2.0))):
             work[k] += int(m.sum())
-    return work
+    return each if per_bounce else work
+
+
+def wf_bounce_ms(tables, cam, seeds, size, n, depth, sched, shrink, reps=5):
+    """Device ms of each launch of one record chunk (gen, then bounces 1 to
+    depth-1 with the sorts and the live-prefix limit): CUDA events around
+    every launch, the stream held by a spin kernel while the host queues
+    the chunk (so that no launch waits for the host); the median of
+    ``reps`` chunks per bounce."""
+    import statistics
+
+    import torch
+    from rt_tpu_torch.ops import wavefront as WF
+
+    times = [[] for _ in range(depth)]
+    for rep in range(reps + 1):
+        marks = []
+
+        def launch(b, state, ids, limit):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            words = WF.wf_bounce(*tables, cam, seeds, state, ids, limit, size=size, bounce=b,
+                                 max_bounces=depth, center_sample=True, record=True)
+            end.record()
+            marks.append((start, end))
+            return words
+
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)
+        WF._forward_chunk(launch, n, cam.device, max_bounces=depth, sched=sched,
+                          shrink_at=shrink, cell_bits=2, record=True)
+        torch.cuda.synchronize()
+        if rep:  # the first chunk warms up
+            for b, (a, e) in enumerate(marks):
+                times[b].append(a.elapsed_time(e))
+    return [statistics.median(t) for t in times]
 
 
 def wavefront_parity(scenes, report):
@@ -1123,7 +1309,73 @@ def wavefront_parity(scenes, report):
                                        .astype(np.float32)).cuda() * (2.0 / (3 * n_pix * 2))
             err, _ = wf_rev_checked(tables, cam, seeds, size, 8, saved, cot_pix, label, report)
             errs["wf_rev"] = max(errs["wf_rev"], err)
+
+    # the split scan of the later bounces (G lanes per live ray, G from the
+    # live count): a tie-heavy scene (sphere rows duplicated side by side
+    # and across the table, two equal boxes, --boxes) and a mostly-sky one
+    # (few live rays), a whole 1-spp chunk each at 640x480, and bounce 1
+    # from the same bounce-0 table at live-prefix limits that leave live
+    # counts for every G
+    size, depth = (640, 480), 6
+    n = size[0] * size[1]
+    limits = lane_limits(n)
+    for key, boxes in (("ties", True), ("sky", False)):
+        tables = bw_tables(scenes[key], "sm", boxes)
+        cam = torch.from_numpy(R._pack_camera(scenes[key].camera, size)).cuda()
+        state, ids, saved, _, err = wf_checked_chunk(tables, cam, seeds, size, 1, depth, True)
+        errs["wf_bounce"] = max(errs["wf_bounce"], err)
+        img = WF._assemble(state, ids, n, 1).reshape(size[1], size[0], 3)
+        ref = BW.render_blockwise_tile(*tables, cam, seeds, size=size, spp=1, max_bounces=depth,
+                                       center_sample=True)
+        torch.cuda.synchronize()
+        check(torch.equal(img, ref), f"wavefront {key}: the chunk is not the blockwise kernel's")
+        live = [n] + [int((st[12] > 0).sum()) for st, _, _, _ in saved[1:]]
+        lanes = [WF._split_lanes(v) for v in live[1:]]
+        kw = dict(size=size, max_bounces=depth, center_sample=True, record=True)
+        gen_state = torch.empty((WF.STATE_ROWS, n), device="cuda")
+        gen_ids = torch.empty(n, dtype=torch.int32, device="cuda")
+        WF.wf_bounce(*tables, cam, seeds, gen_state, gen_ids, bounce=0, **kw)
+        alive = int((gen_state[12] > 0).sum())
+        seen = []
+        for g, lim in limits.items():
+            limit = torch.tensor([lim], dtype=torch.int32, device="cuda")
+            st, ii, st_p, ii_p = gen_state.clone(), gen_ids.clone(), gen_state.clone(), \
+                gen_ids.clone()
+            got = WF.wf_bounce(*tables, cam, seeds, st, ii, limit, bounce=1, **kw)
+            want = WF.wf_bounce_plain(*tables, cam, seeds, st_p, ii_p, limit, bounce=1, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(st, st_p) and torch.equal(ii, ii_p) and torch.equal(got, want),
+                  f"wf_bounce {key}: bounce 1 at {g} lanes per ray differs from the plain "
+                  "version")
+            seen.append(WF._split_lanes(min(alive, lim)))
+        # the tie-heavy scene keeps enough rays alive for every G; on the
+        # mostly-sky one every limit leaves its few live rays 32 lanes each
+        check(key != "ties" or seen == list(limits),
+              f"wf_bounce {key}: the limits gave lanes {seen}")
+        report.setdefault("wf_split_parity", []).append(
+            {"case": key, "size": size, "live_per_bounce": live, "lanes_per_bounce": lanes,
+             "limits_per_lanes": limits})
+        log(f"[3] wf_bounce {key} 640x480 1spp d{depth} (split scan): every launch bit for bit "
+            f"with the plain version, chunk == blockwise kernel's; live rays per bounce {live}, "
+            f"lanes per ray of bounces 1-{depth - 1} {lanes}; bounce 1 at limits {limits} (lanes "
+            f"{seen}) bit for bit")
     return errs
+
+
+def lane_limits(n):
+    """{G: a live-prefix length at which a later wavefront bounce gives each
+    ray G lanes}, G = 1, 2, ..., 32, from the card's rule
+    (``wavefront._split_lanes``): ceil(R / G), R the resident threads (the
+    least live count that gets one lane), which must not exceed n."""
+    from rt_tpu_torch.ops import wavefront as WF
+
+    check(WF._split_lanes(n) == 1, f"{n} rays are fewer than the wavefront kernel's resident "
+                                   "threads")
+    lo, hi = 1, n
+    while lo < hi:
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if WF._split_lanes(mid) == 1 else (mid + 1, hi)
+    return {g: -(-lo // g) for g in (1, 2, 4, 8, 16, 32)}
 
 
 def wavefront_main_shape(scenes, report, errs):
@@ -1295,6 +1547,7 @@ def wavefront_timing(scenes, step, params, target, shape, card, report):
 
     df = profiling.device_times(fwd_chunk, iters=5)
     dr = profiling.device_times(rev_chunk, iters=5)
+    per_bounce = wf_bounce_ms(tables, cam, seeds, size, n, depth, sched, shrink)
     f_ms = sum(v for k, v in df.items() if "wf_gen_kernel" in k or "wf_bounce_kernel" in k)
     r_ms = sum(v for k, v in dr.items() if "wf_rev_kernel" in k or "wf_rev_gen_kernel" in k)
     work = wf_work(tables, saved)
@@ -1313,10 +1566,24 @@ def wavefront_timing(scenes, step, params, target, shape, card, report):
     grad_tab = 8 * (9 * ns + 5 * npl + 16)
     r_bound = bound(52 * work["rays"] + 132 * live_in + 40 * work["rows"] + 2 * grad_tab,
                     reverse_ops(work) + 70 * hits)
+    # per bounce: device time, live rays entering it, lanes per ray, bound
+    bounces = []
+    for b, w_b in enumerate(wf_work(tables, saved, per_bounce=True)):
+        live_b = w_b["live"]
+        b_bytes = tab + (60 * w_b["rays"] if b == 0 else (56 + 56) * live_b)
+        b_ops = forward_ops(dict(w_b, rays=w_b["rays"] if b == 0 else 0), ns, npl)
+        bounces.append({"bounce": b, "ms": per_bounce[b], "live": live_b,
+                        "lanes": 1 if b == 0 else WF._split_lanes(live_b),
+                        "bound_ms": bound(b_bytes, b_ops)[0]})
+    later = bounces[1:]
     rows = {  # per launch: the chunk's figures over its `depth` launches
         "wf_bounce": {"ms": f_ms / depth, "plain_ms": shape["fwd_plain_s"] * 1e3 / depth,
                       "bound_ms": f_bound[0] / depth, "bound_by": f_bound[1],
-                      "chunk_device_ms": df, "live_work": work},
+                      "chunk_device_ms": df, "live_work": work,
+                      "bounce0_ms": bounces[0]["ms"], "bounce0_bound_ms": bounces[0]["bound_ms"],
+                      "bounces_1_7_ms": sum(r["ms"] for r in later),
+                      "bounces_1_7_bound_ms": sum(r["bound_ms"] for r in later),
+                      "per_bounce": bounces},
         "wf_rev": {"ms": r_ms / depth, "plain_ms": shape["rev_plain_s"] * 1e3 / depth,
                    "bound_ms": r_bound[0] / depth, "bound_by": r_bound[1],
                    "chunk_device_ms": dr},
@@ -1395,6 +1662,12 @@ def wavefront_timing(scenes, step, params, target, shape, card, report):
         log(f"[5] {name} proc5000 960x540 {spp}spp d8 chunk: {r['ms']:.4f} ms per launch (8 per "
             f"chunk), plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}) | {card}")
+    wb = rows["wf_bounce"]
+    log(f"[5] wf_bounce per bounce of the chunk (CUDA events, the stream held while queued): "
+        f"bounce 0 {wb['bounce0_ms']:.4f} ms (bound {wb['bounce0_bound_ms']:.4f}), bounces 1-7 "
+        f"{wb['bounces_1_7_ms']:.4f} ms (bound {wb['bounces_1_7_bound_ms']:.4f}); "
+        + ", ".join(f"b{r['bounce']} {r['ms']:.4f} ms {r['live']} live x{r['lanes']}"
+                    for r in wb["per_bounce"]) + f" | {card}")
     log(f"[5] config-5 slice frame (render_forward_wavefront, 5000 spheres 960x540 2spp d8): "
         f"{slice_row['frame_ms']:.3f} ms = {slice_row['frame_mrays_s']:.1f} Mrays/s, kernels "
         f"{slice_row['frame_kernel_device_ms']:.3f} ms of device time, busy "
@@ -1407,6 +1680,41 @@ def wavefront_timing(scenes, step, params, target, shape, card, report):
         f"frame {slice_row['step_over_frame']:.3f}; blockwise step {slice_row['bw_step_ms']:.3f} "
         f"ms (blockwise/wavefront {slice_row['step_bw_over_wf']:.3f}, interleaved) | {card}")
     return rows
+
+
+def tie_scene_toml() -> str:
+    """A scene whose closest-hit scans tie often (tests/test_torch_common.py
+    has the same): a ground plane, 12 spheres each on two adjacent rows and
+    all 12 again at the end of the table, a ground sphere whose top touches
+    the plane, and two equal boxes."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    sph = ["{ material = %d, position = [%.3f, %.3f, %.3f], radius = %.3f }" % (i % 3, x, y, z, r)
+           for i, (x, y, z, r) in enumerate(zip(
+               rng.uniform(-2, 2, 12), rng.uniform(0.3, 1.2, 12), rng.uniform(-4, -1, 12),
+               rng.uniform(0.2, 0.5, 12)))]
+    rows = [s for s in sph for _ in (0, 1)] + sph
+    rows.append("{ material = 0, position = [0, -1000, 0], radius = 1000 }")
+    box = "{ material = 1, position = [1.2, 0.4, -2.0], extents = [0.3, 0.4, 0.3] }"
+    return "\n".join([
+        "camera = { position = [0, 1, 3], direction = 'forward' }",
+        "materials = [ { type = 'lambert', albedo = 'gray' },",
+        "              { type = 'metal', albedo = 'white', roughness = 0.05 },",
+        "              { type = 'dielectric', albedo = 'white' } ]",
+        "planes = [ { material = 0, position = [0, 0, 0], normal = 'up' } ]",
+        "spheres = [ " + ",\n  ".join(rows) + " ]",
+        f"boxes = [ {box}, {box} ]",
+    ])
+
+
+# most camera rays miss: few rays live after bounce 0
+SKY_TOML = """
+camera = { position = [0, 1, 3], direction = 'forward' }
+materials = [ { type = 'lambert', albedo = 'gray' }, { type = 'metal', albedo = 'white' } ]
+spheres = [ { material = 0, position = [0, 0.8, -4], radius = 0.3 },
+            { material = 1, position = [0.5, 1.0, -4.5], radius = 0.2 } ]
+"""
 
 
 # ---- the records-and-replay route (queue 2 rows 2 and 6) and the FMA probe (row 10) ----
@@ -1918,6 +2226,8 @@ def main() -> int:
         "proc1000": rt_tpu_torch.scene.make_procedural_scene(1000),
         "proc2000": rt_tpu_torch.scene.make_procedural_scene(2000),
         "proc5000": rt_tpu_torch.scene.make_procedural_scene(5000),
+        "ties": rt_tpu_torch.loads(tie_scene_toml()),
+        "sky": rt_tpu_torch.loads(SKY_TOML),
     }
 
     def tile_args(scene, personality, size, include_boxes=False, seed=11):
@@ -2088,6 +2398,7 @@ def main() -> int:
             "replaces": replaces, "launches": bw_launches[name],
             "max_abs_err": bw_errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+            "shape": row["shape"], "plain_shape": row["plain_shape"],
         })
     for name, source, replaces in (
             ("wf_bounce", "wavefront_kernel", "rt_tpu/ops/pallas_wavefront.py:219"),
@@ -2098,6 +2409,7 @@ def main() -> int:
             "replaces": replaces, "launches": wf_launches[name],
             "max_abs_err": wf_errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+            **{k: row[k] for k in ("bounce0_ms", "bounces_1_7_ms") if k in row},
         })
     for name, source, replaces in (
             ("render_record_kernel", "render_kernel", "rt_tpu/ops/pallas_render.py:686"),

@@ -32,6 +32,14 @@
 // chip_smoke.py times this kernel against the render kernel on the same
 // 500-sphere scene: the difference is the cost of the choice.
 //
+// The words form (blockwise_kernel<true>, rt_blockwise_forward_words) is
+// the launch of the blockwise training step: one sample, and per bounce
+// each pixel's winner word (trace_pixel's words form), which the blockwise
+// gradient kernel replays instead of scanning again (bw_grad_kernel.cu).
+// The serving form (blockwise_kernel<false>) compiles without it.  The
+// words add 4 bytes per pixel and bounce of writes (66 MB at 1920x1080 and
+// depth 8), against the scan's ~15 K operations per live bounce.
+//
 // blockwise_record_kernel replaces pallas_blockwise.py::_make_bw_record_kernel
 // (the record pass of pallas_loss_and_grad past the unrolled kernel's 640
 // primitives; its record math is _bounce_once's want_record="replay"): one
@@ -53,22 +61,24 @@ namespace {
 
 constexpr int kCols = 16;
 
+// kWords: the words form (trace_pixel's), one sample per launch.
+template <bool kWords>
 __global__ void __launch_bounds__(kThreads) blockwise_kernel(
     const float* __restrict__ spheres, int n_spheres,
     const float* __restrict__ planes, int n_planes,
     const float* __restrict__ boxes, int n_boxes,
     const float* __restrict__ cam, const int32_t* __restrict__ seeds,
     float* __restrict__ out, int width, int height, float inv_w, float inv_h, int spp,
-    int max_bounces, int center_sample, int rng_sphere) {
+    int max_bounces, int center_sample, int rng_sphere, int32_t* __restrict__ words) {
   const int n = width * height;
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
   if (gid >= n) return;
   const Tables T{spheres, n_spheres, planes, n_planes, boxes, n_boxes};
   float acc[3];
-  trace_pixel<kCols, kCols>(
+  trace_pixel<kCols, kCols, kWords>(
       T, cam, static_cast<uint32_t>(gid), static_cast<float>(gid % width),
       static_cast<float>(gid / width), static_cast<uint32_t>(seeds[0]), inv_w, inv_h, spp,
-      max_bounces, center_sample, rng_sphere, acc);
+      max_bounces, center_sample, rng_sphere, acc, words, n);
   float* o = out + static_cast<int64_t>(gid) * 3;
   o[0] = acc[0];
   o[1] = acc[1];
@@ -102,9 +112,25 @@ extern "C" int rt_blockwise_forward(
     int width, int height, float inv_w, float inv_h, int spp, int max_bounces,
     int center_sample, int rng_sphere, void* stream) {
   const int blocks = (width * height + kThreads - 1) / kThreads;
-  blockwise_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  blockwise_kernel<false><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       spheres, n_spheres, planes, n_planes, boxes, n_boxes, cam, seeds, out, width, height,
-      inv_w, inv_h, spp, max_bounces, center_sample, rng_sphere);
+      inv_w, inv_h, spp, max_bounces, center_sample, rng_sphere, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches one call of the words form on `stream` (one sample); returns
+// cudaGetLastError() as an int.  Arguments as rt_blockwise_forward with
+// spp = 1, and words: (max_bounces, height*width) int32, every entry
+// written (trace_pixel's words form).
+extern "C" int rt_blockwise_forward_words(
+    const float* spheres, int n_spheres, const float* planes, int n_planes,
+    const float* boxes, int n_boxes, const float* cam, const int32_t* seeds, float* out,
+    int32_t* words, int width, int height, float inv_w, float inv_h, int max_bounces,
+    int center_sample, int rng_sphere, void* stream) {
+  const int blocks = (width * height + kThreads - 1) / kThreads;
+  blockwise_kernel<true><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      spheres, n_spheres, planes, n_planes, boxes, n_boxes, cam, seeds, out, width, height,
+      inv_w, inv_h, 1, max_bounces, center_sample, rng_sphere, words);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,9 +1,10 @@
 // Per-ray device math of the gradient kernels, shared by grad_kernel.cu
 // (tables in shared memory, rows of 10 floats), bw_grad_kernel.cu and
 // wf_grad_kernel.cu (tables in device memory, rows of 16 floats): the
-// raygen and its adjoint, the closest-hit scan, the decision bits of a
-// bounce (decisions), the forward sweep with its stash, and the
-// hand-written adjoint of one bounce.
+// raygen and its adjoint, the closest-hit scan and its replay from a
+// forward kernel's winner word, the decision bits of a bounce
+// (decisions), the forward sweep with its stash, the hand-written adjoint
+// of one bounce, and the per-warp sums of its gradients.
 //
 // Bit-level contract (with grad_tile_plain / mse_step_tile_plain in
 // rt_tpu_torch/ops/grad.py and rt_tpu_torch/ops/_grad_math.py, which
@@ -149,6 +150,40 @@ __device__ __forceinline__ void scan(const float* s_pl, int n_planes, const floa
   }
 }
 
+// The scan's result from the forward kernel's winner word of the same
+// bounce (common.cuh kWord*; no boxes here): the winner's own test, the
+// scan's expressions on that one row.  A plane gives -no / nd; a sphere
+// t0 if t0 >= kMinHit, else t1, and its root flag; a miss kBig.  So `best`,
+// `win`, `ispl` and `root` are bit for bit what scan() returns, whenever
+// the ray is the one the forward kernel traced.
+template <int kStride>
+__device__ __forceinline__ void replay_winner(const float* s_pl, const float* s_sp, int32_t word,
+                                              float ox, float oy, float oz, float dx, float dy,
+                                              float dz, float& best, int& win, bool& ispl,
+                                              bool& root) {
+  best = kBig; win = 0; ispl = false; root = true;
+  if (word & kWordMiss) return;
+  win = word & kWordRow;
+  if (word & kWordPlane) {
+    const float* q = s_pl + win * kStride;
+    const float nd = q[0] * dx + q[1] * dy + q[2] * dz;
+    const float no = q[0] * ox + q[1] * oy + q[2] * oz + q[3];
+    best = -no / nd;
+    ispl = true;
+  } else {
+    const float* q = s_sp + win * kStride;
+    const float ocx = ox - q[0], ocy = oy - q[1], ocz = oz - q[2];
+    const float bq = ocx * dx + ocy * dy + ocz * dz;
+    const float c0 = ocx * ocx + ocy * ocy + ocz * ocz - q[3] * q[3];
+    const float disc = bq * bq - c0;
+    const float sq = sqrtf(fmaxf(disc, 0.0f));
+    const float t0 = -bq - sq;
+    const float t1 = -bq + sq;
+    root = t0 >= kMinHit;
+    best = root ? t0 : t1;
+  }
+}
+
 struct Stash {
   float* f;            // [spp][B][9][n]
   int32_t* word;       // [spp][B][n]
@@ -226,11 +261,14 @@ __device__ __forceinline__ uint32_t decisions(const float* s_pl, const float* s_
 
 // One sample's forward sweep: stashes every bounce the ray lives through
 // and adds its sky radiance to acc.  The stash word is decisions()'s, and
-// the advance follows its bits.
-template <int kStride>
+// the advance follows its bits.  The words form (kWords) takes each
+// bounce's winner from the forward kernel's winner words of this sample,
+// words[b * st.n + gid] (replay_winner), in place of the scan.
+template <int kStride, bool kWords = false>
 __device__ void forward_sample(const float* s_pl, int n_planes, const float* s_sp, int n_spheres,
                                const Cam& cam, const RayParts& rp, uint32_t pix, uint32_t seed,
-                               int s, int gid, int rng_sphere, const Stash& st, float acc[3]) {
+                               int s, int gid, int rng_sphere, const Stash& st, float acc[3],
+                               const int32_t* __restrict__ words = nullptr) {
   float ox = cam.cp[0] + rp.dwx * cam.near;
   float oy = cam.cp[1] + rp.dwy * cam.near;
   float oz = cam.cp[2] + rp.dwz * cam.near;
@@ -239,8 +277,13 @@ __device__ void forward_sample(const float* s_pl, int n_planes, const float* s_s
   int b = 0;
   for (; b < st.max_bounces; ++b) {
     float best; int win; bool ispl, root;
-    scan<kStride>(s_pl, n_planes, s_sp, n_spheres, ox, oy, oz, dx, dy, dz, best, win, ispl,
-                  root);
+    if constexpr (kWords) {
+      replay_winner<kStride>(s_pl, s_sp, words[static_cast<size_t>(b) * st.n + gid], ox, oy, oz,
+                             dx, dy, dz, best, win, ispl, root);
+    } else {
+      scan<kStride>(s_pl, n_planes, s_sp, n_spheres, ox, oy, oz, dx, dy, dz, best, win, ispl,
+                    root);
+    }
     const float vals[kStashF] = {ox, oy, oz, dx, dy, dz, tr, tg, tb};
     for (int k = 0; k < kStashF; ++k) st.f[st.fi(s, b, k, gid)] = vals[k];
     float ux = 0.0f, uy = 0.0f, uz = 0.0f, coin = 0.0f;
@@ -363,6 +406,48 @@ __device__ __forceinline__ void add_prim_grad(const PrimGrad& p, Acc* acc_s, Acc
     for (int k = 0; k < kSSlots; ++k)
       add_acc<kAtomic>(acc_s + k * n_spheres + row, static_cast<Acc>(p.g[k]));
   }
+}
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// Sum of v over the warp by a butterfly of shuffles: every lane gets the
+// same sum, added in the same fixed order.
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = v + __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// Adds one bounce's payload cotangents of the warp's 32 lanes to the slot
+// tables (acc_s, acc_p) through add_prim_grad.  All 32 lanes call it
+// together.  The lanes are grouped by winner; a lane alone in its group
+// adds its own values, and each larger group sums its values with a
+// butterfly (warp_sum over the group's values, zeros elsewhere) whose
+// lowest lane then adds the sums.  So each slot takes at most one add per
+// warp and bounce.  With a slot set per warp (kAtomic false: the mono
+// kernel's) the adds need no atomic and land in a fixed order; with
+// kAtomic the group leaders add atomically, to the per-sample kernel's
+// per-block set in shared memory (at most 4-way contention) or to the
+// blockwise gradient kernel's float64 tables in device memory (Acc
+// double), where most lanes of a warp hit the same sphere.
+template <bool kAtomic, typename Acc>
+__device__ __forceinline__ void warp_add_prim_grad(const PrimGrad& p, Acc* acc_s, Acc* acc_p,
+                                                   int n_spheres, int n_planes) {
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(kFull, p.key);
+  const bool live = p.key >= 0;
+  const bool alone = __popc(peers) == 1;
+  if (live && alone) add_prim_grad<kAtomic>(p, acc_s, acc_p, n_spheres, n_planes);
+  for (unsigned todo = __ballot_sync(kFull, live && !alone); todo != 0;) {
+    const int leader = __ffs(todo) - 1;
+    const unsigned group = __shfl_sync(kFull, peers, leader);
+    const bool in = (group >> lane) & 1u;
+    PrimGrad sum;
+    sum.key = p.key;
+    for (int k = 0; k < kSSlots; ++k) sum.g[k] = warp_sum(in ? p.g[k] : 0.0f);
+    if (lane == leader) add_prim_grad<kAtomic>(sum, acc_s, acc_p, n_spheres, n_planes);
+    todo &= ~group;
+  }
+  __syncwarp();  // the next call's adds see these
 }
 
 // Hand-written transpose of one pinned bounce (pallas_grad _bounce_smooth),

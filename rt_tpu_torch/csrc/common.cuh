@@ -19,6 +19,16 @@ constexpr float kBig = 3.0e38f;
 constexpr float kMinHit = 0.001f;
 constexpr int kThreads = 128;
 
+// The winner word of one bounce (pallas_blockwise._bounce_once
+// want_record): the winner's table row, bit 24 for a plane, bit 26 for a
+// box, or bit 25 alone on a miss.  The forward kernels write it
+// (trace.cuh); the wavefront gradient and the blockwise gradient kernel
+// read it (bounce.cuh replay_winner).
+constexpr int32_t kWordRow = (1 << 24) - 1;
+constexpr int32_t kWordPlane = 1 << 24;
+constexpr int32_t kWordMiss = 1 << 25;
+constexpr int32_t kWordBox = 1 << 26;
+
 __device__ __forceinline__ float hash_u01(uint32_t pix, uint32_t seed, uint32_t ctr) {
   uint32_t u = pix * 0x9E3779B9u + seed * 97929u + (ctr * 30103u + 1u);
   u ^= u >> 16;

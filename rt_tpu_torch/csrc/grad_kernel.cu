@@ -66,7 +66,6 @@ namespace {
 constexpr int kCols = 10;  // [cx|nx, cy|ny, cz|nz, r|d, alb r g b, refl, rough, cls]
 constexpr int kWarps = kThreads / 32;
 constexpr int kRed = kCam + 1;  // block partials: the camera floats, then the loss
-constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
   const float* spheres; int n_spheres;
@@ -81,43 +80,6 @@ struct Args {
   int width, height, spp, center0, rng_sphere;
   float inv_w, inv_h, inv_spp, cot_scale;
 };
-
-// Sum of v over the warp by a butterfly of shuffles: every lane gets the
-// same sum, added in the same fixed order.
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = v + __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// Adds one bounce's payload cotangents of the warp's 32 lanes to the slot
-// set (acc_s, acc_p).  All 32 lanes call it together.  The lanes are
-// grouped by winner; a lane alone in its group adds its own values, and
-// each larger group sums its values with a butterfly (warp_sum over the
-// group's values, zeros elsewhere) whose lowest lane then adds the sums.
-// So each slot takes at most one add per warp and bounce.  With a slot set
-// per warp (kShared false) the adds need no atomic and land in a fixed
-// order; with the block's set (kShared) the group leaders of its warps add
-// atomically (at most kWarps-way contention).
-template <bool kShared>
-__device__ __forceinline__ void warp_add_prim_grad(const PrimGrad& p, float* acc_s, float* acc_p,
-                                                   int n_spheres, int n_planes) {
-  const int lane = threadIdx.x & 31;
-  const unsigned peers = __match_any_sync(kFull, p.key);
-  const bool live = p.key >= 0;
-  const bool alone = __popc(peers) == 1;
-  if (live && alone) add_prim_grad<kShared>(p, acc_s, acc_p, n_spheres, n_planes);
-  for (unsigned todo = __ballot_sync(kFull, live && !alone); todo != 0;) {
-    const int leader = __ffs(todo) - 1;
-    const unsigned group = __shfl_sync(kFull, peers, leader);
-    const bool in = (group >> lane) & 1u;
-    PrimGrad sum;
-    sum.key = p.key;
-    for (int k = 0; k < kSSlots; ++k) sum.g[k] = warp_sum(in ? p.g[k] : 0.0f);
-    if (lane == leader) add_prim_grad<kShared>(sum, acc_s, acc_p, n_spheres, n_planes);
-    todo &= ~group;
-  }
-  __syncwarp();  // the next call's adds see these
-}
 
 // The mono kernel keeps one slot set per warp (<= 96 primitives in the
 // router, 13.8 KB at 96), the per-sample kernel one per block (up to 640

@@ -8,8 +8,11 @@
 // (pallas_blockwise._bounce_once is "exactly the unrolled kernel's
 // straight-line vector code", and the wavefront kernel calls it for one
 // bounce per launch).  Here bounce_once is that function: trace_pixel
-// loops it over the bounces of every sample of a pixel, the wavefront
-// kernel runs it once per launch on a ray of its state table.
+// loops it over the bounces of every sample of a pixel, and the wavefront
+// kernel runs it once per launch on a ray of its state table (bounce 0),
+// or closest_hit, the same scan split over a group of lanes, and then
+// bounce_once's second half finish_bounce (later bounces; closest_hit's
+// note).
 //
 // Contract (with render_tile_plain in rt_tpu_torch/ops/render.py):
 //   * Sample s of a call draws its jitter at counters s*(2+4B)+1 and +2,
@@ -98,14 +101,6 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz, tr, tg, tb;
 };
 
-// The winner word of one bounce (pallas_blockwise._bounce_once
-// want_record): the winner's table row, bit 24 for a plane, bit 26 for a
-// box, or bit 25 alone on a miss.  The wavefront gradient reads it.
-constexpr int32_t kWordRow = (1 << 24) - 1;
-constexpr int32_t kWordPlane = 1 << 24;
-constexpr int32_t kWordMiss = 1 << 25;
-constexpr int32_t kWordBox = 1 << 26;
-
 // The camera ray through (px + jx, py + jy) of the 16-float camera vector.
 __device__ __forceinline__ Ray camera_ray(const float* __restrict__ cam, float px, float py,
                                           float jx, float jy, float inv_w, float inv_h) {
@@ -182,26 +177,30 @@ __device__ __forceinline__ void fill_record(Record* rec, int kind, int win, bool
   rec->ux = ux; rec->uy = uy; rec->uz = uz; rec->coin = coin;
 }
 
-// One bounce of one live ray (pallas_blockwise._bounce_once): closest hit,
-// then on a miss the sky is added to rad and the path ends; on a hit the
-// ray moves to the hit point and its scattered direction, and its
-// throughput takes the winner's albedo times reflectivity unless a metal
-// absorbed it (then the path ends with the throughput unchanged).  The
-// draws are at counters c+1 .. c+4 (c = sample base + 2 + 4b).  Returns
-// whether the ray lives on; `word` receives the winner word, and the
-// record forms (kRec != kRecNone) fill `rec`, with the reflect bit only
-// where `has_die`.
+// The closest hit of ray (o, d) over rows first, first + step, first +
+// 2 step, ... of the plane, sphere and box tables, in that order, with the
+// tie rules of the note above: `best` (kBig when no row is hit), the
+// winner's kind and row and, for the record forms, the near-root flag of
+// the sphere that last led.  The wavefront kernel's later bounces split
+// one ray's rows over a group of `step` lanes (wavefront_kernel.cu) and
+// merge the lanes' winners with merge_hit, which reproduces the full
+// scan's winner exactly.  Its loops repeat the per-row expressions of
+// bounce_once's scan, row for row, so that every lane computes each row's
+// t as the serial scan does.  bounce_once keeps its own loops: compiled
+// through closest_hit (first 0, step 1) or through shared per-row
+// helpers, nvcc scheduled the serving kernels differently, the blockwise
+// kernel 4.5% (helpers: 2.2%) slower at the config-4 train step's launch
+// (chip_ab.py; PERF.md); with its own loops every kernel that runs
+// bounce_once compiles to the code it had before the split existed.
 template <int kPrimStride, int kBoxStride, int kRec = kRecNone>
-__device__ __forceinline__ bool bounce_once(const Tables& T, uint32_t pix, uint32_t seed,
-                                            uint32_t c, int rng_sphere, Ray& r, float rad[3],
-                                            int32_t& word, Record* rec = nullptr,
-                                            bool has_die = true) {
-  const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
-  // ---- closest hit ----
-  float best = kBig;
-  int kind = kNone, win = 0;
-  bool root = false;  // record forms: the near-root flag of the sphere that last led the scan
-  for (int p = 0; p < T.n_planes; ++p) {
+__device__ __forceinline__ void closest_hit(const Tables& T, float ox, float oy, float oz,
+                                            float dx, float dy, float dz, int first, int step,
+                                            float& best, int& kind, int& win, bool& root) {
+  best = kBig;
+  kind = kNone;
+  win = 0;
+  root = false;
+  for (int p = first; p < T.n_planes; p += step) {
     const float* q = T.planes + p * kPrimStride;
     const float nd = q[0] * dx + q[1] * dy + q[2] * dz;
     const float no = q[0] * ox + q[1] * oy + q[2] * oz + q[3];
@@ -210,7 +209,7 @@ __device__ __forceinline__ bool bounce_once(const Tables& T, uint32_t pix, uint3
       if (t >= kMinHit && t < best) { best = t; kind = kPlane; win = p; }
     }
   }
-  for (int i = 0; i < T.n_spheres; ++i) {
+  for (int i = first; i < T.n_spheres; i += step) {
     const float* q = T.spheres + i * kPrimStride;
     const float ocx = ox - q[0], ocy = oy - q[1], ocz = oz - q[2];
     const float bq = ocx * dx + ocy * dy + ocz * dz;
@@ -229,7 +228,7 @@ __device__ __forceinline__ bool bounce_once(const Tables& T, uint32_t pix, uint3
     const float ivx = 1.0f / (fabsf(dx) > 1e-12f ? dx : 1e-12f);
     const float ivy = 1.0f / (fabsf(dy) > 1e-12f ? dy : 1e-12f);
     const float ivz = 1.0f / (fabsf(dz) > 1e-12f ? dz : 1e-12f);
-    for (int i = 0; i < T.n_boxes; ++i) {
+    for (int i = first; i < T.n_boxes; i += step) {
       const float* q = T.boxes + i * kBoxStride;
       const float tax = (q[0] - q[3] - ox) * ivx, tbx = (q[0] + q[3] - ox) * ivx;
       const float tay = (q[1] - q[4] - oy) * ivy, tby = (q[1] + q[4] - oy) * ivy;
@@ -240,7 +239,24 @@ __device__ __forceinline__ bool bounce_once(const Tables& T, uint32_t pix, uint3
       if (tmx >= tmn && t >= kMinHit && t < best) { best = t; kind = kBox; win = i; }
     }
   }
+}
 
+// The rest of one bounce of one live ray (pallas_blockwise._bounce_once
+// after its scan), given the scan's result over every row: on a miss the
+// sky is added to rad and the path ends; on a hit the ray moves to the hit
+// point and its scattered direction, and its throughput takes the winner's
+// albedo times reflectivity unless a metal absorbed it (then the path ends
+// with the throughput unchanged).  The draws are at counters c+1 .. c+4 (c
+// = sample base + 2 + 4b).  Returns whether the ray lives on; `word`
+// receives the winner word, and the record forms (kRec != kRecNone) fill
+// `rec`, with the reflect bit only where `has_die`.
+template <int kPrimStride, int kBoxStride, int kRec = kRecNone>
+__device__ __forceinline__ bool finish_bounce(const Tables& T, uint32_t pix, uint32_t seed,
+                                              uint32_t c, int rng_sphere, Ray& r, float rad[3],
+                                              int32_t& word, float best, int kind, int win,
+                                              bool root, Record* rec = nullptr,
+                                              bool has_die = true) {
+  const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
   if (!(best < 1e37f)) {  // miss: sky (mg_ray_tracer.cpp:164), the path ends
     const float ts = 0.5f * (dy + 1.0f);
     rad[0] = rad[0] + r.tr * (1.0f - 0.5f * ts);
@@ -363,13 +379,75 @@ __device__ __forceinline__ bool bounce_once(const Tables& T, uint32_t pix, uint3
   return alive;
 }
 
+// One bounce of one live ray (pallas_blockwise._bounce_once): the closest
+// hit over every row in index order (the serial scan: closest_hit's rule
+// with first 0 and step 1, written out; see its note), then
+// finish_bounce.
+template <int kPrimStride, int kBoxStride, int kRec = kRecNone>
+__device__ __forceinline__ bool bounce_once(const Tables& T, uint32_t pix, uint32_t seed,
+                                            uint32_t c, int rng_sphere, Ray& r, float rad[3],
+                                            int32_t& word, Record* rec = nullptr,
+                                            bool has_die = true) {
+  const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
+  // ---- closest hit ----
+  float best = kBig;
+  int kind = kNone, win = 0;
+  bool root = false;  // record forms: the near-root flag of the sphere that last led the scan
+  for (int p = 0; p < T.n_planes; ++p) {
+    const float* q = T.planes + p * kPrimStride;
+    const float nd = q[0] * dx + q[1] * dy + q[2] * dz;
+    const float no = q[0] * ox + q[1] * oy + q[2] * oz + q[3];
+    if (fabsf(nd) > 1e-12f) {
+      const float t = -no / nd;
+      if (t >= kMinHit && t < best) { best = t; kind = kPlane; win = p; }
+    }
+  }
+  for (int i = 0; i < T.n_spheres; ++i) {
+    const float* q = T.spheres + i * kPrimStride;
+    const float ocx = ox - q[0], ocy = oy - q[1], ocz = oz - q[2];
+    const float bq = ocx * dx + ocy * dy + ocz * dz;
+    const float c0 = ocx * ocx + ocy * ocy + ocz * ocz - q[3] * q[3];
+    const float disc = bq * bq - c0;
+    const float sq = sqrtf(fmaxf(disc, 0.0f));
+    const float t0 = -bq - sq;
+    const float t1 = -bq + sq;
+    const float t = t0 >= kMinHit ? t0 : t1;
+    if (disc >= 0.0f && t >= kMinHit && (t < best || (t == best && kind == kPlane))) {
+      best = t; kind = kSphere; win = i;
+      if constexpr (kRec != kRecNone) root = t0 >= kMinHit;
+    }
+  }
+  if (T.n_boxes > 0) {
+    const float ivx = 1.0f / (fabsf(dx) > 1e-12f ? dx : 1e-12f);
+    const float ivy = 1.0f / (fabsf(dy) > 1e-12f ? dy : 1e-12f);
+    const float ivz = 1.0f / (fabsf(dz) > 1e-12f ? dz : 1e-12f);
+    for (int i = 0; i < T.n_boxes; ++i) {
+      const float* q = T.boxes + i * kBoxStride;
+      const float tax = (q[0] - q[3] - ox) * ivx, tbx = (q[0] + q[3] - ox) * ivx;
+      const float tay = (q[1] - q[4] - oy) * ivy, tby = (q[1] + q[4] - oy) * ivy;
+      const float taz = (q[2] - q[5] - oz) * ivz, tbz = (q[2] + q[5] - oz) * ivz;
+      const float tmn = fmaxf(fmaxf(fminf(tax, tbx), fminf(tay, tby)), fminf(taz, tbz));
+      const float tmx = fminf(fminf(fmaxf(tax, tbx), fmaxf(tay, tby)), fmaxf(taz, tbz));
+      const float t = tmn >= kMinHit ? tmn : tmx;
+      if (tmx >= tmn && t >= kMinHit && t < best) { best = t; kind = kBox; win = i; }
+    }
+  }
+
+  return finish_bounce<kPrimStride, kBoxStride, kRec>(T, pix, seed, c, rng_sphere, r, rad, word,
+                                                      best, kind, win, root, rec, has_die);
+}
+
 // Sum of pre-gamma radiance over `spp` samples of pixel (px, py), flat
-// index `pix`, into acc[0..2].
-template <int kPrimStride, int kBoxStride>
+// index `pix`, into acc[0..2].  The words form (kWords, with spp = 1: the
+// blockwise training step's forward launches) also writes the sample's
+// winner word of bounce b at words[b * n + pix], and the miss word for
+// every bounce after the path has ended; the blockwise gradient kernel
+// replays these winners instead of scanning again.
+template <int kPrimStride, int kBoxStride, bool kWords = false>
 __device__ __forceinline__ void trace_pixel(
     const Tables& T, const float* __restrict__ cam, uint32_t pix, float px, float py,
     uint32_t seed, float inv_w, float inv_h, int spp, int max_bounces, int center_sample,
-    int rng_sphere, float acc[3]) {
+    int rng_sphere, float acc[3], int32_t* __restrict__ words = nullptr, int n = 0) {
   const uint32_t per_sample = 2u + 4u * static_cast<uint32_t>(max_bounces);
   acc[0] = 0.0f;
   acc[1] = 0.0f;
@@ -385,7 +463,16 @@ __device__ __forceinline__ void trace_pixel(
     int32_t word;
     for (int b = 0; b < max_bounces; ++b) {
       const uint32_t c = base + 2u + 4u * static_cast<uint32_t>(b);
-      if (!bounce_once<kPrimStride, kBoxStride>(T, pix, seed, c, rng_sphere, r, acc, word)) break;
+      const bool alive = bounce_once<kPrimStride, kBoxStride>(T, pix, seed, c, rng_sphere, r,
+                                                              acc, word);
+      if constexpr (kWords) words[static_cast<int64_t>(b) * n + pix] = word;
+      if (!alive) {
+        if constexpr (kWords) {
+          for (int e = b + 1; e < max_bounces; ++e)
+            words[static_cast<int64_t>(e) * n + pix] = kWordMiss;
+        }
+        break;
+      }
     }
   }
 }

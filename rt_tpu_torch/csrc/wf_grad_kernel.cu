@@ -47,11 +47,6 @@ namespace {
 
 constexpr int kCols = 16;  // padded row length of the tables
 
-// the winner word of the forward (trace.cuh): row, plane bit, miss bit
-constexpr int32_t kWordRow = (1 << 24) - 1;
-constexpr int32_t kWordPlane = 1 << 24;
-constexpr int32_t kWordMiss = 1 << 25;
-
 struct Args {
   const float* spheres; int n_spheres;
   const float* planes; int n_planes;

@@ -36,10 +36,10 @@ from __future__ import annotations
 
 import torch
 
-from .render import _BIG, _MIN_HIT, _rsqrt, hash_u01
+from .render import _BIG, _MIN_HIT, WORD_MISS, WORD_PLANE, WORD_ROW, _rsqrt, hash_u01
 
-__all__ = ["BITS", "scan", "payload", "unit_draws", "decisions", "bounce_forward",
-           "bounce_adjoint", "raygen", "raygen_adjoint"]
+__all__ = ["BITS", "scan", "replay_winner", "payload", "unit_draws", "decisions",
+           "bounce_forward", "bounce_adjoint", "raygen", "raygen_adjoint"]
 
 _w = torch.where
 
@@ -87,6 +87,43 @@ def scan(spheres, planes, o3, d3):
         bidx = _w(ok, i, bidx)
         ispl = ispl & ~ok
         root = _w(ok, near, root)
+    return best, bidx, ispl, root
+
+
+def replay_winner(spheres, planes, o3, d3, word):
+    """:func:`scan`'s result from a forward kernel's winner words of the
+    same bounce (``render.WORD_*``; no boxes): the winner's own test, the
+    scan's expressions on that one row (bounce.cuh ``replay_winner``).  A
+    plane gives ``-no / nd``, a sphere ``t0`` if ``t0 >= MIN_HIT`` else
+    ``t1`` and its root flag, a miss ``_BIG``.  Returns ``(best_t, bidx,
+    ispl, root)`` as :func:`scan`, bit for bit its values on every ray the
+    forward kernel traced along the same path."""
+    ox, oy, oz = o3
+    dx, dy, dz = d3
+    word = word.to(torch.int64)
+    hit = (word & WORD_MISS) == 0
+    bidx = torch.where(hit, word & WORD_ROW, 0)
+    ispl = hit & ((word & WORD_PLANE) != 0)
+    sph = hit & ~ispl
+    best = torch.full_like(ox, _BIG)
+    root = torch.ones(ox.shape, dtype=torch.bool, device=ox.device)
+    if planes.shape[0]:
+        q = planes[bidx.clamp(max=planes.shape[0] - 1)]
+        nd = q[:, 0] * dx + q[:, 1] * dy + q[:, 2] * dz
+        no = q[:, 0] * ox + q[:, 1] * oy + q[:, 2] * oz + q[:, 3]
+        best = _w(ispl, -no / _w(ispl, nd, 1.0), best)
+    if spheres.shape[0]:
+        q = spheres[bidx.clamp(max=spheres.shape[0] - 1)]
+        ocx, ocy, ocz = ox - q[:, 0], oy - q[:, 1], oz - q[:, 2]
+        bq = ocx * dx + ocy * dy + ocz * dz
+        c0 = ocx * ocx + ocy * ocy + ocz * ocz - q[:, 3] * q[:, 3]
+        disc = bq * bq - c0
+        sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+        t0 = -bq - sq
+        t1 = -bq + sq
+        near = t0 >= _MIN_HIT
+        best = _w(sph, _w(near, t0, t1), best)
+        root = _w(sph, near, root)
     return best, bidx, ispl, root
 
 

@@ -15,7 +15,10 @@ device memory.  Beside it:
   kernel is compared with on the card.
 * :func:`render_blockwise_tile` — the kernel wrapper.  A CPU tensor goes to
   the plain version; a CUDA tensor goes to the kernel, and nothing else.
-  ``render_blockwise_tile.launches`` counts kernel launches.
+  ``render_blockwise_tile.launches`` counts kernel launches.  With
+  ``words=True`` (one sample: the blockwise training step's forward
+  launches) it also returns each bounce's winner words, which the
+  blockwise gradient kernel replays instead of scanning again.
 * :func:`render_forward_blockwise` — the entry point: tables padded to
   their bucket (:func:`_bucket`, :func:`_padded_table`), samples chunked in
   calls of 4 with the LCG chunk-seed chain (the JAX ``_meta_rows`` chain,
@@ -100,7 +103,7 @@ def _box_inputs(scene, personality: str, include_boxes: bool):
 
 
 def render_blockwise_tile_plain(spheres, planes, boxes, counts, cam, seeds, *, size, spp,
-                                max_bounces, center_sample, rng_mode="reference"):
+                                max_bounces, center_sample, rng_mode="reference", words=False):
     """Plain PyTorch version of the kernel, on the device of ``cam``.
 
     Args:
@@ -114,12 +117,18 @@ def render_blockwise_tile_plain(spheres, planes, boxes, counts, cam, seeds, *, s
         puts sample 0 at the pixel centre.
 
     Returns the SUM of pre-gamma radiance over the ``spp`` samples,
-    (height, width, 3) float32.
+    (height, width, 3) float32.  ``words=True`` (``spp`` = 1: the training
+    step's forward launches) returns ``(sum, words)``, with the sample's
+    winner word of every bounce and pixel, (max_bounces, height * width)
+    int32: the row, bit 24 for a plane, bit 26 for a box, or the miss word
+    (bit 25) once the path has ended (``render.WORD_*``).  The blockwise
+    gradient kernel replays these winners.
     """
     ns, npl, nb = counts
-    return render_tile_plain(spheres[:ns, :10], planes[:npl, :10], boxes[:nb, :12], cam, seeds,
-                             size=size, spp=spp, max_bounces=max_bounces,
-                             center_sample=center_sample, rng_mode=rng_mode)[0]
+    out = render_tile_plain(spheres[:ns, :10], planes[:npl, :10], boxes[:nb, :12], cam, seeds,
+                            size=size, spp=spp, max_bounces=max_bounces,
+                            center_sample=center_sample, rng_mode=rng_mode, words=words)
+    return (out[0][0], out[1]) if words else out[0]
 
 
 @functools.cache
@@ -129,6 +138,17 @@ def _kernel():
     fn = load_library("blockwise_kernel").rt_blockwise_forward
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [p, i, p, i, p, i, p, p, p, i, i, f, f, i, i, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _words_kernel():
+    from ._build import load_library
+
+    fn = load_library("blockwise_kernel").rt_blockwise_forward_words
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p, i, p, i, p, i, p, p, p, p, i, i, f, f, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -145,11 +165,11 @@ def _check_tables(fn, tables, counts, dev):
 
 
 def render_blockwise_tile(spheres, planes, boxes, counts, cam, seeds, *, size, spp, max_bounces,
-                          center_sample, rng_mode="reference"):
+                          center_sample, rng_mode="reference", words=False):
     """One call of the blockwise kernel; arguments and result as
-    :func:`render_blockwise_tile_plain`.  CPU tensors run the plain
-    version; CUDA tensors launch the kernel on the current stream (without
-    synchronizing) or raise."""
+    :func:`render_blockwise_tile_plain` (``words=True``: the kernel's words
+    form).  CPU tensors run the plain version; CUDA tensors launch the
+    kernel on the current stream (without synchronizing) or raise."""
     fn = "render_blockwise_tile"
     dev = cam.device
     for name, t in (("spheres", spheres), ("planes", planes), ("boxes", boxes), ("seeds", seeds)):
@@ -160,7 +180,8 @@ def render_blockwise_tile(spheres, planes, boxes, counts, cam, seeds, *, size, s
     if dev.type == "cpu":
         return render_blockwise_tile_plain(spheres, planes, boxes, counts, cam, seeds, size=size,
                                            spp=spp, max_bounces=max_bounces,
-                                           center_sample=center_sample, rng_mode=rng_mode)
+                                           center_sample=center_sample, rng_mode=rng_mode,
+                                           words=words)
     if dev.type != "cuda":
         raise ValueError(f"{fn}: no kernel for device {dev}")
     w, h = size
@@ -170,20 +191,30 @@ def render_blockwise_tile(spheres, planes, boxes, counts, cam, seeds, *, size, s
     _check(fn, "seeds", seeds, torch.int32, (1,), dev)
     if w < 1 or h < 1 or w * h * 3 >= 2**31:
         raise ValueError(f"{fn}: bad size {w}x{h}")
-    if spp < 1 or max_bounces < 0:
-        raise ValueError(f"{fn}: bad spp={spp} / max_bounces={max_bounces}")
+    if spp < 1 or max_bounces < 0 or (words and spp != 1):
+        raise ValueError(f"{fn}: bad spp={spp} / max_bounces={max_bounces}"
+                         + (" (words=True takes one sample)" if words else ""))
+    if words and w * h * max(max_bounces, 1) >= 2**31:
+        raise ValueError(f"{fn}: {w}x{h} x {max_bounces} winner words overflow int32 indexing")
     out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
     inv_w, inv_h = _inv_size(w, h)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = _kernel()(
-            spheres.data_ptr(), ns, planes.data_ptr(), npl, boxes.data_ptr(), nb,
-            cam.data_ptr(), seeds.data_ptr(), out.data_ptr(), w, h, inv_w, inv_h, spp,
-            max_bounces, int(bool(center_sample)), int(rng_mode == "sphere"),
-            torch.cuda.current_stream(dev).cuda_stream)
+        if words:
+            wd = torch.empty((max_bounces, w * h), dtype=torch.int32, device=dev)
+            err = _words_kernel()(
+                spheres.data_ptr(), ns, planes.data_ptr(), npl, boxes.data_ptr(), nb,
+                cam.data_ptr(), seeds.data_ptr(), out.data_ptr(), wd.data_ptr(), w, h, inv_w,
+                inv_h, max_bounces, int(bool(center_sample)), int(rng_mode == "sphere"), stream)
+        else:
+            err = _kernel()(
+                spheres.data_ptr(), ns, planes.data_ptr(), npl, boxes.data_ptr(), nb,
+                cam.data_ptr(), seeds.data_ptr(), out.data_ptr(), w, h, inv_w, inv_h, spp,
+                max_bounces, int(bool(center_sample)), int(rng_mode == "sphere"), stream)
     if err != 0:
         raise RuntimeError(f"blockwise kernel launch failed: CUDA error {err}")
     render_blockwise_tile.launches += 1
-    return out
+    return (out, wd) if words else out
 
 
 render_blockwise_tile.launches = 0

@@ -3,25 +3,33 @@ to 16384 primitives, with tables rebuilt from the parameters every step
 (port of ``rt_tpu.ops.pallas_blockwise_grad``).
 
 The kernel (``csrc/bw_grad_kernel.cu``) is the per-sample gradient kernel
-of ``ops.grad`` with its tables read from device memory and its per-row
-gradients added straight into the step's gradient tables (its source
-comment says what bounds it).  Beside it:
+of ``ops.grad`` with its tables read from device memory, its per-row
+gradients added straight into the step's gradient tables, and no scan: it
+runs the reverse of one sample along the path that the sample's forward
+launch recorded, taking each bounce's winner from that launch's winner
+words (``render_blockwise_tile(words=True)``) and recomputing the hit with
+the scan's own expressions on that one row.  With the forward launch it
+computes what JAX's ``_make_bw_grad_kernel`` computes, which scans again
+(its source comment says why the winners are the same and what bounds it).
+Beside it:
 
 * :func:`bw_grad_tile_plain` — the same function in plain PyTorch: one
-  sample's forward sweep (the blockwise scan, which finds the same winner
-  row as the unrolled scan), the reverse sweep through the hand-written
-  adjoint of ``_bounce_smooth``, per-row gradient sums and the camera
-  cotangent, fed a pixel cotangent — which is
+  sample's forward sweep along the recorded winners
+  (``_grad_math.replay_winner``), the reverse sweep through the
+  hand-written adjoint of ``_bounce_smooth``, per-row gradient sums and the
+  camera cotangent, fed a pixel cotangent — the sweep and adjoint of
   :func:`rt_tpu_torch.ops.grad.grad_tile_plain` on the used rows of the
-  padded tables.
+  padded tables, with the winners from the words in place of the scan.
 * :func:`bw_grad_tile` — the kernel wrapper; ``bw_grad_tile.launches``
   counts launches.  A CPU tensor goes to the plain version, a CUDA tensor
   to the kernel; nothing falls back from one to the other.
 * :func:`make_bw_mse_step` / :func:`bw_mse_loss_and_grad` — ``(loss,
   grads)`` of one step at fixed params: ``spp`` one-sample launches of the
-  blockwise forward kernel for the frame, the MSE and the pixel cotangent
-  in torch, then ``spp`` launches of the gradient kernel, as
-  ``_bw_grad_pipeline`` does.  The loss comes from the forward kernel's
+  blockwise forward kernel in its words form for the frame and the winner
+  words, the MSE and the pixel cotangent in torch, then ``spp`` launches
+  of the gradient kernel along those words, as ``_bw_grad_pipeline`` does
+  with its rescanning kernel.  The words of all ``spp`` samples live
+  together between the two sweeps: 66 MB a sample at 1920x1080, depth 8.  The loss comes from the forward kernel's
   frame (the render dielectric), the gradients from the gradient kernel's
   own sweep (the ``_bounce_forward`` dielectric), as in JAX.
 * :func:`make_bw_train_step` — a whole optimizer step: tables rebuilt on
@@ -49,7 +57,7 @@ import torch
 from ..diff import apply_params
 from ..materials import personality_classes
 from .blockwise import MAX_BLOCKWISE_PRIMS, _COLS, _bucket, _check_tables, render_blockwise_tile
-from .grad import _assemble_grads, _check, _sample_seeds, grad_tile_plain
+from .grad import _assemble_grads, _check, _fused_plain, _sample_seeds
 from .render import _device, _inv_size, _upload
 
 __all__ = ["bw_grad_supported", "bw_grad_tile", "bw_grad_tile_plain", "make_bw_mse_step",
@@ -63,9 +71,10 @@ def bw_grad_supported(scene) -> bool:
             and scene.boxes.count == 0)
 
 
-def bw_grad_tile_plain(spheres, planes, counts, cam, seeds, cot, *, size, max_bounces,
+def bw_grad_tile_plain(spheres, planes, counts, cam, seeds, cot, words, *, size, max_bounces,
                        center_sample, rng_mode="reference", with_l1=False):
-    """Plain PyTorch version of the kernel, on the device of ``cam``.
+    """Plain PyTorch version of the kernel, on the device of ``cam``: the
+    reverse of one sample along the path that the forward launch recorded.
 
     Args:
       spheres, planes: padded (rows, 16) float32 tables
@@ -74,16 +83,21 @@ def bw_grad_tile_plain(spheres, planes, counts, cam, seeds, cot, *, size, max_bo
       cam: (16,) float32 camera vector; seeds: (1,) int32, the sample's
         seed (``center_sample`` puts it at the pixel centre).
       cot: (H, W, 3) float32 pixel cotangent.
+      words: (max_bounces, H*W) int32, the winner words of the same
+        sample's forward launch (``render_blockwise_tile(words=True)``).
 
     Returns ``(sg, pg, cg)``: the sphere gradient slots (9, n_spheres) —
     centre x/y/z, radius, albedo r/g/b, reflectivity, roughness —, the
     plane material slots (5, n_planes) and the camera cotangent (16,).
-    ``with_l1=True`` returns ``(result, l1)`` as ``grad_tile_plain``.
+    ``with_l1=True`` returns ``(result, l1)`` as ``grad.grad_tile_plain``,
+    whose sweep and adjoint this is, with each bounce's winner taken from
+    ``words`` (``_grad_math.replay_winner``) in place of the scan: the same
+    winners wherever the two sweeps trace the same path (the module note).
     """
     ns, npl = counts
-    return grad_tile_plain(spheres[:ns, :10], planes[:npl, :10], cam, seeds, cot, size=size,
-                           max_bounces=max_bounces, center_sample=center_sample,
-                           rng_mode=rng_mode, with_l1=with_l1)
+    return _fused_plain(spheres[:ns, :10], planes[:npl, :10], cam, seeds, cot, size=size,
+                        max_bounces=max_bounces, center0=center_sample, rng_mode=rng_mode,
+                        mono=False, with_l1=with_l1, words=words)
 
 
 @functools.cache
@@ -92,13 +106,13 @@ def _kernel():
 
     fn = load_library("bw_grad_kernel").rt_bw_grad
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, i, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, f, p]
+    fn.argtypes = [p, i, p, i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, f, p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def bw_grad_tile(spheres, planes, counts, cam, seeds, cot, *, size, max_bounces, center_sample,
-                 rng_mode="reference", out=None):
+def bw_grad_tile(spheres, planes, counts, cam, seeds, cot, words, *, size, max_bounces,
+                 center_sample, rng_mode="reference", out=None):
     """One launch of the blockwise gradient kernel; arguments and result as
     :func:`bw_grad_tile_plain`, but float64: the kernel adds each ray's
     contribution to the gradient tables with atomics, in float64 so that
@@ -109,7 +123,8 @@ def bw_grad_tile(spheres, planes, counts, cam, seeds, cot, *, size, max_bounces,
     or raise."""
     fn = "bw_grad_tile"
     dev = cam.device
-    for name, t in (("spheres", spheres), ("planes", planes), ("seeds", seeds), ("cot", cot)):
+    for name, t in (("spheres", spheres), ("planes", planes), ("seeds", seeds), ("cot", cot),
+                    ("words", words)):
         if t.device != dev:
             raise ValueError(f"{fn}: {name} is on {t.device} but cam on {dev}")
     if rng_mode not in ("reference", "sphere"):
@@ -121,7 +136,7 @@ def bw_grad_tile(spheres, planes, counts, cam, seeds, cot, *, size, max_bounces,
         for name, t, shape in zip(("sg", "pg", "cg"), out, shapes):
             _check(fn, name, t, torch.float64, shape, dev)
     if dev.type == "cpu":
-        got = bw_grad_tile_plain(spheres, planes, counts, cam, seeds, cot, size=size,
+        got = bw_grad_tile_plain(spheres, planes, counts, cam, seeds, cot, words, size=size,
                                  max_bounces=max_bounces, center_sample=center_sample,
                                  rng_mode=rng_mode)
         if out is None:
@@ -136,6 +151,7 @@ def bw_grad_tile(spheres, planes, counts, cam, seeds, cot, *, size, max_bounces,
     _check(fn, "seeds", seeds, torch.int32, (1,), dev)
     _check(fn, "cot", cot, torch.float32, (h, w, 3), dev)
     n = w * h
+    _check(fn, "words", words, torch.int32, (max_bounces, n), dev)
     if w < 1 or h < 1 or n * 3 >= 2**31 or max_bounces < 0:
         raise ValueError(f"{fn}: bad size {w}x{h} or max_bounces={max_bounces}")
     if out is None:
@@ -150,7 +166,8 @@ def bw_grad_tile(spheres, planes, counts, cam, seeds, cot, *, size, max_bounces,
     with torch.cuda.device(dev):
         err = _kernel()(
             spheres.data_ptr(), ns, planes.data_ptr(), npl, cam.data_ptr(), seeds.data_ptr(),
-            cot.data_ptr(), sg.data_ptr(), pg.data_ptr(), cg.data_ptr(), st_f.data_ptr(),
+            cot.data_ptr(), words.data_ptr(), sg.data_ptr(), pg.data_ptr(), cg.data_ptr(),
+            st_f.data_ptr(),
             st_w.data_ptr(), st_nb.data_ptr(), w, h, max_bounces, int(bool(center_sample)),
             int(rng_mode == "sphere"), inv_w, inv_h, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -239,9 +256,12 @@ def _bw_pipeline(scene, target, size, *, spp, max_bounces, rng_mode, dev):
     def run(s_tab, p_tab, cam, seed):
         seeds = _upload(_sample_seeds(seed, spp), dev)
         total = None
+        words = []
         for s in range(spp):
-            out = render_blockwise_tile(s_tab, p_tab, no_boxes, (*counts, 0), cam, seeds[s:s + 1],
-                                        spp=1, center_sample=(s == 0), **kw)
+            out, wd = render_blockwise_tile(s_tab, p_tab, no_boxes, (*counts, 0), cam,
+                                            seeds[s:s + 1], spp=1, center_sample=(s == 0),
+                                            words=True, **kw)
+            words.append(wd)
             total = out if total is None else total + out
         diff = total * scale - tgt
         loss = torch.mean(diff ** 2)
@@ -249,8 +269,8 @@ def _bw_pipeline(scene, target, size, *, spp, max_bounces, rng_mode, dev):
         acc = tuple(torch.zeros(s, dtype=torch.float64, device=dev)
                     for s in ((9, counts[0]), (5, counts[1]), (16,)))
         for s in range(spp):
-            bw_grad_tile(s_tab, p_tab, counts, cam, seeds[s:s + 1], cot, center_sample=(s == 0),
-                         out=acc, **kw)
+            bw_grad_tile(s_tab, p_tab, counts, cam, seeds[s:s + 1], cot, words[s],
+                         center_sample=(s == 0), out=acc, **kw)
         return loss, _assemble_grads(*(a.float() for a in acc), s_mat, p_mat, *tables)
 
     return run

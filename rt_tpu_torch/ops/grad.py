@@ -99,12 +99,15 @@ def _sample_seeds(seed0: int, spp: int) -> np.ndarray:
 
 
 def _fused_plain(spheres, planes, cam, seeds, pix_in, *, size, max_bounces, center0, rng_mode,
-                 mono, with_l1):
+                 mono, with_l1, words=None):
     """The kernels' function, dense over pixels.  ``pix_in`` is the target
     (``mono``) or the pixel cotangent, (H, W, 3).  Returns the loss sum
     (``mono``), the sphere slots (9, S), the plane material slots (5, P)
     and the camera cotangent (16,); with ``with_l1`` also, per output, the
-    sum of the absolute per-(pixel, sample) contributions."""
+    sum of the absolute per-(pixel, sample) contributions.  ``words``
+    ((max_bounces, H*W) int32, one sample: the blockwise gradient kernel's
+    form) takes each bounce's winner from the forward kernel's winner words
+    (``_grad_math.replay_winner``) in place of the scan."""
     w, h = size
     dev = cam.device
     f32 = torch.float32
@@ -133,7 +136,10 @@ def _fused_plain(spheres, planes, cam, seeds, pix_in, *, size, max_bounces, cent
         for b in range(max_bounces):
             u3 = gm.unit_draws(idx, seed, 3 + 4 * b, rng_sphere)
             coin = hash_u01(idx, seed, 6 + 4 * b)
-            best, bidx, ispl, root = gm.scan(spheres, planes, o3, d3)
+            if words is None:
+                best, bidx, ispl, root = gm.scan(spheres, planes, o3, d3)
+            else:
+                best, bidx, ispl, root = gm.replay_winner(spheres, planes, o3, d3, words[b])
             pay, cls = gm.payload(spheres, planes, best < 1e37, ispl, bidx)
             o_n, d_n, thr_n, rad, bits = gm.bounce_forward(o3, d3, thr3, best, pay, cls, ispl,
                                                            root, live, u3, coin)

@@ -430,7 +430,7 @@ def _raygen_plain(c, px, py, jx, jy, inv_w, inv_h):
 
 
 def render_tile_plain(spheres, planes, boxes, cam, seeds, *, size, spp,
-                      max_bounces, center_sample, rng_mode="reference"):
+                      max_bounces, center_sample, rng_mode="reference", words=False):
     """Plain PyTorch version of the kernel, on the device of ``cam``.
 
     Args:
@@ -447,8 +447,13 @@ def render_tile_plain(spheres, planes, boxes, cam, seeds, *, size, spp,
     Returns the SUM of pre-gamma radiance over the ``spp`` samples,
     (frames, height, width, 3) float32.  Every step mirrors the JAX kernel
     body (pallas_render.py:212-577) for ``record=False``: every bounce is
-    computed for every ray and dead rays are masked out.
+    computed for every ray and dead rays are masked out.  ``words=True``
+    (one frame, one sample) returns ``(sum, words)`` with the winner word
+    of every bounce, (max_bounces, height * width) int32 (the miss word
+    once the path has ended): the blockwise kernel's words form.
     """
+    if words and (spp != 1 or seeds.shape[0] != 1):
+        raise ValueError("render_tile_plain: words=True takes one frame of one sample")
     w, h = size
     dev = cam.device
     frames = seeds.shape[0]
@@ -469,6 +474,7 @@ def render_tile_plain(spheres, planes, boxes, cam, seeds, *, size, spp,
     zero = torch.zeros_like(px)
     one = torch.ones_like(px)
     acc0 = acc1 = acc2 = zero
+    bounce_words = []
     for smp in range(spp):
         base = smp * per_sample
         if smp == 0 and center_sample:
@@ -481,11 +487,17 @@ def render_tile_plain(spheres, planes, boxes, cam, seeds, *, size, spp,
         for b in range(max_bounces):
             ctr = base + 2 + 4 * b
             u3 = (u01(ctr + 1), u01(ctr + 2), u01(ctr + 3))
-            rad, o3, d3, thr3, live, _ = _bounce_plain(rows, o3, d3, thr3, live, u3,
-                                                       u01(ctr + 4), rng_sphere)
+            rad, o3, d3, thr3, live, word = _bounce_plain(rows, o3, d3, thr3, live, u3,
+                                                          u01(ctr + 4), rng_sphere, words)
             acc0, acc1, acc2 = acc0 + rad[0], acc1 + rad[1], acc2 + rad[2]
+            if words:
+                bounce_words.append(word.to(torch.int32))
 
-    return torch.stack([acc0, acc1, acc2], dim=-1).reshape(frames, h, w, 3)
+    out = torch.stack([acc0, acc1, acc2], dim=-1).reshape(frames, h, w, 3)
+    if words:
+        return out, torch.stack(bounce_words) if bounce_words else torch.zeros(
+            (0, n), dtype=torch.int32, device=dev)
+    return out
 
 
 @functools.cache

@@ -20,7 +20,11 @@ blockwise kernel's per-ray bounce (``csrc/trace.cuh``).
   and the reference the kernel is compared with on the card.
 * :func:`wf_bounce` — the kernel wrapper: a CPU tensor goes to the plain
   version, a CUDA tensor to the kernel, and nothing else.
-  ``wf_bounce.launches`` counts kernel launches.
+  ``wf_bounce.launches`` counts kernel launches.  After bounce 0 the
+  kernel splits each live ray's scan over a group of lanes, as many as the
+  live count (which the wrapper counts on the card) leaves room for (the
+  kernel's source note); the split changes the order of the work, never
+  the winner.
 * :func:`render_forward_wavefront` — the entry point: per sample chunk the
   bounce-0 launch (raygen + bounce 0), the sorts of the schedule and one
   launch per later bounce, then the frame assembled by ray id.
@@ -195,15 +199,30 @@ def wf_bounce_plain(spheres, planes, boxes, counts, cam, seeds, state, ids, limi
     return word.to(torch.int32) if record else None
 
 
-@functools.cache
-def _kernel():
+def _library():
     from ._build import load_library
 
-    fn = load_library("wavefront_kernel").rt_wf_bounce
+    return load_library("wavefront_kernel")
+
+
+@functools.cache
+def _kernel():
+    fn = _library().rt_wf_bounce
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, i, p, i, p, i, p, p, p, p, p, p, i, i, i, f, f, i, i, i, i, p]
+    fn.argtypes = [p, i, p, i, p, i, p, p, p, p, p, p, p, i, i, i, f, f, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _split_lanes(live: int) -> int:
+    """The lanes per ray (G) that a later bounce's launch gives ``live``
+    live rays on this process's card (``rt_wf_split_lanes``: the smallest
+    power of two up to 32 with live x G at least the kernel's resident
+    threads).  Card only; the tests and chip_smoke.py choose their inputs
+    with it."""
+    fn = _library().rt_wf_split_lanes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(live)
 
 
 def wf_bounce(spheres, planes, boxes, counts, cam, seeds, state, ids, limit=None, *, size,
@@ -241,13 +260,17 @@ def wf_bounce(spheres, planes, boxes, counts, cam, seeds, state, ids, limit=None
     if limit is not None:
         _check(fn, "limit", limit, torch.int32, (1,), dev)
     words = torch.empty(n, dtype=torch.int32, device=dev) if record else None
+    # a later bounce splits each live ray's scan over as many lanes as the
+    # live count leaves room for: counted here, on the card
+    live = (state[12] > 0.0).sum(dtype=torch.int32).reshape(1) if bounce else None
     inv_w, inv_h = _inv_size(w, h)
     with torch.cuda.device(dev):
         err = _kernel()(
             spheres.data_ptr(), counts[0], planes.data_ptr(), counts[1], boxes.data_ptr(),
             counts[2], cam.data_ptr(), seeds.data_ptr(), state.data_ptr(), ids.data_ptr(),
             words.data_ptr() if record else None, limit.data_ptr() if limit is not None else None,
-            n, w * h, w, inv_w, inv_h, bounce, max_bounces, int(bool(center_sample)),
+            live.data_ptr() if bounce else None, n, w * h, w, inv_w, inv_h, bounce, max_bounces,
+            int(bool(center_sample)),
             int(rng_mode == "sphere"), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wavefront kernel launch failed: CUDA error {err}")

@@ -215,9 +215,11 @@ def test_tiles_dispatch_by_device():
     assert img.shape == (6, 8, 3)
     cot = torch.full((6, 8, 3), 1e-3)
     kw = dict(size=(8, 6), max_bounces=3, center_sample=False)
-    g = tbg.bw_grad_tile(sp, pl, counts[:2], cam, seeds, cot, **kw)
+    one, words = tb.render_blockwise_tile(sp, pl, bx, counts, cam, seeds, spp=1, words=True, **kw)
+    assert one.shape == (6, 8, 3) and words.shape == (3, 48) and words.dtype == torch.int32
+    g = tbg.bw_grad_tile(sp, pl, counts[:2], cam, seeds, cot, words, **kw)
     acc = tuple(t.clone() for t in g)
-    tbg.bw_grad_tile(sp, pl, counts[:2], cam, seeds, cot, out=acc, **kw)
+    tbg.bw_grad_tile(sp, pl, counts[:2], cam, seeds, cot, words, out=acc, **kw)
     assert (tb.render_blockwise_tile.launches, tbg.bw_grad_tile.launches) == before
     assert [tuple(t.shape) for t in g] == [(9, 30), (5, 0), (16,)]
     for a, t in zip(acc, g):
@@ -227,4 +229,6 @@ def test_tiles_dispatch_by_device():
                                  seeds.to("meta"), size=(8, 6), spp=1, max_bounces=1,
                                  center_sample=True)
     with pytest.raises(ValueError, match="cam on"):
-        tbg.bw_grad_tile(sp, pl, counts[:2], cam.to("meta"), seeds, cot, **kw)
+        tbg.bw_grad_tile(sp, pl, counts[:2], cam.to("meta"), seeds, cot, words, **kw)
+    with pytest.raises(ValueError, match="one sample"):
+        tb.render_blockwise_tile(sp, pl, bx, counts, cam, seeds, spp=2, words=True, **kw)

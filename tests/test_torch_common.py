@@ -108,3 +108,36 @@ def assert_records_match(recs, jrecs, n: int, min_share: float = 1 - MAX_SHARE):
     for k in ("urx", "ury", "urz", "coin", "jitter"):
         np.testing.assert_allclose(recs[k].numpy(), tiles_to_flat(jrecs[k], n), rtol=0,
                                    atol=1e-6, err_msg=k)
+
+
+def tie_scene_toml() -> str:
+    """A scene whose closest-hit scans tie often: a ground plane, 12 spheres
+    each on two adjacent rows and all 12 again at the end of the table (the
+    split scan puts the copies in other lanes), a ground sphere whose top
+    touches the plane, and two equal boxes (with ``--boxes``)."""
+    rng = np.random.default_rng(11)
+    sph = ["{ material = %d, position = [%.3f, %.3f, %.3f], radius = %.3f }" % (i % 3, x, y, z, r)
+           for i, (x, y, z, r) in enumerate(zip(
+               rng.uniform(-2, 2, 12), rng.uniform(0.3, 1.2, 12), rng.uniform(-4, -1, 12),
+               rng.uniform(0.2, 0.5, 12)))]
+    rows = [s for s in sph for _ in (0, 1)] + sph
+    rows.append("{ material = 0, position = [0, -1000, 0], radius = 1000 }")
+    box = "{ material = 1, position = [1.2, 0.4, -2.0], extents = [0.3, 0.4, 0.3] }"
+    return "\n".join([
+        "camera = { position = [0, 1, 3], direction = 'forward' }",
+        "materials = [ { type = 'lambert', albedo = 'gray' },",
+        "              { type = 'metal', albedo = 'white', roughness = 0.05 },",
+        "              { type = 'dielectric', albedo = 'white' } ]",
+        "planes = [ { material = 0, position = [0, 0, 0], normal = 'up' } ]",
+        "spheres = [ " + ",\n  ".join(rows) + " ]",
+        f"boxes = [ {box}, {box} ]",
+    ])
+
+
+# most camera rays miss: few rays live after bounce 0
+SKY_TOML = """
+camera = { position = [0, 1, 3], direction = 'forward' }
+materials = [ { type = 'lambert', albedo = 'gray' }, { type = 'metal', albedo = 'white' } ]
+spheres = [ { material = 0, position = [0, 0.8, -4], radius = 0.3 },
+            { material = 1, position = [0.5, 1.0, -4.5], radius = 0.2 } ]
+"""

@@ -256,19 +256,28 @@ def test_bw_grad_kernel_matches_plain(cuda, name, personality, center):
 
     scene = (rt_tpu_torch.scene.make_procedural_scene(700) if name == "proc700"
              else _scene(name))
-    sp, pl, _, counts = _bw_tables(cuda, scene, personality)
+    sp, pl, bx, counts = _bw_tables(cuda, scene, personality)
     size = (48, 32)
     cam = torch.from_numpy(tr._pack_camera(scene.camera, size)).to(cuda)
     cot = torch.from_numpy(np.random.default_rng(4).uniform(0, 1e-4, (32, 48, 3))
                            .astype(np.float32)).to(cuda)
     seeds = torch.tensor([77], dtype=torch.int32, device=cuda)
     kw = dict(size=size, max_bounces=6, center_sample=center)
+    # the sample's forward launch in its words form (the training step's),
+    # bit for bit with the plain version, frame and winner words
+    from rt_tpu_torch.ops import blockwise as tb
+
+    img, words = tb.render_blockwise_tile(sp, pl, bx, counts, cam, seeds, spp=1, words=True, **kw)
+    img_p, words_p = tb.render_blockwise_tile_plain(sp, pl, bx, counts, cam, seeds, spp=1,
+                                                    words=True, **kw)
+    assert torch.equal(img, img_p) and torch.equal(words, words_p)
     before = tbg.bw_grad_tile.launches
-    got = tbg.bw_grad_tile(sp, pl, counts[:2], cam, seeds, cot, **kw)
+    got = tbg.bw_grad_tile(sp, pl, counts[:2], cam, seeds, cot, words, **kw)
     assert tbg.bw_grad_tile.launches == before + 1
-    twice = tbg.bw_grad_tile(sp, pl, counts[:2], cam, seeds, cot, out=tuple(g.clone() for g in got),
-                             **kw)
-    want, l1 = tbg.bw_grad_tile_plain(sp, pl, counts[:2], cam, seeds, cot, with_l1=True, **kw)
+    twice = tbg.bw_grad_tile(sp, pl, counts[:2], cam, seeds, cot, words,
+                             out=tuple(g.clone() for g in got), **kw)
+    want, l1 = tbg.bw_grad_tile_plain(sp, pl, counts[:2], cam, seeds, cot, words, with_l1=True,
+                                      **kw)
     torch.cuda.synchronize()
     # per-row gradients are added with global atomics: within 1e-5 x L1
     _assert_within_l1(got, want, l1)
@@ -375,6 +384,66 @@ def test_wf_bounce_matches_plain(cuda, name, personality, include_boxes, rng_mod
     want = tb.render_blockwise_tile(*tables, cam, seeds, size=size, spp=spp, max_bounces=6,
                                     center_sample=True, rng_mode=rng_mode)
     assert torch.equal(img, want)
+
+
+def _lane_limits(n):
+    """{G: a live-prefix length at which a later bounce gives each ray G
+    lanes}, G = 1, 2, ..., 32, from the card's rule (``_split_lanes``):
+    ceil(R / G), R the resident threads (the least live count that gets
+    one lane), which must not exceed the table's n rays."""
+    from rt_tpu_torch.ops import wavefront as twf
+
+    assert twf._split_lanes(n) == 1, "the table is smaller than the resident threads"
+    lo, hi = 1, n
+    while lo < hi:
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if twf._split_lanes(mid) == 1 else (mid + 1, hi)
+    return {g: -(-lo // g) for g in (1, 2, 4, 8, 16, 32)}
+
+
+@pytest.mark.parametrize("name,include_boxes", [("ties", True), ("sky", False)])
+def test_wf_bounce_split_scan_every_g(cuda, name, include_boxes):
+    """The later bounces split each live ray's scan over G lanes, G from
+    the live count: from the same table after bounce 0, a launch at
+    live-prefix limits that leave G = 1, 2, 4, 8, 16 and 32 equals the
+    plain version bit for bit (state, ids, winner words); and a whole
+    record chunk (its natural live counts, down to a few rays on the
+    mostly-sky scene) equals the plain version at every launch and the
+    blockwise kernel's chunk.  The tie-heavy scene has sphere rows
+    duplicated side by side and across the table, and two equal boxes."""
+    from rt_tpu_torch.ops import blockwise as tb
+    from rt_tpu_torch.ops import wavefront as twf
+    from test_torch_common import SKY_TOML, tie_scene_toml
+
+    scene = rt_tpu_torch.loads(tie_scene_toml() if name == "ties" else SKY_TOML)
+    personality = "sm"
+    size, spp, depth = (640, 480), 1, 6
+    tables, cam, seeds, state, ids, _ = _wf_record(cuda, scene, personality, include_boxes, size,
+                                                   spp, depth, "reference", True)
+    img = twf._assemble(state, ids, size[0] * size[1], spp).reshape(480, 640, 3)
+    want = tb.render_blockwise_tile(*tables, cam, seeds, size=size, spp=spp, max_bounces=depth,
+                                    center_sample=True)
+    assert torch.equal(img, want)
+
+    n = size[0] * size[1] * spp
+    gen_state = torch.empty((twf.STATE_ROWS, n), device=cuda)
+    gen_ids = torch.empty(n, dtype=torch.int32, device=cuda)
+    kw = dict(size=size, max_bounces=depth, center_sample=True, record=True)
+    twf.wf_bounce(*tables, cam, seeds, gen_state, gen_ids, bounce=0, **kw)
+    alive = int((gen_state[12] > 0).sum())
+    seen = set()
+    for g, live in _lane_limits(n).items():
+        seen.add(twf._split_lanes(min(alive, live)))
+        limit = torch.tensor([live], dtype=torch.int32, device=cuda)
+        st, ii = gen_state.clone(), gen_ids.clone()
+        st_p, ii_p = gen_state.clone(), gen_ids.clone()
+        got = twf.wf_bounce(*tables, cam, seeds, st, ii, limit, bounce=1, **kw)
+        ref = twf.wf_bounce_plain(*tables, cam, seeds, st_p, ii_p, limit, bounce=1, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(st, st_p) and torch.equal(ii, ii_p) and torch.equal(got, ref), g
+    # the tie-heavy scene keeps enough rays alive for every G; the
+    # mostly-sky one gives its few live rays 32 lanes at every limit
+    assert seen == ({1, 2, 4, 8, 16, 32} if name == "ties" else {32}), seen
 
 
 @pytest.mark.parametrize("name,personality", [

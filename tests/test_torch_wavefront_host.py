@@ -176,3 +176,96 @@ def test_unported_knobs_and_limits():
     with pytest.raises(TypeError):
         twg.make_wf_mse_step({}, ts, np.zeros((6, 8, 3), np.float32), (8, 6), device="cpu",
                              cull=True)
+
+
+# ---- the split scan of the later bounces (csrc/wavefront_kernel.cu) ----
+
+_NONE, _PLANE, _SPHERE, _BOX = 0, 1, 2, 3  # trace.cuh's Kind
+_NO_HIT = float("inf")
+
+
+def _serial_winner(tp, ts, tb, first=0, step=1):
+    """trace.cuh closest_hit's rule over rows first, first + step, ... of
+    each class: planes with strict '<', then spheres (a sphere wins a tie
+    against a plane), then boxes with strict '<'.  ``tp``, ``ts``, ``tb``:
+    (sets, rows) float32 distances of the rows that are hit, inf where a
+    row is not.  Returns (best, kind, row) per set."""
+    n = tp.shape[0]
+    best = torch.full((n,), 3.0e38)
+    kind = torch.full((n,), _NONE, dtype=torch.int64)
+    win = torch.zeros(n, dtype=torch.int64)
+    for cls, tab in ((_PLANE, tp), (_SPHERE, ts), (_BOX, tb)):
+        for r in range(first, tab.shape[1], step):
+            t = tab[:, r]
+            ok = t < best
+            if cls == _SPHERE:
+                ok = ok | ((t == best) & (kind == _PLANE))
+            best = torch.where(ok, t, best)
+            kind = torch.where(ok, cls, kind)
+            win = torch.where(ok, r, win)
+    return best, kind, win
+
+
+def _rank(kind):
+    # hit_rank: sphere 0, plane 1, box 2, none 3
+    return torch.where(kind == _SPHERE, 0, torch.where(kind == _PLANE, 1,
+                                                       torch.where(kind == _BOX, 2, 3)))
+
+
+def _merged_winner(tp, ts, tb, g):
+    """The split scan of wf_bounce_kernel for a group of ``g`` lanes: lane k
+    scans rows k, k + g, ... (closest_hit with first k, step g), then
+    merge_hit's shuffle butterfly on the key (t, rank, row).  A torch
+    mirror of csrc/wavefront_kernel.cu merge_hit.  Returns every lane's
+    (best, kind, row), (g, sets) each."""
+    lanes = [_serial_winner(tp, ts, tb, k, g) for k in range(g)]
+    best, kind, win = (torch.stack(v) for v in zip(*lanes))
+    lane = torch.arange(g)
+    off = g >> 1
+    while off:
+        ob, ok, ow = best[lane ^ off], kind[lane ^ off], win[lane ^ off]
+        r, orank = _rank(kind), _rank(ok)
+        take = (ob < best) | ((ob == best) & ((orank < r) | ((orank == r) & (ow < win))))
+        best, kind, win = (torch.where(take, o, v) for o, v in ((ob, best), (ok, kind),
+                                                               (ow, win)))
+        off >>= 1
+    return best, kind, win
+
+
+def _candidate_sets(rng, sets, rows, levels):
+    """Distances drawn from a few levels (so that ties across classes and
+    rows are common), a third of the rows not hit."""
+    t = rng.choice(np.asarray(levels, np.float32), size=(sets, rows))
+    t[rng.random((sets, rows)) < 0.33] = _NO_HIT
+    return torch.from_numpy(t)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16, 32])
+def test_split_scan_merge_is_the_serial_winner(g):
+    """The lanes' merged winner equals the serial scan's on every set, and
+    every lane of the group holds it: the smallest t, a sphere before a
+    plane before a box at one t (a box never wins a tie), the first row of
+    a class."""
+    rng = np.random.default_rng(g)
+    levels = (0.5, 1.0, 1.0000001, 2.0)
+    cases = [(_candidate_sets(rng, 400, rows_p, levels), _candidate_sets(rng, 400, rows_s, levels),
+              _candidate_sets(rng, 400, rows_b, levels))
+             for rows_p, rows_s, rows_b in ((3, 45, 7), (1, 70, 0), (0, 33, 40), (5, 0, 9))]
+    # duplicated rows: every sphere row at one t, the same t in a plane and
+    # a box, rows repeated across the table; nothing hit at all
+    dup = torch.full((1, 64), 1.5)
+    cases += [(torch.tensor([[1.5, 1.5]]), dup, torch.tensor([[1.5, 1.5, 1.5]])),
+              (torch.tensor([[1.5]]), torch.full((1, 40), _NO_HIT), torch.tensor([[9.0, 1.5]])),
+              (torch.zeros((1, 0)), torch.cat([dup[:, :20] + 1, dup[:, :20]], 1),
+               torch.zeros((1, 0))),
+              (torch.full((1, 4), _NO_HIT), torch.full((1, 50), _NO_HIT),
+               torch.full((1, 6), _NO_HIT))]
+    kinds = set()
+    for tp, ts, tb in cases:
+        want = _serial_winner(tp, ts, tb)
+        got = _merged_winner(tp, ts, tb, g)
+        for lane in range(g):
+            for a, b in zip(got, want):
+                assert torch.equal(a[lane], b)
+        kinds.update(want[1].tolist())
+    assert kinds == {_NONE, _PLANE, _SPHERE, _BOX}
