@@ -5,13 +5,15 @@ CUDA card.
 
     python3 chip_ab.py --tree parent=OTHER_CHECKOUT/rt_tpu_torch/csrc \
         [--tree NAME=CSRC_DIR ...] [--ablate ABLATION=TREE ...] \
-        [--package parent=OTHER_CHECKOUT ...] [--windows 7] [--out ab.json]
+        [--package parent=OTHER_CHECKOUT ...] [--only TEXT ...] [--sass DIR] \
+        [--windows 7] [--out ab.json]
 
 Kernels.  Each tree is a ``csrc`` directory holding ``render_kernel.cu``,
-``blockwise_kernel.cu``, ``grad_kernel.cu``, ``bw_grad_kernel.cu`` and
-``wavefront_kernel.cu`` with the C interface that the wrappers of
-``rt_tpu_torch.ops.render``, ``ops.blockwise``, ``ops.grad``,
-``ops.blockwise_grad`` and ``ops.wavefront`` bind.  A tree whose blockwise
+``blockwise_kernel.cu``, ``grad_kernel.cu``, ``bw_grad_kernel.cu``,
+``wavefront_kernel.cu``, ``wf_grad_kernel.cu`` and ``fma_peak_kernel.cu``
+with the C interface that the wrappers of ``rt_tpu_torch.ops.render``,
+``ops.blockwise``, ``ops.grad``, ``ops.blockwise_grad``, ``ops.wavefront``,
+``ops.wavefront_grad`` and ``rt_tpu_torch.roofline`` bind.  A tree whose blockwise
 library lacks ``rt_blockwise_forward_words`` has the older interface of
 the blockwise gradient kernel (it scanned again instead of reading the
 forward launch's winner words), and one whose wavefront library lacks
@@ -28,31 +30,45 @@ try a variant, may give wrong results and are never kept.
 Every tree's libraries are built with ``_build.NVCC_FLAGS`` into a
 temporary directory, one nvcc per source, all at once.  The script prints
 per tree and kernel nvcc's register and spill report, per kernel function
-the counts of local-memory stores, loads and calls, shared-memory atomics
-(and those that compile to a compare-and-swap loop), global reductions,
-shuffles and matches in the SASS (``cuobjdump``), whether the output
+its count of SASS instructions and the counts of local-memory stores,
+loads and calls, shared-memory atomics (and those that compile to a
+compare-and-swap loop), global reductions, shuffles, matches, MUFU
+(square roots and reciprocals), device- and shared-memory loads and
+branches in the SASS (``cuobjdump``; ``--sass DIR`` also writes the SASS
+of the render and blockwise kernels, to read the instructions of one scan
+row by hand), whether the output
 agrees with this tree's, and the milliseconds per wrapper call (median of
 the windows; each window times ``iters`` back-to-back calls with CUDA
 events, the trees' order reversed in every other window, and the stream
 held by a spin kernel while the host queues the window, so that the time
-is the card's even where the wrapper's host work is longer).  Forward
+is the card's even where the wrapper's host work is longer), and beside
+it the same calls' wall time without the hold (``wall``: the wrapper's
+host work where that is the longer, as ``profiling.sustained`` and
+``chip_smoke.py`` time a wrapper).  Forward
 kernels must equal this tree's output (``torch.equal``); gradient kernels,
 which sum per-primitive gradients in a different order, must agree within
 1e-5 of each entry's L1 (the sum of its per-(pixel, sample) contributions'
 magnitudes, from the plain version's ``with_l1`` output).
 
 The kernel shapes are those of ``PERF.md``'s kernel table: the render
-kernel on basic.toml 800x600 4 spp; the blockwise kernel on 500 procedural
-spheres at 320x180 4 spp, at 1920x1080 1 sample (a config-4 train-step
-launch: the serving form, and the words form the step runs) and on the
-config-5 slice (5000 spheres, 960x540, 2 spp); the mono gradient kernel at
+kernel on basic.toml 800x600 4 spp and on 500 procedural spheres at
+1920x1080 4 spp (one launch of the config-4 frame); the blockwise kernel on
+500 procedural spheres at 320x180 4 spp, at 1920x1080 1 sample (a config-4
+train-step launch: the serving form, and the words form the step runs), on
+1000 spheres at 1920x1080 4 spp (a chunk of the 1000-sphere frame) and on
+the config-5 slice (5000 spheres, 960x540, 2 spp); the mono gradient kernel at
 the headline shape (basic.toml 800x600 4 spp); the per-sample kernel at
 config 3's (dielectric.toml, sm, 800x600, one sample) and on 500 spheres;
 the blockwise gradient kernel on 500 spheres at 320x180 and at 1920x1080
 (one sample, along its forward launch's words); the wavefront kernel on
 the config-5 slice's 2-spp chunk, its bounce-0 launch and its bounces 1-7
-(each launch on a copy of the table it entered, with its limit), all at
-depth 8.
+(each launch on a copy of the table it entered, with its limit), and the
+same chunk's eight reverse launches (``wf_rev``, bounces 7 to 0, into one
+set of float64 gradient tables); the unrolled record kernel at the
+headline shape (basic.toml 800x600, one sample: a launch of the headline
+records step); the blockwise record kernel on the box scene (660
+spheres, 24 boxes, 960x540, one sample); all at depth 8; and the FMA
+probe at k = 4096.
 
 Main paths.  ``--package NAME=ROOT`` loads another checkout's
 ``ROOT/rt_tpu_torch`` beside this one (as the module
@@ -64,7 +80,8 @@ headline step (``make_mse_step``, basic.toml 800x600 4 spp), config 3's
 step (dielectric.toml, sm, 64 spp), ``make_render_step`` on basic.toml
 800x600 4 spp and at config 4's serving shape (500 spheres 1920x1080 16
 spp), the config-4 train step (``train.make_kernel_train_step``, Adam on
-the albedo), and on the config-5 slice the wavefront and blockwise frames
+the albedo), the 1000-sphere frame (``render_forward_blockwise``, 1920x1080
+8 spp), and on the config-5 slice the wavefront and blockwise frames
 and the wavefront train step; and, per package, the device ms of each
 launch of a config-5 2-spp record chunk (events around each launch, the
 stream held while the host queues it), whose bounces 1-7 sum is printed.
@@ -90,17 +107,22 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 # per source: its C entry points (the first is the one every tree has)
-KERNELS = {"render_kernel": ("rt_render_forward",),
-           "blockwise_kernel": ("rt_blockwise_forward", "rt_blockwise_forward_words"),
+KERNELS = {"render_kernel": ("rt_render_forward", "rt_render_record"),
+           "blockwise_kernel": ("rt_blockwise_forward", "rt_blockwise_forward_words",
+                                "rt_blockwise_record"),
            "grad_kernel": ("rt_grad_fused",), "bw_grad_kernel": ("rt_bw_grad",),
-           "wavefront_kernel": ("rt_wf_bounce",)}
+           "wavefront_kernel": ("rt_wf_bounce",), "wf_grad_kernel": ("rt_wf_rev",),
+           "fma_peak_kernel": ("rt_fma_peak",)}
+# the sources whose SASS --sass writes out (the scan's kernels)
+SASS_SOURCES = ("render_kernel", "blockwise_kernel")
 # entry points whose C signature changed in this tree, with the (library,
 # symbol) that marks a tree built with the new one: the blockwise gradient
 # kernel takes the forward launch's winner words, the wavefront kernel the
 # live count
 INTERFACE = {"rt_bw_grad": ("blockwise_kernel", "rt_blockwise_forward_words"),
              "rt_wf_bounce": ("wavefront_kernel", "rt_wf_split_lanes")}
-SASS_OPS = ("STL", "LDL", "CALL", "ATOMS", "CAST.SPIN", "REDG", "SHFL", "MATCH")
+SASS_OPS = ("STL", "LDL", "CALL", "ATOMS", "CAST.SPIN", "REDG", "SHFL", "MATCH", "MUFU", "LDG",
+            "LDS", "BRA")
 GRAD_TOL = 1e-5
 HOLD_CYCLES = 100_000_000  # ~50 ms at the H100's 1.98 GHz
 
@@ -108,6 +130,26 @@ HOLD_CYCLES = 100_000_000  # ~50 ms at the H100's 1.98 GHz
 # by a store behind a test that never passes, so that the arithmetic
 # feeding a removed sum still runs.
 _NEVER = "1.2345e-37f"
+# the rejecting scan's row loop with one branch per row (scan_per_row)
+_PER_ROW_SCAN = """#pragma unroll 4
+  for (int i = 0; i < n; ++i) {
+    const float4 g = geo[i * kStep];
+    const float rr = kGeo == kGeoHead16 ? g.w * g.w : g.w;
+    const float ocx = ox - g.x, ocy = oy - g.y, ocz = oz - g.z;
+    const float bq = ocx * dx + ocy * dy + ocz * dz;
+    const float c0 = ocx * ocx + ocy * ocy + ocz * ocz - rr;
+    const float disc = bq * bq - c0;
+    if (disc >= 0.0f) {
+      const float sq = sqrtf(disc);
+      const float t0 = -bq - sq;
+      const float t1 = -bq + sq;
+      const float t = t0 >= kMinHit ? t0 : t1;
+      if (t >= kMinHit && (t < best || (t == best && kind == kPlane))) {
+        best = t; kind = kSphere; win = i;
+      }
+    }
+  }
+"""
 ABLATIONS = {
     # the per-primitive sums of the mono and per-sample kernels (the warp
     # aggregation and the slot adds) removed
@@ -160,6 +202,25 @@ ABLATIONS = {
         ("wavefront_kernel.cu", r"const int G = split_lanes\(live, threads\);",
          "const int G = 1;", 1),
     ],
+    # the rejecting scan with one branch per row (its first form): the
+    # row loop unrolled by 4, each row's root work behind its own disc >= 0
+    "scan_per_row": [
+        ("trace.cuh", r"  int i = 0;\n  for \(; i \+ kRejectGroup <= n; i \+= kRejectGroup\) \{"
+         r".*?\n  \}\n  for \(; i < n; \+\+i\) \{.*?\n  \}\n",
+         _PER_ROW_SCAN, 1),
+    ],
+    # the rejecting scan's branch per group of 2, 4, 8 or 12 rows instead
+    # of 16
+    **{f"scan_group_{g}": [("trace.cuh", r"constexpr int kRejectGroup = 16;",
+                            f"constexpr int kRejectGroup = {g};", 1)] for g in (2, 4, 8, 12)},
+    # the group's branch on the lane's own rows instead of a warp vote (a
+    # divergent branch, with its reconvergence barrier)
+    "scan_no_vote": [("trace.cuh", r"if \(__any_sync\(__activemask\(\), any\)\) \{", "if (any) {", 1)],
+
+    # the blockwise kernel's rows read from device memory at every size:
+    # what staging them in shared memory buys
+    "bw_no_stage": [("blockwise_kernel.cu", r"if \(n_spheres <= kStageRows\) \{", "if (false) {",
+                     1)],
 }
 
 
@@ -185,32 +246,39 @@ def build(csrc: Path, name: str, out_dir: Path, nvcc: str, flags) -> tuple[Path,
     return lib, report
 
 
-def sass_counts(lib: Path, cuobjdump: Path) -> dict:
-    """Per kernel function (a template's instances apart), the count of each
-    of SASS_OPS."""
+def sass_counts(lib: Path, cuobjdump: Path, dump: Path | None = None) -> dict:
+    """Per kernel function (a template's instances apart), the count of its
+    instructions and of each of SASS_OPS; ``dump``: a file to write the
+    SASS to."""
     if not cuobjdump.exists():
         return {}
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
                           text=True).stdout
+    if dump is not None:
+        dump.parent.mkdir(parents=True, exist_ok=True)
+        dump.write_text(sass)
     out = {}
     for fn, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass, re.S):
-        out[kernel_name(fn)] = {
-            op: len(re.findall(rf"\b{re.escape(op)}\b", body)) for op in SASS_OPS}
+        counts = {"instructions": len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+\S", body))}
+        counts.update({op: len(re.findall(rf"\b{re.escape(op)}\b", body)) for op in SASS_OPS})
+        out[kernel_name(fn)] = counts
     return out
 
 
 def kernel_name(mangled: str) -> str:
     """The kernel's own name in a mangled symbol (the last length-prefixed
-    identifier ending in ``_kernel``), with ``<0>``/``<1>`` for the instance
-    of a template on a bool."""
+    identifier ending in ``_kernel``), with its template arguments on bools
+    and ints (``<1,2>``)."""
     name = mangled
     for m in re.finditer(r"_kernel", mangled):
         end = m.end()
         for start in range(end - len("_kernel"), 0, -1):
             digits = str(end - start)
             if mangled[start - len(digits):start] == digits and mangled[start].isalpha():
-                tail = mangled[end:]
-                name = mangled[start:end] + (f"<{tail[3]}>" if tail.startswith("ILb") else "")
+                args = re.match(r"I((?:L[bi]\d+E)+)E", mangled[end:])
+                name = mangled[start:end] + (
+                    "<" + ",".join(re.findall(r"L[bi](\d+)E", args.group(1))) + ">"
+                    if args else "")
                 break
     return name
 
@@ -242,17 +310,25 @@ def kernel_cases(trees, fns, windows, result, ablations, card, only=()):
     import torch
 
     import rt_tpu_torch
+    from rt_tpu_torch import roofline
     from rt_tpu_torch.ops import blockwise as BW
     from rt_tpu_torch.ops import blockwise_grad as BG
     from rt_tpu_torch.ops import grad as G
     from rt_tpu_torch.ops import render as R
     from rt_tpu_torch.ops import wavefront as WF
+    from rt_tpu_torch.ops import wavefront_grad as WG
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_common import box_scene_toml
 
     # (module, attribute) that each C entry point is bound through
-    binds = {"rt_render_forward": (R, "_kernel"), "rt_blockwise_forward": (BW, "_kernel"),
+    binds = {"rt_render_forward": (R, "_kernel"), "rt_render_record": (R, "_record_kernel"),
+             "rt_blockwise_forward": (BW, "_kernel"),
              "rt_blockwise_forward_words": (BW, "_words_kernel"),
+             "rt_blockwise_record": (BW, "_record_kernel"),
              "rt_grad_fused": (G, "_kernel"), "rt_bw_grad": (BG, "_kernel"),
-             "rt_wf_bounce": (WF, "_kernel")}
+             "rt_wf_bounce": (WF, "_kernel"), "rt_wf_rev": (WG, "_kernel"),
+             "rt_fma_peak": (roofline, "_kernel")}
     dev = torch.device("cuda")
     seeds = torch.tensor([11], dtype=torch.int32, device=dev)
     basic = rt_tpu_torch.load(str(ROOT / "scenes" / "basic.toml"))
@@ -323,10 +399,49 @@ def kernel_cases(trees, fns, windows, result, ablations, card, only=()):
                                      **wkw)]
         return out
 
+    # the reverse of that chunk, bounces 7..0 (pixel cotangents made as chip_smoke.py's)
+    wf_sp, wf_pl, _, wf_counts = wf_tables
+    wf_cot_pix = torch.from_numpy(np.random.default_rng(4).uniform(-1, 1, (wf_n // 2, 3))
+                                  .astype(np.float32)).to(dev) * (2.0 / (3 * wf_n))
+    rkw = dict(size=wf_size, max_bounces=wf_depth, center_sample=True)
+
+    def wf_rev_chunk():
+        """(sg, pg, cg) of the chunk's reverse, the launches adding into
+        one set of tables as the pipeline's do."""
+        cot = torch.zeros((9, wf_n), device=dev)
+        out = tuple(torch.zeros(s, dtype=torch.float64, device=dev)
+                    for s in ((9, wf_counts[0]), (5, wf_counts[1]), (16,)))
+        for b in reversed(range(wf_depth)):
+            st, ii, ww, lim = saved[b]
+            WG.wf_rev(wf_sp, wf_pl, wf_counts[:2], wf_cam, seeds, st, ii, ww, lim, cot,
+                      wf_cot_pix, bounce=b, out=out, **rkw)
+        return out
+
+    def wf_rev_chunk_plain(with_l1):
+        """The same through the plain version: ((sg, pg, cg), their L1s)."""
+        cot = torch.zeros((9, wf_n), device=dev)
+        sums = l1s = None
+        for b in reversed(range(wf_depth)):
+            st, ii, ww, lim = saved[b]
+            vals, l1 = WG.wf_rev_plain(wf_sp, wf_pl, wf_counts[:2], wf_cam, seeds, st, ii, ww,
+                                       lim, cot, wf_cot_pix, bounce=b, with_l1=with_l1, **rkw)
+            sums = vals if sums is None else [s + v for s, v in zip(sums, vals)]
+            l1s = l1 if l1s is None else [s + v for s, v in zip(l1s, l1)]
+        return sums, l1s
+
+    # row 6's main path: the box scene of the blockwise records step
+    bigbox = rt_tpu_torch.loads(box_scene_toml(660, 24))
+    fma_x = torch.full(roofline.TILE, 1.0 + 1e-6, device=dev)
+
+    proc1000 = rt_tpu_torch.scene.make_procedural_scene(1000)
     cases = [  # name, entry points, wrapper, args, keywords, calls per window, plain with L1
         ("render_kernel basic 800x600 4spp d8", ("rt_render_forward",), R.render_tile,
          (*render_args(basic), no_boxes, camera(basic, hd), seeds),
          dict(d8, size=hd, spp=4, center_sample=True), 64, None),
+        ("render_kernel proc500 1920x1080 4spp d8 (one launch of the config-4 frame)",
+         ("rt_render_forward",), R.render_tile,
+         (*render_args(proc500), no_boxes, camera(proc500, fhd), seeds),
+         dict(d8, size=fhd, spp=4, center_sample=True), 2, None),
         ("blockwise_kernel proc500 320x180 4spp d8", ("rt_blockwise_forward",),
          BW.render_blockwise_tile, bw_args(proc500, small),
          dict(d8, size=small, spp=4, center_sample=True), 16, None),
@@ -336,6 +451,9 @@ def kernel_cases(trees, fns, windows, result, ablations, card, only=()):
         ("blockwise_kernel proc500 1920x1080 1 sample d8 (words form: a config-4 train-step "
          "launch)", ("rt_blockwise_forward_words",), BW.render_blockwise_tile,
          bw_args(proc500, fhd), dict(one, size=fhd, words=True), 8, None),
+        ("blockwise_kernel proc1000 1920x1080 4spp d8 (a chunk of the 1000-sphere frame)",
+         ("rt_blockwise_forward",), BW.render_blockwise_tile, bw_args(proc1000, fhd),
+         dict(d8, size=fhd, spp=4, center_sample=True), 2, None),
         ("blockwise_kernel proc5000 960x540 2spp d8", ("rt_blockwise_forward",),
          BW.render_blockwise_tile, bw_args(proc5000, wf_size),
          dict(d8, size=wf_size, spp=2, center_sample=True), 2, None),
@@ -355,6 +473,18 @@ def kernel_cases(trees, fns, windows, result, ablations, card, only=()):
          lambda: wf_bounce0(), (), {}, 4, None),
         ("wf_bounce proc5000 960x540 2spp d8 chunk: bounces 1-7", ("rt_wf_bounce",),
          lambda: wf_later(), (), {}, 4, None),
+        ("render_record_kernel basic 800x600 1 sample d8 (a headline records-step launch)",
+         ("rt_render_record",), R.render_record_tile,
+         (*render_args(basic), no_boxes, camera(basic, hd), seeds),
+         dict(d8, size=hd, center_sample=False), 64, None),
+        ("blockwise_record_kernel 660 spheres + 24 boxes 960x540 1 sample d8 (a box-scene "
+         "records-step launch)", ("rt_blockwise_record",), BW.render_record_blockwise_tile,
+         (*BW._device_tables(bigbox, "mg", True, dev), camera(bigbox, wf_size), seeds),
+         dict(d8, size=wf_size, center_sample=False), 4, None),
+        ("wf_rev proc5000 960x540 2spp d8 chunk: bounces 7-0", ("rt_wf_rev",),
+         lambda: wf_rev_chunk(), (), {}, 4, wf_rev_chunk_plain),
+        ("fma_peak_kernel k=4096", ("rt_fma_peak",), roofline.fma_peak, (fma_x, 4096), {}, 16,
+         None),
     ]
     for label, entries, wrapper, a, kw, iters, plain in cases:
         if only and not any(o in label for o in only):
@@ -371,7 +501,10 @@ def kernel_cases(trees, fns, windows, result, ablations, card, only=()):
             return out
 
         def snapshot(out):
-            return [x.clone() for x in (out if isinstance(out, (tuple, list)) else (out,))]
+            flat = []
+            for x in (out if isinstance(out, (tuple, list)) else (out,)):
+                flat += list(x.values()) if isinstance(x, dict) else [x]
+            return [x.clone() for x in flat]
 
         ref = snapshot(run("this", 1))
         if plain is None:
@@ -384,32 +517,42 @@ def kernel_cases(trees, fns, windows, result, ablations, card, only=()):
         torch.cuda.synchronize()
         agrees = {t: agree(run(t, 1)) for t in names}
         ms = {t: [] for t in names}
-        for w in range(windows + 1):
-            for t in (names if w % 2 == 0 else names[::-1]):
-                run(t, 1)
-                torch.cuda.synchronize()
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-                    enable_timing=True)
+        wall = {t: [] for t in names}
+
+        def window(t, held):
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            if held:
                 # hold the stream while the host queues the window, so that
                 # the events time the card's work and not the host's launches
                 hold()
-                start.record()
-                run(t, iters)
-                end.record()
-                end.synchronize()
+            start.record()
+            run(t, iters)
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / iters
+
+        for w in range(windows + 1):
+            for t in (names if w % 2 == 0 else names[::-1]):
+                run(t, 1)
+                card_ms, wall_ms = window(t, True), window(t, False)
                 if w > 0:  # the first window warms up
-                    ms[t].append(start.elapsed_time(end) / iters)
+                    ms[t].append(card_ms)
+                    wall[t].append(wall_ms)
         for e, f in own.items():
             setattr(*binds[e], f)
-        row = {t: {"ms": statistics.median(v), "windows_ms": v, "agrees_with_this": agrees[t]}
-               for t, v in ms.items()}
+        row = {t: {"ms": statistics.median(v), "windows_ms": v,
+                   "wall_ms": statistics.median(wall[t]), "wall_windows_ms": wall[t],
+                   "agrees_with_this": agrees[t]} for t, v in ms.items()}
         for t in names:
             row[t]["over_this"] = row[t]["ms"] / row["this"]["ms"]
         result["cases"][label] = row
         skipped = [t for t in trees if t not in names]
         print(f"{label}: " + "; ".join(
             f"{t} {r['ms']:.4f} ms ({r['over_this']:.4f} of this, windows "
-            f"{min(r['windows_ms']):.4f}-{max(r['windows_ms']):.4f}, agrees "
+            f"{min(r['windows_ms']):.4f}-{max(r['windows_ms']):.4f}; wall {r['wall_ms']:.4f}, "
+            f"windows {min(r['wall_windows_ms']):.4f}-{max(r['wall_windows_ms']):.4f}; agrees "
             f"{r['agrees_with_this']})" for t, r in row.items())
             + (f"; not built with this interface: {skipped}" if skipped else "")
             + f" | {card}", flush=True)
@@ -462,6 +605,10 @@ def package_cases(packages, windows, result, card):
             st = train.make_kernel_train_step(opt, scene, target, size, spp=spp, max_bounces=8,
                                               device="cuda")
             out[label] = (lambda i, st=st, params=params: st(params, 100 + i), 2)
+        proc1000 = pkg.scene.make_procedural_scene(1000)
+        out["1000-sphere frame (render_forward_blockwise 1000 spheres 1920x1080 8spp d8)"] = (
+            lambda i: BW.render_forward_blockwise(proc1000, (1920, 1080), seed=i, spp=8,
+                                                  max_bounces=8, device="cuda"), 2)
         out["config-5 frame (render_forward_wavefront 5000 spheres 960x540 2spp d8)"] = (
             lambda i: WF.render_forward_wavefront(proc5000, (960, 540), seed=i, spp=2,
                                                   max_bounces=8, device="cuda"), 3)
@@ -554,6 +701,8 @@ def main() -> int:
     ap.add_argument("--no-kernels", action="store_true", help="only the --package cells")
     ap.add_argument("--only", action="append", default=[], metavar="TEXT",
                     help="only the kernel cases whose label holds TEXT (repeatable)")
+    ap.add_argument("--sass", type=Path, metavar="DIR",
+                    help="write each tree's SASS of the scan's kernels to DIR/<tree>/<source>.sass")
     ap.add_argument("--windows", type=int, default=7)
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
@@ -561,12 +710,14 @@ def main() -> int:
         raise RuntimeError("chip_ab: CUDA is not available")
     sys.path.insert(0, str(ROOT))
     import rt_tpu_torch
+    from rt_tpu_torch import roofline
     from rt_tpu_torch.ops import _build
     from rt_tpu_torch.ops import blockwise as BW
     from rt_tpu_torch.ops import blockwise_grad as BG
     from rt_tpu_torch.ops import grad as G
     from rt_tpu_torch.ops import render as R
     from rt_tpu_torch.ops import wavefront as WF
+    from rt_tpu_torch.ops import wavefront_grad as WG
 
     trees = {"this": _build.CSRC_DIR}
     for spec in args.tree:
@@ -582,10 +733,13 @@ def main() -> int:
     if not args.no_kernels:
         # the wrappers' own bindings give the argument types
         argtypes = {"rt_render_forward": R._kernel().argtypes,
+                    "rt_render_record": R._record_kernel().argtypes,
                     "rt_blockwise_forward": BW._kernel().argtypes,
                     "rt_blockwise_forward_words": BW._words_kernel().argtypes,
+                    "rt_blockwise_record": BW._record_kernel().argtypes,
                     "rt_grad_fused": G._kernel().argtypes, "rt_bw_grad": BG._kernel().argtypes,
-                    "rt_wf_bounce": WF._kernel().argtypes}
+                    "rt_wf_bounce": WF._kernel().argtypes, "rt_wf_rev": WG._kernel().argtypes,
+                    "rt_fma_peak": roofline._kernel().argtypes}
         nvcc = _build._nvcc()
         cuobjdump = Path(nvcc).with_name("cuobjdump")
         fns = {}
@@ -618,8 +772,10 @@ def main() -> int:
                     fn = getattr(cdll, sym)
                     fn.argtypes, fn.restype = argtypes[sym], ctypes.c_int
                     fns[t, sym] = fn
+                dump = (args.sass / t / f"{k}.sass" if args.sass and k in SASS_SOURCES
+                        else None)
                 result["build"][f"{t}/{k}"] = {"ptxas": report,
-                                               "sass": sass_counts(lib, cuobjdump)}
+                                               "sass": sass_counts(lib, cuobjdump, dump)}
                 print(f"{t}/{k}: {report} sass {result['build'][f'{t}/{k}']['sass']}",
                       flush=True)
             kernel_cases(trees, fns, args.windows, result, ablations, card, args.only)

@@ -13,8 +13,11 @@ Phases (an exception in any phase exits non-zero before the result line):
 3. Kernels against their plain PyTorch versions, both on the card, at the
    shapes of the main paths.  Render kernel: basic.toml (mg),
    dielectric.toml (sm) and basic.toml plus a box (--boxes) at 800x600,
-   4 spp, 8 bounces, and the procedural 500-sphere scene at 320x180; they
-   must agree bit for bit.  Gradient kernels: the mono step on basic.toml
+   4 spp, 8 bounces, the procedural 500-sphere scene at 320x180, the
+   tie-heavy scene (--boxes) and a grazing one (a camera along a radius-1000
+   sphere, small spheres on it) at 320x240, and one 4-spp launch of the
+   config-4 frame (500 spheres, 1920 wide, 540 high for the plain
+   version's time); they must agree bit for bit.  Gradient kernels: the mono step on basic.toml
    (mg) at 800x600 4 spp and cornell_spheres.toml (sm, planes and
    dielectrics) at 320x240 2 spp, the per-sample kernel on dielectric.toml
    (sm) at 800x600 (2 samples) and on 500 spheres at 320x180, all at depth
@@ -28,7 +31,10 @@ Phases (an exception in any phase exits non-zero before the result line):
    printed, and whether they are equal).  Blockwise forward kernel, depth
    8, bit for bit: 4 spp on basic.toml at 800x600, cornell_spheres.toml
    (sm) and basic+box (--boxes) at 320x240, 500 spheres at 320x180 and
-   1000 spheres (past the render kernel's 640) at 160x90; at the main
+   1000 spheres (past the render kernel's 640) at 160x90, the tie-heavy
+   (--boxes) and grazing scenes at 320x240 (4 spp, and one sample in the
+   words form), 2100 spheres (past the 2048 rows staged in shared
+   memory: rows from device memory) at 64x36 in the words form; at the main
    paths' shapes, 500 spheres at 1920x1080 1 spp (a train-step launch)
    and 1000 spheres at 1920x1080 4 spp (a CLI chunk); and against the
    render kernel on basic and cornell at the same seeds; at 1 spp also
@@ -132,7 +138,13 @@ Phases (an exception in any phase exits non-zero before the result line):
    Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
    FP32 operations over 33.5 Top/s, the operations counted from the kernel
    sources (OPS below) times the live bounces of this run's inputs (the
-   scan's share grows with the table).
+   scan's share grows with the table): each live (ray, sphere row) pair
+   pays the reject part of the row test, and only the pairs with disc >= 0
+   (counted on the card from the serial scan's disc) its root part.  The
+   render kernel is timed and bounded at one 4-spp launch of the config-4
+   frame too, with the live bounces, the warps' bounce slots (warp_live)
+   and the disc >= 0 pairs beside its bound, as for the blockwise kernel's
+   config-4 train-step launch.
 
 The last two lines are the card line and {"ok": true, "device": ...};
 the line before them is the per-kernel JSON summary, and the line before
@@ -212,13 +224,21 @@ PEAK_OPS_S = 33.5e12
 # rt_tpu_torch/csrc/trace.cuh (the render and blockwise kernels) and
 # bounce.cuh (the gradient kernels) (rounded; an add,
 # multiply, compare, select, min/max, conversion, division or square root
-# counts one; the integer hash is not FP32 work).  Forward, per live
-# bounce: the scan of every plane and sphere, then the miss (sky) or hit
-# work (hit point, draws, throughput, class tests) plus the sphere normal
-# and the material's scatter.  Reverse, per live bounce: the pass-through
-# and throughput transpose, the sky term on a miss, and on a hit the
-# winner's t/normal recompute and transpose plus the material's.
-OPS = dict(raygen=40, scan_plane=20, scan_sphere=30, fwd_miss=12, fwd_hit=35, fwd_sphere=14,
+# counts one; the integer hash and integer compares are not FP32 work).
+# Forward, per live bounce: the scan of every plane and sphere, then the
+# miss (sky) or hit work (hit point, draws, throughput, class tests) plus
+# the sphere normal and the material's scatter.  A sphere row is two
+# counts, from trace.cuh's scan_spheres_rejecting: scan_sphere_reject, paid
+# by every (live ray, row) pair (ocx, ocy, ocz: 3; bq: 3 multiplies, 2 adds;
+# c0: 3 multiplies, 3 adds, rr = r * r being a row constant; disc: 2; the
+# disc >= 0 compare: 1), and scan_sphere_hit, paid only by the pairs with
+# disc >= 0 (the square root, t0, t1, the t0 >= kMinHit compare and select,
+# t >= kMinHit, t < best, t == best, the select of best).  Reverse, per
+# live bounce: the pass-through and throughput transpose, the sky term on
+# a miss, and on a hit the winner's t/normal recompute and transpose plus
+# the material's.
+OPS = dict(raygen=40, scan_plane=20, scan_sphere_reject=17, scan_sphere_hit=9, fwd_miss=12,
+           fwd_hit=35, fwd_sphere=14,
            fwd_lambert=14, fwd_metal=37, fwd_dielectric=71, rev_live=50, rev_miss=20,
            rev_sphere=128, rev_plane=60, rev_lambert=34, rev_metal=83, rev_dielectric=166,
            raygen_adjoint=70, loss=15, scan_box=33, box_setup=6, fwd_box=22, record=40,
@@ -233,8 +253,57 @@ OPS = dict(raygen=40, scan_plane=20, scan_sphere=30, fwd_miss=12, fwd_hit=35, fw
 GRAD_TOL = 1e-5
 
 
+def camera_rays(cam, size, seed, base, center):
+    """The camera rays of one sample (counter base ``base``; the pixel
+    centre if ``center``), in pixel order: (o3, d3), as the kernels make
+    them (rt_tpu_torch.ops._grad_math.raygen)."""
+    import torch
+    from rt_tpu_torch.ops import _grad_math as gm
+    from rt_tpu_torch.ops.render import _inv_size, hash_u01
+
+    w, h = size
+    idx = torch.arange(w * h, device=cam.device, dtype=torch.int64)
+    px, py = (idx % w).float(), (idx // w).float()
+    inv_w, inv_h = _inv_size(w, h)
+    jx, jy = (0.5, 0.5) if center else (hash_u01(idx, seed, base + 1),
+                                        hash_u01(idx, seed, base + 2))
+    return gm.raygen(cam.tolist(), px, py, jx, jy, inv_w, inv_h)
+
+
+def disc_counts(spheres, o3, d3, live):
+    """``(pairs, warp_rows)`` of one bounce: the (live ray, sphere row)
+    pairs whose disc is >= 0 (the serial scan's disc, with its expressions
+    in its order: the pairs that pay the rejecting scan's root work), and,
+    per warp of 32 consecutive rays, the rows on which some live lane passes
+    (the rows on which the warp runs that work).  Counted on the device of
+    the rays, in chunks of about 2^24 pairs."""
+    import torch
+
+    cx, cy, cz, r = (spheres[:, j] for j in range(4))
+    rr = r * r
+    n, rows = o3[0].shape[0], spheres.shape[0]
+    chunk = max(32, ((1 << 24) // max(rows, 1)) // 32 * 32)
+    pairs = warp_rows = 0
+    for s in range(0, n if rows else 0, chunk):
+        e = min(s + chunk, n)
+        lv = live[s:e]
+        if not bool(lv.any()):
+            continue
+        ox, oy, oz, dx, dy, dz = (t[s:e, None] for t in (*o3, *d3))
+        ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+        bq = ocx * dx + ocy * dy + ocz * dz
+        c0 = ocx * ocx + ocy * ocy + ocz * ocz - rr
+        passed = ((bq * bq - c0) >= 0.0) & lv[:, None]
+        pairs += int(passed.sum())
+        pad = (-(e - s)) % 32
+        if pad:
+            passed = torch.cat([passed, passed.new_zeros((pad, rows))])
+        warp_rows += int(passed.view(-1, 32, rows).any(dim=1).sum())
+    return pairs, warp_rows
+
+
 def live_work(spheres, planes, cam, seeds, bases, centers, size, max_bounces, rng_mode,
-              words=None):
+              words=None, pairs=True):
     """Live work of these inputs, counted from the plain forward's
     per-bounce masks (rt_tpu_torch.ops._grad_math): rays, live bounces,
     misses, sphere and plane hits, and hits per material class.  ``seeds``,
@@ -242,6 +311,9 @@ def live_work(spheres, planes, cam, seeds, bases, centers, size, max_bounces, rn
     ``warp_live`` counts the bounce slots the kernels' warps issue: per warp
     of 32 consecutive pixels and per sample, 32 times the most live bounces
     of any of its pixels (a lane whose ray died waits for the others).
+    With ``pairs`` (disc_counts, per bounce), ``disc_pairs`` counts the
+    (live ray, sphere row) pairs with disc >= 0 and ``disc_warp_rows`` the
+    (warp, row) slots in which some lane has one.
     ``words`` (per sample, the forward kernel's (max_bounces, N) winner
     words, one-sample calls at counter base 0) replays each bounce's winner
     (``_grad_math.replay_winner``, as the blockwise gradient kernel does)
@@ -252,27 +324,28 @@ def live_work(spheres, planes, cam, seeds, bases, centers, size, max_bounces, rn
     sweep part (csrc/bw_grad_kernel.cu)."""
     import torch
     from rt_tpu_torch.ops import _grad_math as gm
-    from rt_tpu_torch.ops.render import _inv_size, hash_u01
+    from rt_tpu_torch.ops.render import hash_u01
 
     w, h = size
     n = w * h
     dev = cam.device
     idx = torch.arange(n, device=dev, dtype=torch.int64)
-    px, py = (idx % w).float(), (idx // w).float()
-    inv_w, inv_h = _inv_size(w, h)
-    c = cam.tolist()
     keys = ("live", "miss", "sphere", "plane", "lambert", "metal", "dielectric")
-    counts = dict.fromkeys(keys + ("warp_live", "refractions", "sin2_one"), 0)
+    extra = ("warp_live", "refractions", "sin2_one") + (("disc_pairs", "disc_warp_rows")
+                                                        if pairs else ())
+    counts = dict.fromkeys(keys + extra, 0)
     counts["rays"] = n * len(seeds)
     for si, (seed, base, center) in enumerate(zip(seeds, bases, centers)):
-        jx, jy = (0.5, 0.5) if center else (hash_u01(idx, seed, base + 1),
-                                            hash_u01(idx, seed, base + 2))
-        o3, d3 = gm.raygen(c, px, py, jx, jy, inv_w, inv_h)
+        o3, d3 = camera_rays(cam, size, seed, base, center)
         thr3 = (torch.ones(n, device=dev),) * 3
         live = torch.ones(n, dtype=torch.bool, device=dev)
         nb = torch.zeros(n + (-n) % 32, dtype=torch.int64, device=dev)
         for b in range(max_bounces):
             nb[:n] += live
+            if pairs:
+                p, wr = disc_counts(spheres, o3, d3, live)
+                counts["disc_pairs"] += p
+                counts["disc_warp_rows"] += wr
             u3 = gm.unit_draws(idx, seed, base + 3 + 4 * b, rng_mode == "sphere")
             coin = hash_u01(idx, seed, base + 6 + 4 * b)
             if words is None:
@@ -301,7 +374,8 @@ def live_work(spheres, planes, cam, seeds, bases, centers, size, max_bounces, rn
 def forward_ops(work, n_spheres, n_planes):
     hits = work["sphere"] + work["plane"]
     return (work["rays"] * OPS["raygen"]
-            + work["live"] * (n_planes * OPS["scan_plane"] + n_spheres * OPS["scan_sphere"])
+            + work["live"] * (n_planes * OPS["scan_plane"] + n_spheres * OPS["scan_sphere_reject"])
+            + (work["disc_pairs"] * OPS["scan_sphere_hit"] if n_spheres else 0)
             + work["miss"] * OPS["fwd_miss"] + hits * OPS["fwd_hit"]
             + work["sphere"] * OPS["fwd_sphere"] + work["lambert"] * OPS["fwd_lambert"]
             + work["metal"] * OPS["fwd_metal"] + work["dielectric"] * OPS["fwd_dielectric"])
@@ -320,7 +394,8 @@ def grad_ops(work):
     per live hit its winner's own test (replay_winner: one sphere or plane
     row, no scan; a miss needs none), the rest of the forward bounce and
     the reverse."""
-    return (forward_ops(work, 0, 0) + work["sphere"] * OPS["scan_sphere"]
+    return (forward_ops(work, 0, 0)
+            + work["sphere"] * (OPS["scan_sphere_reject"] + OPS["scan_sphere_hit"])
             + work["plane"] * OPS["scan_plane"] + reverse_ops(work))
 
 
@@ -694,6 +769,13 @@ def blockwise_parity(scenes, report):
         ("basic+box/mg --boxes", "basic+box", "mg", (320, 240), True, 4, True),
         ("proc500/mg", "proc500", "mg", (320, 180), False, 4, True),
         ("proc1000/mg", "proc1000", "mg", (160, 90), False, 4, True),
+        # the rejecting scan's edges (exact ties, grazing rays), also in the
+        # words form; past the 2048 staged rows (rows from device memory)
+        ("ties/mg --boxes", "ties", "mg", (320, 240), True, 4, True),
+        ("ties/mg --boxes one sample", "ties", "mg", (320, 240), True, 1, False),
+        ("grazing/mg", "grazing", "mg", (320, 240), False, 4, True),
+        ("grazing/mg one sample", "grazing", "mg", (320, 240), False, 1, False),
+        ("proc2100/mg one sample", "proc2100", "mg", (64, 36), False, 1, False),
         # the main paths' launches: one sample of the config-4 train step,
         # and one 4-sample chunk of the CLI's 1000-sphere frame
         ("proc500/mg train-step launch", "proc500", "mg", (1920, 1080), False, 1, False),
@@ -737,7 +819,7 @@ def blockwise_parity(scenes, report):
                else ""))
         check(torch.isfinite(got).all().item(), f"blockwise {label}: output not finite")
         check(torch.equal(got, want), f"blockwise {label}: kernel differs from its plain version")
-        if "vs_render_kernel_max_abs" in row and key in ("basic", "cornell"):
+        if "vs_render_kernel_max_abs" in row and key in ("basic", "cornell", "ties", "grazing"):
             check(row["vs_render_kernel_max_abs"] == 0.0,
                   f"blockwise {label}: differs from the render kernel at the same seeds")
         errs["blockwise_kernel"] = max(errs["blockwise_kernel"], row["max_abs"])
@@ -770,7 +852,7 @@ def blockwise_parity(scenes, report):
         want, l1 = BG.bw_grad_tile_plain(sp, pl, counts[:2], cam, seeds, cot, words,
                                          with_l1=True, **kw)
         work = live_work(sp[:counts[0], :10], pl[:counts[1], :10], cam, [11], [0], [center],
-                         size, 8, "reference", words=[words])
+                         size, 8, "reference", words=[words], pairs=False)
         torch.cuda.synchronize()
         outs = [(g, a, w_, l) for g, a, w_, l in zip(got, again, want, l1) if g.numel()]
         row = {
@@ -989,7 +1071,8 @@ def blockwise_timing(scenes, step, params, card, report):
                                                              words, **gkw), iters=1, windows=3)
     sp10, pl10 = sp[:ns, :10].contiguous(), pl[:npl, :10].contiguous()
     gs = profiling.sustained(lambda i: G.grad_tile(sp10, pl10, cam, seeds, cot, **gkw), iters=16)
-    g_work = live_work(sp10, pl10, cam, [11], [0], [False], size, 8, "reference", words=[words])
+    g_work = live_work(sp10, pl10, cam, [11], [0], [False], size, 8, "reference", words=[words],
+                       pairs=False)
     g_bound = bound(grad_bytes(g_work, n, ns, npl), grad_ops(g_work))
     grad = {"ms": gk["median"] * 1e3, "spread_ms": [gk["min"] * 1e3, gk["max"] * 1e3],
             "plain_ms": gp["median"] * 1e3, "grad_kernel_ms": gs["median"] * 1e3,
@@ -1041,7 +1124,8 @@ def blockwise_timing(scenes, step, params, card, report):
                                                  spp=1, words=True, size=m_size, max_bounces=8,
                                                  center_sample=(s == 0))[1])
     c4_work = live_work(sp10, pl10, m_cam, m_seeds.tolist(), [0] * 16,
-                        [True] + [False] * 15, m_size, 8, "reference", words=c4_words)
+                        [True] + [False] * 15, m_size, 8, "reference", words=c4_words,
+                        pairs=False)
     del c4_words
     grad["config4_step_sin2_one"] = c4_work["sin2_one"]
     grad["config4_step_refractions"] = c4_work["refractions"]
@@ -1082,7 +1166,9 @@ def blockwise_timing(scenes, step, params, card, report):
     log(f"[5] blockwise_kernel proc500 1920x1080 1 sample d8 (config-4 train-step launch): words "
         f"form {fwd['ms']:.4f} ms, serving form {fwd['serving_form_ms']:.4f} ms, bound "
         f"{fwd['bound_ms']:.4f} ms ({fwd['bound_by']}); live bounces {m_work['live']} of "
-        f"{m_n * 8} | {card}")
+        f"{m_n * 8}, warp slots {m_work['warp_live']}, sphere pairs with disc >= 0 "
+        f"{m_work['disc_pairs']} of {m_work['live'] * ns} (warp rows {m_work['disc_warp_rows']} "
+        f"of {m_work['warp_live'] // 32 * ns}) | {card}")
     log(f"[5] bw_grad_kernel proc500 320x180 1 sample d8: kernel {grad['ms_320x180']:.4f} ms "
         f"(per-sample kernel, which scans, on the same inputs {grad['grad_kernel_ms']:.4f} ms), "
         f"plain {grad['plain_ms']:.1f} ms, bound {grad['bound_ms_320x180']:.4f} ms | {card}")
@@ -1196,18 +1282,22 @@ def wf_rev_checked(tables, cam, seeds, size, depth, saved, cot_pix, label, repor
     return worst["max_abs"], plain_s
 
 
-def wf_work(tables, saved, per_bounce=False):
+def wf_work(tables, saved, rays0, per_bounce=False):
     """Live work of a recorded chunk, counted from its saved tables and
     winner words (the keys of live_work): rays, live bounces, misses,
-    sphere and plane hits, hits per material class, and `rows`: the distinct
-    winner rows of each bounce, summed over the bounces; with
-    ``per_bounce`` a list of one such dict per bounce."""
+    sphere and plane hits, hits per material class, ``disc_pairs`` (the
+    live (ray, sphere row) pairs with disc >= 0, disc_counts on the rays
+    entering each bounce: ``rays0``, the chunk's camera rays in ray order,
+    then the saved states) and `rows`: the distinct winner rows of each
+    bounce, summed over the bounces; with ``per_bounce`` a list of one such
+    dict per bounce."""
     import torch
     from rt_tpu_torch.ops.render import WORD_MISS, WORD_PLANE, WORD_ROW
 
     sp, pl, _, counts = tables
     n = saved[0][2].shape[0]
-    keys = ("live", "miss", "sphere", "plane", "lambert", "metal", "dielectric", "rows")
+    keys = ("live", "miss", "sphere", "plane", "lambert", "metal", "dielectric", "rows",
+            "disc_pairs")
     work = dict.fromkeys(keys, 0)
     work["rays"] = n
     each = []
@@ -1218,6 +1308,9 @@ def wf_work(tables, saved, per_bounce=False):
             each.append(work)
         live = (torch.ones(n, dtype=torch.bool, device=words.device) if state is None
                 else state[12] > 0)
+        o3, d3 = rays0 if state is None else ((state[0], state[1], state[2]),
+                                               (state[3], state[4], state[5]))
+        work["disc_pairs"] += disc_counts(sp[:counts[0]], o3, d3, live)[0]
         w = words.long()
         hit = live & ((w & WORD_MISS) == 0)
         ispl = hit & ((w & WORD_PLANE) != 0)
@@ -1231,6 +1324,34 @@ def wf_work(tables, saved, per_bounce=False):
                      ("lambert", hit & (cls != 1.0) & (cls != 2.0))):
             work[k] += int(m.sum())
     return each if per_bounce else work
+
+
+def chunk_rays(cam, size, seed, spp, depth, center):
+    """The camera rays of a sample chunk in ray order (sample-major, as the
+    wavefront kernel's bounce 0 makes them): (o3, d3)."""
+    import torch
+
+    per = [camera_rays(cam, size, seed, s * (2 + 4 * depth), center and s == 0)
+           for s in range(spp)]
+    return tuple(tuple(torch.cat([r[g][j] for r in per]) for j in range(3)) for g in range(2))
+
+
+def launch_disc_pairs(tables, cam, seed, size, depth, center):
+    """disc_pairs of one one-sample launch at counter base 0 (a record
+    kernel's), boxes included: the same paths traced as a one-sample
+    wavefront record chunk (its frame equals the blockwise kernel's), its
+    entering states saved, counted by wf_work."""
+    import torch
+    from rt_tpu_torch.ops import wavefront as WF
+
+    seeds = torch.tensor([seed], dtype=torch.int32, device=cam.device)
+    kw = dict(size=size, max_bounces=depth, center_sample=center, record=True)
+    sched, shrink = WF._schedule(depth, None, -1)
+    _, _, saved = WF._forward_chunk(
+        lambda b, st, ii, lim: WF.wf_bounce(*tables, cam, seeds, st, ii, lim, bounce=b, **kw),
+        size[0] * size[1], cam.device, max_bounces=depth, sched=sched, shrink_at=shrink,
+        cell_bits=2, record=True)
+    return wf_work(tables, saved, chunk_rays(cam, size, seed, 1, depth, center))["disc_pairs"]
 
 
 def wf_bounce_ms(tables, cam, seeds, size, n, depth, sched, shrink, reps=5):
@@ -1550,7 +1671,8 @@ def wavefront_timing(scenes, step, params, target, shape, card, report):
     per_bounce = wf_bounce_ms(tables, cam, seeds, size, n, depth, sched, shrink)
     f_ms = sum(v for k, v in df.items() if "wf_gen_kernel" in k or "wf_bounce_kernel" in k)
     r_ms = sum(v for k, v in dr.items() if "wf_rev_kernel" in k or "wf_rev_gen_kernel" in k)
-    work = wf_work(tables, saved)
+    rays0 = chunk_rays(cam, size, int(seeds[0]), spp, depth, True)
+    work = wf_work(tables, saved, rays0)
     tab = 64 * (ns + npl)
     live_in = work["live"] - work["rays"]  # rays entering bounces 1..7 alive
     f_bound = bound(depth * tab + 60 * work["rays"] + (56 + 56) * live_in,
@@ -1568,7 +1690,7 @@ def wavefront_timing(scenes, step, params, target, shape, card, report):
                     reverse_ops(work) + 70 * hits)
     # per bounce: device time, live rays entering it, lanes per ray, bound
     bounces = []
-    for b, w_b in enumerate(wf_work(tables, saved, per_bounce=True)):
+    for b, w_b in enumerate(wf_work(tables, saved, rays0, per_bounce=True)):
         live_b = w_b["live"]
         b_bytes = tab + (60 * w_b["rays"] if b == 0 else (56 + 56) * live_b)
         b_ops = forward_ops(dict(w_b, rays=w_b["rays"] if b == 0 else 0), ns, npl)
@@ -1705,6 +1827,25 @@ def tie_scene_toml() -> str:
         "planes = [ { material = 0, position = [0, 0, 0], normal = 'up' } ]",
         "spheres = [ " + ",\n  ".join(rows) + " ]",
         f"boxes = [ {box}, {box} ]",
+    ])
+
+
+def grazing_scene_toml() -> str:
+    """A scene whose rays graze spheres often (tests/test_torch_common.py
+    has the same): the camera 5 cm above the top of a radius-1000 ground
+    sphere, looking along it, and 40 small spheres resting on it."""
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    rows = ["{ material = %d, position = [%.4f, %.4f, %.4f], radius = %.4f }" % (i % 2, x, r, z, r)
+            for i, (x, z, r) in enumerate(zip(rng.uniform(-2, 2, 40), rng.uniform(-8, -1, 40),
+                                              rng.uniform(0.01, 0.06, 40)))]
+    rows.append("{ material = 1, position = [0, -1000, 0], radius = 1000 }")
+    return "\n".join([
+        "camera = { position = [0, 0.05, 3], direction = 'forward' }",
+        "materials = [ { type = 'lambert', albedo = 'gray' },",
+        "              { type = 'metal', albedo = 'white', roughness = 0.02 } ]",
+        "spheres = [ " + ",\n  ".join(rows) + " ]",
     ])
 
 
@@ -2104,6 +2245,8 @@ def records_timing(scenes, shape_a, card, report):
         p_s = profiling.sustained(lambda i: plain(*args, seeds, **kw), iters=1, windows=1,
                                   warmup_windows=0)
         work = record_work(kernel(*args, seeds, **kw)[1], args[:-1], blockwise)
+        work["disc_pairs"] = launch_disc_pairs(bw_tables(scenes[key], "mg", boxes), args[-1], 11,
+                                               size, 8, False)
         b_ms, b_by = record_bound(work, 8, (16, 16, 16) if blockwise else (10, 10, 12))
         rows[name] = {"ms": k_s["median"] * 1e3, "spread_ms": [k_s["min"] * 1e3, k_s["max"] * 1e3],
                       "plain_ms": p_s["median"] * 1e3, "bound_ms": b_ms, "bound_by": b_by,
@@ -2227,7 +2370,9 @@ def main() -> int:
         "proc2000": rt_tpu_torch.scene.make_procedural_scene(2000),
         "proc5000": rt_tpu_torch.scene.make_procedural_scene(5000),
         "ties": rt_tpu_torch.loads(tie_scene_toml()),
+        "grazing": rt_tpu_torch.loads(grazing_scene_toml()),
         "sky": rt_tpu_torch.loads(SKY_TOML),
+        "proc2100": rt_tpu_torch.scene.make_procedural_scene(2100),
     }
 
     def tile_args(scene, personality, size, include_boxes=False, seed=11):
@@ -2239,6 +2384,12 @@ def main() -> int:
         ("dielectric/sm", "dielectric", "sm", (800, 600), False),
         ("basic+box/mg --boxes", "basic+box", "mg", (800, 600), True),
         ("proc500/mg", "proc500", "mg", (320, 180), False),
+        # the rejecting scan's edges: exact ties, grazing rays
+        ("ties/mg --boxes", "ties", "mg", (320, 240), True),
+        ("grazing/mg", "grazing", "mg", (320, 240), False),
+        # one 4-spp launch of the config-4 frame (500 spheres, its width; half
+        # its height, for the plain version's time)
+        ("proc500/mg config-4 launch", "proc500", "mg", (1920, 540), False),
     ]
     max_err = 0.0
     report["parity"] = []
@@ -2257,7 +2408,7 @@ def main() -> int:
             "exact_share": (px == 0).float().mean().item(),
         }
         report["parity"].append(row)
-        log(f"[3] {label} {size[0]}x{size[1]} 4spp d8: max|d| {row['max_abs']:.3g} "
+        log(f"[3] render_kernel {label} {size[0]}x{size[1]} 4spp d8: max|d| {row['max_abs']:.3g} "
             f"mean|d| {row['mean_abs']:.3g} px>1e-3 {row['share_gt_1e-3']:.5f} "
             f"exact {row['exact_share']:.5f}")
         check(torch.isfinite(got).all().item(), f"{label}: kernel output not finite")
@@ -2359,6 +2510,28 @@ def main() -> int:
     b.update(bound_ms=r_bound[0], bound_by=r_bound[1], live_work=r_work)
     log(f"[5] render_kernel bound {r_bound[0]:.4f} ms ({r_bound[1]}); live bounces "
         f"{r_work['live']} of {r_work['rays'] * 8}, warp slots {r_work['warp_live']} | {card}")
+    # row 1 at its main-path shape: one 4-spp launch of the config-4 frame
+    # (500 spheres, 1920x1080; the frame's first chunk, sample 0 at the centre)
+    m_size = (1920, 1080)
+    m_args = tile_args(scenes["proc500"], "mg", m_size)
+    m_kw = dict(size=m_size, spp=4, max_bounces=8, center_sample=True)
+    m_s = profiling.sustained(lambda i: R.render_tile(*m_args, **m_kw), iters=4, windows=3)
+    m_work = live_work(m_args[0], m_args[1], m_args[3], [11] * 4,
+                       [s * (2 + 4 * 8) for s in range(4)], [True, False, False, False], m_size,
+                       8, "reference")
+    m_px = m_size[0] * m_size[1]
+    m_bound = bound(4 * (10 * (m_args[0].shape[0] + m_args[1].shape[0]) + 16 + 1 + 3 * m_px),
+                    forward_ops(m_work, m_args[0].shape[0], m_args[1].shape[0]))
+    b.update(config4_launch_ms=m_s["median"] * 1e3,
+             config4_launch_spread_ms=[m_s["min"] * 1e3, m_s["max"] * 1e3],
+             config4_launch_bound_ms=m_bound[0], config4_launch_bound_by=m_bound[1],
+             config4_launch_live_work=m_work)
+    log(f"[5] render_kernel proc500 1920x1080 4spp d8 (one launch of the config-4 frame): "
+        f"{b['config4_launch_ms']:.4f} ms, bound {m_bound[0]:.4f} ms ({m_bound[1]}); live "
+        f"bounces {m_work['live']} of {m_work['rays'] * 8}, warp slots {m_work['warp_live']}, "
+        f"sphere pairs with disc >= 0 {m_work['disc_pairs']} of "
+        f"{m_work['live'] * m_args[0].shape[0]} (warp rows {m_work['disc_warp_rows']} of "
+        f"{m_work['warp_live'] // 32 * m_args[0].shape[0]}) | {card}")
     g_rows = grad_timing(scenes, step_mse, step_c3, card, report)
     bw_rows = blockwise_timing(scenes, step_bw, params_bw, card, report)
     wf_rows = wavefront_timing(scenes, step_wf, params_wf, target_wf, wf_shape, card, report)
@@ -2374,11 +2547,14 @@ def main() -> int:
         "replaces": "rt_tpu/ops/pallas_render.py:171",
         "launches": launches + grad_launches["render_kernel"],
         "max_abs_err": max_err,
-        "ms": b["kernel_ms"],
+        "ms": b["config4_launch_ms"],
         "plain_ms": b["plain_ms"],
-        "bound_ms": b["bound_ms"],
-        "bound_by": b["bound_by"],
+        "bound_ms": b["config4_launch_bound_ms"],
+        "bound_by": b["config4_launch_bound_by"],
         "library_ms": None,
+        "shape": "proc500 1920x1080 4spp d8 (one launch of the config-4 frame)",
+        "plain_shape": "basic 800x600 4spp d8",
+        "ms_basic": b["kernel_ms"], "bound_ms_basic": b["bound_ms"],
     }]
     for name, replaces in (("mse_step_kernel", "rt_tpu/ops/pallas_grad.py:1249"),
                            ("grad_kernel", "rt_tpu/ops/pallas_grad.py:207")):

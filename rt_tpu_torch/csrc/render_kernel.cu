@@ -15,15 +15,23 @@
 // before the 8th bounce.  The only
 // device-memory traffic is the tables (read once per block, from L2) and
 // one float3 written per pixel, so the kernel is compute bound by orders
-// of magnitude.  The simple design follows from that:
+// of magnitude: by instruction issue in the scan.  The simple design
+// follows from that:
 //   * one thread per pixel (per frame); no tiles and no data movement
 //     beyond the output write;
-//   * the primitive tables (<= 640 rows, 25.6 KB for spheres and planes,
-//     30.7 KB with boxes) are copied into shared memory once per block.
-//     Every thread scans the same primitive index at the same time, so
-//     each shared-memory read is a warp-wide broadcast.  The TPU kernel
-//     baked the tables in as compile-time constants and recompiled per
-//     scene; this kernel is built once and takes any scene;
+//   * the scan reads compact sphere rows (cx, cy, cz, r * r), 16 bytes a
+//     row (<= 640 rows: 10 KB), and the plane and box tables, all copied
+//     into shared memory once per block; the sphere payload (albedo,
+//     reflectivity, roughness, class), which a bounce reads once for its
+//     winner, stays in device memory.  Every thread scans the same
+//     primitive index at the same time, so each shared-memory read is a
+//     warp-wide broadcast.  The TPU kernel baked the tables in as
+//     compile-time constants and recompiled per scene; this kernel is
+//     built once and takes any scene;
+//   * the sphere scan is trace.cuh's rejecting scan: per row the terms up
+//     to disc, and the square root, roots and tie rules only where disc
+//     >= 0, behind one branch per group of rows that a warp skips when
+//     none of its lanes needs it;
 //   * a ray that dies leaves the loop (`break`).  The TPU kernel instead
 //     skipped a bounce only when a whole tile was dead (>= 64 primitives);
 //     both are exact, because a dead ray changes no carried value.
@@ -44,7 +52,9 @@
 // bounce writes its draws, as the JAX kernel does.  The JAX kernel bakes
 // its tables and knows at compile time whether they hold a dielectric
 // (it computes the reflect bit only then); here the block finds out while
-// it copies the tables (__syncthreads_or).
+// it copies the tables (__syncthreads_or).  It copies the full 10- and
+// 12-float rows into shared memory and scans them with the table-row scan
+// (kGeoTable), not the rejecting scan.
 
 #include "trace.cuh"
 
@@ -61,12 +71,15 @@ __global__ void __launch_bounds__(kThreads) render_kernel(
     float* __restrict__ out, int width, int height, int frames,
     float inv_w, float inv_h, int spp, int max_bounces, int center_sample,
     int rng_sphere) {
-  extern __shared__ float smem[];
-  float* s_pl = smem;
-  float* s_sp = s_pl + n_planes * kPrimCols;
-  float* s_bx = s_sp + n_spheres * kPrimCols;
+  // compact sphere rows, then the plane and box rows
+  extern __shared__ float4 s_geo[];
+  float* s_pl = reinterpret_cast<float*>(s_geo + n_spheres);
+  float* s_bx = s_pl + n_planes * kPrimCols;
+  for (int i = threadIdx.x; i < n_spheres; i += blockDim.x) {
+    const float* q = spheres + i * kPrimCols;
+    s_geo[i] = make_float4(q[0], q[1], q[2], q[3] * q[3]);
+  }
   for (int i = threadIdx.x; i < n_planes * kPrimCols; i += blockDim.x) s_pl[i] = planes[i];
-  for (int i = threadIdx.x; i < n_spheres * kPrimCols; i += blockDim.x) s_sp[i] = spheres[i];
   for (int i = threadIdx.x; i < n_boxes * kBoxCols; i += blockDim.x) s_bx[i] = boxes[i];
   __syncthreads();
 
@@ -75,10 +88,10 @@ __global__ void __launch_bounds__(kThreads) render_kernel(
   if (gid >= n * frames) return;
   const int frame = gid / n;
   const int idx = gid - frame * n;  // flat pixel index within the frame
-  const Tables T{s_sp, n_spheres, s_pl, n_planes, s_bx, n_boxes};
+  const Tables T{spheres, n_spheres, s_pl, n_planes, s_bx, n_boxes};
   float acc[3];
-  trace_pixel<kPrimCols, kBoxCols>(
-      T, cam, static_cast<uint32_t>(idx), static_cast<float>(idx % width),
+  trace_pixel<kPrimCols, kBoxCols, kGeoCompact>(
+      T, s_geo, cam, static_cast<uint32_t>(idx), static_cast<float>(idx % width),
       static_cast<float>(idx / width), static_cast<uint32_t>(seeds[frame]), inv_w, inv_h, spp,
       max_bounces, center_sample, rng_sphere, acc);
 
@@ -132,9 +145,9 @@ extern "C" int rt_render_forward(
     int spp, int max_bounces, int center_sample, int rng_sphere, void* stream) {
   const int total = width * height * frames;
   const int blocks = (total + kThreads - 1) / kThreads;
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(n_spheres + n_planes) * kPrimCols +
-                       static_cast<size_t>(n_boxes) * kBoxCols);
+  const size_t smem = sizeof(float4) * static_cast<size_t>(n_spheres) +
+                      sizeof(float) * (static_cast<size_t>(n_planes) * kPrimCols +
+                                       static_cast<size_t>(n_boxes) * kBoxCols);
   render_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       spheres, n_spheres, planes, n_planes, boxes, n_boxes, cam, seeds, out,
       width, height, frames, inv_w, inv_h, spp, max_bounces, center_sample,

@@ -1,7 +1,9 @@
 // Per-ray forward path tracing, shared by the three forward kernels:
-// render_kernel.cu (tables in shared memory, rows of 10 and 12 floats),
-// blockwise_kernel.cu and wavefront_kernel.cu (tables in device memory,
-// rows of 16 floats).  The TPU kernels they replace
+// render_kernel.cu (tables of rows of 10 and 12 floats; the scan's sphere
+// rows compact in shared memory), blockwise_kernel.cu and
+// wavefront_kernel.cu (tables in device memory, rows of 16 floats; the
+// blockwise kernel stages compact sphere rows in shared memory where they
+// fit).  The TPU kernels they replace
 // (pallas_render._make_kernel, pallas_blockwise._make_blockwise_kernel and
 // pallas_wavefront._make_wf_kernel) trace the same function: the same scan
 // order and tie rules, the same draws, the same bounce math
@@ -35,6 +37,24 @@
 //     ray to its hit point and new direction, as _bounce_once does (only
 //     the wavefront state keeps them, and nothing reads a dead ray's).
 //
+// The rejecting scan (template argument kGeo of bounce_once and
+// trace_pixel; the render kernel and both forms of the blockwise kernel,
+// queue 2 rows 1 and 5): the sphere rows come as compact float4 rows
+// (cx, cy, cz, rr) in shared memory, rr the float32 product r * r (the
+// value every row test computes), or as the float4 heads (cx, cy, cz, r)
+// of the 16-float device-memory rows (one 128-bit load per row; rr
+// squared per row as before).  Each row computes ocx .. disc with the
+// serial scan's expressions in its order, and only where disc >= 0 the
+// square root, the roots, the select and the tie rules: a row with disc
+// < 0 (or NaN) fails `disc >= 0` in the serial scan whatever its roots, so
+// skipping them changes no winner, best or kind.  Where disc >= 0,
+// sqrtf(disc) is sqrtf(fmaxf(disc, 0)): disc is never -0 (a square minus
+// a number is -0 only for -0 - +0), so nothing else changes either.  One
+// branch per group of rows lets a warp skip the root work when none of its
+// lanes needs it (scan_spheres_rejecting).
+// The record forms and the wavefront kernel keep the table-row scan
+// (kGeoTable), which compiles to the code it had before.
+//
 // The record form of bounce_once (template argument kRec, used by
 // record_pixel for the two record kernels) also returns the bounce's
 // replay record, as the JAX record kernels write it
@@ -67,6 +87,12 @@ enum Kind { kNone = 0, kPlane = 1, kSphere = 2, kBox = 3 };
 
 // The record forms of bounce_once (see the note above).
 enum RecordForm { kRecNone = 0, kRecUnrolled = 1, kRecBlockwise = 2 };
+
+// Where bounce_once's sphere scan reads its rows (see the note above):
+// the tables' rows (kGeoTable), compact (cx, cy, cz, rr) rows
+// (kGeoCompact), or the (cx, cy, cz, r) heads of 16-float rows
+// (kGeoHead16).
+enum GeoForm { kGeoTable = 0, kGeoCompact = 1, kGeoHead16 = 2 };
 
 // One bounce's replay record.
 struct Record {
@@ -241,6 +267,75 @@ __device__ __forceinline__ void closest_hit(const Tables& T, float ox, float oy,
   }
 }
 
+// The rows a rejecting scan tests before its one branch (see
+// scan_spheres_rejecting).
+constexpr int kRejectGroup = 16;
+
+// One sphere row of the rejecting scan up to its reject test: bq and disc
+// with the serial scan's expressions, in its order (rr = r * r).
+__device__ __forceinline__ void row_disc(const float4& g, float rr, float ox, float oy, float oz,
+                                         float dx, float dy, float dz, float& bq, float& disc) {
+  const float ocx = ox - g.x, ocy = oy - g.y, ocz = oz - g.z;
+  bq = ocx * dx + ocy * dy + ocz * dz;
+  const float c0 = ocx * ocx + ocy * ocy + ocz * ocz - rr;
+  disc = bq * bq - c0;
+}
+
+// The rest of the row test, for a row with disc >= 0: the roots, the
+// select and the tie rules, as the serial scan.
+__device__ __forceinline__ void row_root(float bq, float disc, int row, float& best, int& kind,
+                                         int& win) {
+  const float sq = sqrtf(disc);
+  const float t0 = -bq - sq;
+  const float t1 = -bq + sq;
+  const float t = t0 >= kMinHit ? t0 : t1;
+  if (t >= kMinHit && (t < best || (t == best && kind == kPlane))) {
+    best = t; kind = kSphere; win = row;
+  }
+}
+
+// The rejecting scan over n sphere rows of `geo` (kGeoCompact or
+// kGeoHead16; see the note above): the serial scan's winner over them,
+// updating best, kind and win as the table-row loop of bounce_once does.
+// Rows go in groups of kRejectGroup: each row's terms up to disc, then one
+// branch into the group's root work, in which each row with disc >= 0
+// runs row_root, in row order.  The branch is a warp vote: the warp takes
+// it when some lane has such a row (a lane with one always takes it; a
+// lane without one runs no row_root), so it is uniform and needs no
+// reconvergence barrier; most groups skip it (the root work is rare), and
+// the rows' loads of a group go out together.  chip_ab.py's scan_group_*
+// and scan_no_vote variants measured the group size and the vote.
+template <int kGeo>
+__device__ __forceinline__ void scan_spheres_rejecting(const float4* __restrict__ geo, int n,
+                                                       float ox, float oy, float oz, float dx,
+                                                       float dy, float dz, float& best,
+                                                       int& kind, int& win) {
+  constexpr int kStep = kGeo == kGeoHead16 ? 4 : 1;  // float4s per row
+  int i = 0;
+  for (; i + kRejectGroup <= n; i += kRejectGroup) {
+    float bq[kRejectGroup], disc[kRejectGroup];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < kRejectGroup; ++k) {
+      const float4 g = geo[(i + k) * kStep];
+      row_disc(g, kGeo == kGeoHead16 ? g.w * g.w : g.w, ox, oy, oz, dx, dy, dz, bq[k], disc[k]);
+      any |= disc[k] >= 0.0f;
+    }
+    if (__any_sync(__activemask(), any)) {
+#pragma unroll
+      for (int k = 0; k < kRejectGroup; ++k) {
+        if (disc[k] >= 0.0f) row_root(bq[k], disc[k], i + k, best, kind, win);
+      }
+    }
+  }
+  for (; i < n; ++i) {
+    const float4 g = geo[i * kStep];
+    float bq, disc;
+    row_disc(g, kGeo == kGeoHead16 ? g.w * g.w : g.w, ox, oy, oz, dx, dy, dz, bq, disc);
+    if (disc >= 0.0f) row_root(bq, disc, i, best, kind, win);
+  }
+}
+
 // The rest of one bounce of one live ray (pallas_blockwise._bounce_once
 // after its scan), given the scan's result over every row: on a miss the
 // sky is added to rad and the path ends; on a hit the ray moves to the hit
@@ -382,12 +477,16 @@ __device__ __forceinline__ bool finish_bounce(const Tables& T, uint32_t pix, uin
 // One bounce of one live ray (pallas_blockwise._bounce_once): the closest
 // hit over every row in index order (the serial scan: closest_hit's rule
 // with first 0 and step 1, written out; see its note), then
-// finish_bounce.
-template <int kPrimStride, int kBoxStride, int kRec = kRecNone>
+// finish_bounce.  kGeo other than kGeoTable scans the spheres with
+// scan_spheres_rejecting over `geo`, the same rows as T.spheres (kRecNone
+// only).
+template <int kPrimStride, int kBoxStride, int kRec = kRecNone, int kGeo = kGeoTable>
 __device__ __forceinline__ bool bounce_once(const Tables& T, uint32_t pix, uint32_t seed,
                                             uint32_t c, int rng_sphere, Ray& r, float rad[3],
                                             int32_t& word, Record* rec = nullptr,
-                                            bool has_die = true) {
+                                            bool has_die = true,
+                                            const float4* __restrict__ geo = nullptr) {
+  static_assert(kGeo == kGeoTable || kRec == kRecNone, "the record forms scan the table rows");
   const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
   // ---- closest hit ----
   float best = kBig;
@@ -402,20 +501,24 @@ __device__ __forceinline__ bool bounce_once(const Tables& T, uint32_t pix, uint3
       if (t >= kMinHit && t < best) { best = t; kind = kPlane; win = p; }
     }
   }
-  for (int i = 0; i < T.n_spheres; ++i) {
-    const float* q = T.spheres + i * kPrimStride;
-    const float ocx = ox - q[0], ocy = oy - q[1], ocz = oz - q[2];
-    const float bq = ocx * dx + ocy * dy + ocz * dz;
-    const float c0 = ocx * ocx + ocy * ocy + ocz * ocz - q[3] * q[3];
-    const float disc = bq * bq - c0;
-    const float sq = sqrtf(fmaxf(disc, 0.0f));
-    const float t0 = -bq - sq;
-    const float t1 = -bq + sq;
-    const float t = t0 >= kMinHit ? t0 : t1;
-    if (disc >= 0.0f && t >= kMinHit && (t < best || (t == best && kind == kPlane))) {
-      best = t; kind = kSphere; win = i;
-      if constexpr (kRec != kRecNone) root = t0 >= kMinHit;
+  if constexpr (kGeo == kGeoTable) {
+    for (int i = 0; i < T.n_spheres; ++i) {
+      const float* q = T.spheres + i * kPrimStride;
+      const float ocx = ox - q[0], ocy = oy - q[1], ocz = oz - q[2];
+      const float bq = ocx * dx + ocy * dy + ocz * dz;
+      const float c0 = ocx * ocx + ocy * ocy + ocz * ocz - q[3] * q[3];
+      const float disc = bq * bq - c0;
+      const float sq = sqrtf(fmaxf(disc, 0.0f));
+      const float t0 = -bq - sq;
+      const float t1 = -bq + sq;
+      const float t = t0 >= kMinHit ? t0 : t1;
+      if (disc >= 0.0f && t >= kMinHit && (t < best || (t == best && kind == kPlane))) {
+        best = t; kind = kSphere; win = i;
+        if constexpr (kRec != kRecNone) root = t0 >= kMinHit;
+      }
     }
+  } else {
+    scan_spheres_rejecting<kGeo>(geo, T.n_spheres, ox, oy, oz, dx, dy, dz, best, kind, win);
   }
   if (T.n_boxes > 0) {
     const float ivx = 1.0f / (fabsf(dx) > 1e-12f ? dx : 1e-12f);
@@ -438,16 +541,18 @@ __device__ __forceinline__ bool bounce_once(const Tables& T, uint32_t pix, uint3
 }
 
 // Sum of pre-gamma radiance over `spp` samples of pixel (px, py), flat
-// index `pix`, into acc[0..2].  The words form (kWords, with spp = 1: the
-// blockwise training step's forward launches) also writes the sample's
-// winner word of bounce b at words[b * n + pix], and the miss word for
-// every bounce after the path has ended; the blockwise gradient kernel
-// replays these winners instead of scanning again.
-template <int kPrimStride, int kBoxStride, bool kWords = false>
+// index `pix`, into acc[0..2], the spheres scanned by
+// scan_spheres_rejecting over `geo` (kGeo).  The words form (kWords, with
+// spp = 1: the blockwise training step's forward launches) also writes
+// the sample's winner word of bounce b at words[b * n + pix], and the miss
+// word for every bounce after the path has ended; the blockwise gradient
+// kernel replays these winners instead of scanning again.
+template <int kPrimStride, int kBoxStride, int kGeo, bool kWords = false>
 __device__ __forceinline__ void trace_pixel(
-    const Tables& T, const float* __restrict__ cam, uint32_t pix, float px, float py,
-    uint32_t seed, float inv_w, float inv_h, int spp, int max_bounces, int center_sample,
-    int rng_sphere, float acc[3], int32_t* __restrict__ words = nullptr, int n = 0) {
+    const Tables& T, const float4* __restrict__ geo, const float* __restrict__ cam,
+    uint32_t pix, float px, float py, uint32_t seed, float inv_w, float inv_h, int spp,
+    int max_bounces, int center_sample, int rng_sphere, float acc[3],
+    int32_t* __restrict__ words = nullptr, int n = 0) {
   const uint32_t per_sample = 2u + 4u * static_cast<uint32_t>(max_bounces);
   acc[0] = 0.0f;
   acc[1] = 0.0f;
@@ -463,8 +568,8 @@ __device__ __forceinline__ void trace_pixel(
     int32_t word;
     for (int b = 0; b < max_bounces; ++b) {
       const uint32_t c = base + 2u + 4u * static_cast<uint32_t>(b);
-      const bool alive = bounce_once<kPrimStride, kBoxStride>(T, pix, seed, c, rng_sphere, r,
-                                                              acc, word);
+      const bool alive = bounce_once<kPrimStride, kBoxStride, kRecNone, kGeo>(
+          T, pix, seed, c, rng_sphere, r, acc, word, nullptr, true, geo);
       if constexpr (kWords) words[static_cast<int64_t>(b) * n + pix] = word;
       if (!alive) {
         if constexpr (kWords) {

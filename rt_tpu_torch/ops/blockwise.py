@@ -2,10 +2,10 @@
 of ``rt_tpu.ops.pallas_blockwise``'s ``render_forward_blockwise``).
 
 The kernel (``csrc/blockwise_kernel.cu``) traces one pixel per thread as
-the render kernel does, reading the tables from device memory instead of
-shared memory, so scenes past the render kernel's 640 primitives render
-too; its source comment says what bounds it and why the tables stay in
-device memory.  Beside it:
+the render kernel does, reading the tables from device memory (the
+sphere scan from compact rows staged in shared memory up to 2048 spheres),
+so scenes past the render kernel's 640 primitives render too; its source
+comment says what bounds it and where the rows live.  Beside it:
 
 * :func:`render_blockwise_tile_plain` — the same function in plain
   PyTorch.  The JAX blockwise kernel traces exactly the unrolled kernel's
@@ -187,6 +187,8 @@ def render_blockwise_tile(spheres, planes, boxes, counts, cam, seeds, *, size, s
     w, h = size
     ns, npl, nb = counts
     _check_tables(fn, (spheres, planes, boxes), counts, dev)
+    if spheres.data_ptr() % 16:
+        raise ValueError(f"{fn}: the sphere table must be 16-byte aligned (float4 rows)")
     _check(fn, "cam", cam, torch.float32, (16,), dev)
     _check(fn, "seeds", seeds, torch.int32, (1,), dev)
     if w < 1 or h < 1 or w * h * 3 >= 2**31:

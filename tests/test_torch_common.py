@@ -134,6 +134,24 @@ def tie_scene_toml() -> str:
     ])
 
 
+def grazing_scene_toml() -> str:
+    """A scene whose rays graze spheres often: the camera 5 cm above the
+    top of a radius-1000 ground sphere, looking along it, and 40 small
+    spheres resting on it (lambert and metal), so that the rows near the
+    horizon and the spheres' silhouettes have disc near 0."""
+    rng = np.random.default_rng(13)
+    rows = ["{ material = %d, position = [%.4f, %.4f, %.4f], radius = %.4f }" % (i % 2, x, r, z, r)
+            for i, (x, z, r) in enumerate(zip(rng.uniform(-2, 2, 40), rng.uniform(-8, -1, 40),
+                                              rng.uniform(0.01, 0.06, 40)))]
+    rows.append("{ material = 1, position = [0, -1000, 0], radius = 1000 }")
+    return "\n".join([
+        "camera = { position = [0, 0.05, 3], direction = 'forward' }",
+        "materials = [ { type = 'lambert', albedo = 'gray' },",
+        "              { type = 'metal', albedo = 'white', roughness = 0.02 } ]",
+        "spheres = [ " + ",\n  ".join(rows) + " ]",
+    ])
+
+
 # most camera rays miss: few rays live after bounce 0
 SKY_TOML = """
 camera = { position = [0, 1, 3], direction = 'forward' }

@@ -17,7 +17,8 @@ import rt_tpu_torch
 from rt_tpu_torch import diff
 from rt_tpu_torch.ops import grad as tg
 from rt_tpu_torch.ops import render as tr
-from test_torch_common import BOX_TOML, PLANES_TOML, SCENES, assert_frames_close
+from test_torch_common import (BOX_TOML, PLANES_TOML, SCENES, assert_frames_close,
+                               grazing_scene_toml, tie_scene_toml)
 
 pytestmark = pytest.mark.cuda
 
@@ -245,6 +246,50 @@ def test_blockwise_kernel_matches_plain(cuda, name, personality, include_boxes, 
     # the render kernel's per-pixel code (csrc/trace.cuh) with --fmad=false:
     # bit for bit, as the render kernel
     assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("name,include_boxes", [("ties", True), ("grazing", False),
+                                                ("proc2100", False)])
+def test_rejecting_scan_kernels_match_plain(cuda, name, include_boxes):
+    """The render kernel and both forms of the blockwise kernel run the
+    rejecting scan (csrc/trace.cuh scan_spheres_rejecting): on a tie-heavy
+    scene (duplicated rows, a sphere on a plane, equal boxes), a grazing
+    one (a camera along a radius-1000 sphere, small spheres on it) and past
+    the 2048 rows the blockwise kernel stages in shared memory (its rows
+    read from device memory), each equals its plain version bit for bit,
+    frame and winner words."""
+    from rt_tpu_torch.ops import blockwise as tb
+
+    scene = {"ties": lambda: rt_tpu_torch.loads(tie_scene_toml()),
+             "grazing": lambda: rt_tpu_torch.loads(grazing_scene_toml()),
+             "proc2100": lambda: rt_tpu_torch.scene.make_procedural_scene(2100)}[name]()
+    size = (96, 64) if name != "proc2100" else (32, 24)
+    cam = torch.from_numpy(tr._pack_camera(scene.camera, size)).to(cuda)
+    seeds = torch.tensor([23], dtype=torch.int32, device=cuda)
+    kw = dict(size=size, max_bounces=8 if name != "proc2100" else 3)
+    sp, pl, bx, counts = _bw_tables(cuda, scene, "mg", include_boxes)
+    got = tb.render_blockwise_tile(sp, pl, bx, counts, cam, seeds, spp=3, center_sample=True,
+                                   **kw)
+    want = tb.render_blockwise_tile_plain(sp, pl, bx, counts, cam, seeds, spp=3,
+                                          center_sample=True, **kw)
+    img, words = tb.render_blockwise_tile(sp, pl, bx, counts, cam, seeds, spp=1, words=True,
+                                          center_sample=False, **kw)
+    img_p, words_p = tb.render_blockwise_tile_plain(sp, pl, bx, counts, cam, seeds, spp=1,
+                                                    words=True, center_sample=False, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (got - want).abs().max().item()
+    assert torch.equal(img, img_p) and torch.equal(words, words_p)
+    if sum(counts) <= tr.MAX_UNROLL_PRIMS:
+        s_cols, p_cols = tr._flatten_primitives(scene, "mg")
+        b_cols = (tr._flatten_boxes(scene, "mg") if include_boxes
+                  else np.zeros((12, 0), np.float32))
+        args = [torch.from_numpy(np.ascontiguousarray(c.T)).to(cuda)
+                for c in (s_cols, p_cols, b_cols)]
+        r_got = tr.render_tile(*args, cam, seeds, spp=3, center_sample=True, **kw)
+        r_want = tr.render_tile_plain(*args, cam, seeds, spp=3, center_sample=True, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(r_got, r_want), (r_got - r_want).abs().max().item()
+        assert torch.equal(r_got[0], got)
 
 
 @pytest.mark.parametrize("name,personality,center", [
