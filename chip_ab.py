@@ -6,7 +6,7 @@ CUDA card.
     python3 chip_ab.py --tree parent=OTHER_CHECKOUT/rt_tpu_torch/csrc \
         [--tree NAME=CSRC_DIR ...] [--ablate ABLATION=TREE ...] \
         [--package parent=OTHER_CHECKOUT ...] [--only TEXT ...] [--sass DIR] \
-        [--windows 7] [--out ab.json]
+        [--smoke NAME=CHECKOUT[+ABLATION] ...] [--windows 7] [--out ab.json]
 
 Kernels.  Each tree is a ``csrc`` directory holding ``render_kernel.cu``,
 ``blockwise_kernel.cu``, ``grad_kernel.cu``, ``bw_grad_kernel.cu``,
@@ -23,7 +23,9 @@ the cases that need the new interfaces skip such a tree, and
 each wavefront launch instead.  This tree's own
 ``csrc`` is always the first, as ``this``.  ``--ablate NAME=TREE`` adds a
 tree ``TREE-NAME`` made from a copy of TREE's ``csrc`` with the text edits
-of ``ABLATIONS[NAME]`` (each edit must match as often as it says):
+of ``ABLATIONS[NAME]`` (each edit must match as often as it says, or
+one of the counts it names: the wavefront reverse's edits match the
+parent's per-ray atomics or this tree's per-warp sums):
 ablation builds exist to split a kernel's time between its parts or to
 try a variant, may give wrong results and are never kept.
 
@@ -63,12 +65,14 @@ the blockwise gradient kernel on 500 spheres at 320x180 and at 1920x1080
 (one sample, along its forward launch's words); the wavefront kernel on
 the config-5 slice's 2-spp chunk, its bounce-0 launch and its bounces 1-7
 (each launch on a copy of the table it entered, with its limit), and the
-same chunk's eight reverse launches (``wf_rev``, bounces 7 to 0, into one
-set of float64 gradient tables); the unrolled record kernel at the
-headline shape (basic.toml 800x600, one sample: a launch of the headline
-records step); the blockwise record kernel on the box scene (660
-spheres, 24 boxes, 960x540, one sample); all at depth 8; and the FMA
-probe at k = 4096.
+same chunk's reverse launches (``wf_rev``, into one set of float64
+gradient tables): its bounce-0 launch (the gen kernel, on the cotangents
+that the plain reverse of bounces 7-1 leaves) and its bounces 7-1; the
+unrolled record kernel at the headline shape (basic.toml 800x600, one
+sample: a launch of the headline records step); the blockwise record
+kernel on the box scene (660 spheres, 24 boxes, 960x540, one sample) and
+on 2100 spheres and 24 boxes (its rows from device memory); all at depth
+8; and the FMA probe at k = 4096.
 
 Main paths.  ``--package NAME=ROOT`` loads another checkout's
 ``ROOT/rt_tpu_torch`` beside this one (as the module
@@ -81,10 +85,17 @@ step (dielectric.toml, sm, 64 spp), ``make_render_step`` on basic.toml
 800x600 4 spp and at config 4's serving shape (500 spheres 1920x1080 16
 spp), the config-4 train step (``train.make_kernel_train_step``, Adam on
 the albedo), the 1000-sphere frame (``render_forward_blockwise``, 1920x1080
-8 spp), and on the config-5 slice the wavefront and blockwise frames
-and the wavefront train step; and, per package, the device ms of each
+8 spp), on the config-5 slice the wavefront and blockwise frames and
+the wavefront train step, and the box-scene records step
+(``records_loss_and_grad``, 660 spheres + 24 boxes, 960x540, 2 spp); and,
+per package, the device ms of each
 launch of a config-5 2-spp record chunk (events around each launch, the
 stream held while the host queues it), whose bounces 1-7 sum is printed.
+
+Scripts.  ``--smoke NAME=CHECKOUT[+ABLATION]`` runs a checkout's whole
+``chip_smoke.py`` from a copy (its ``csrc`` ablated, and its checks then
+logged instead of raised) and reads the device ms per kernel of its
+config-5 reverse chunk: the same launches timed inside another script.
 
 The last line of standard output is one JSON object with every number;
 the exit code is 1 if a tree that is not an ablation disagrees with this
@@ -102,6 +113,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -150,6 +162,32 @@ _PER_ROW_SCAN = """#pragma unroll 4
     }
   }
 """
+_REC_NO_WRITES = [
+    ("trace.cuh", r"  P\.jitter\[pix\] = jx;\n  P\.jitter\[n \+ pix\] = jy;\n", "", 1),
+    ("trace.cuh", r"    P\.kind\[o\] = rec\.kind;\n.*?    P\.coin\[o\] = rec\.coin;\n",
+     "    if ((rec.kind ^ rec.idx ^ rec.bits) == 0x7fffffff && rec.ux + rec.uy + rec.uz + rec.coin "
+     f"== {_NEVER}) P.kind[o] = rec.kind;\n", 1),
+]
+_PRIM_GRAD_KEPT = ("if (g.key >= 0 && g.g[0] + g.g[1] + g.g[2] + g.g[3] + g.g[4] + g.g[5] + g.g[6] "
+                   f"+ g.g[7] + g.g[8] == {_NEVER}) A.sg[0] = g.g[0];")
+_CAM_KEPT = f"for (int i = 0; i < kCam; ++i) if (cam_acc[i] == {_NEVER}) A.cg[i] = cam_acc[i];"
+# The wavefront reverse's edits match its first form (one float64 atomic
+# per slot per ray, the camera by block_sum trees) or its per-warp form,
+# whichever the tree holds.
+_WF_REV_NO_ATOMICS = [
+    ("wf_grad_kernel.cu",
+     r"add_prim_grad\(bounce_adjoint<kCols>\((.*?)\),\s*A\.sg, A\.pg, A\.n_spheres, "
+     r"A\.n_planes\);", r"const PrimGrad g = bounce_adjoint<kCols>(\1); " + _PRIM_GRAD_KEPT,
+     (0, 1)),
+    ("wf_grad_kernel.cu", r"warp_add_prim_grad<true>\(g, A\.sg, A\.pg, A\.n_spheres, A\.n_planes\);",
+     _PRIM_GRAD_KEPT, (0, 2)),
+]
+_WF_REV_NO_CAM = [
+    ("wf_grad_kernel.cu",
+     r"  for \(int i = 0; i < kCam; \+\+i\) \{\n    const float c = block_sum\(red, "
+     r"cam_acc\[i\]\);\n.*?\n  \}\n", f"  {_CAM_KEPT}\n", (0, 1)),
+    ("wf_grad_kernel.cu", r"block_add_cam\(red, cam_acc, A\.cg\);", _CAM_KEPT, (0, 1)),
+]
 ABLATIONS = {
     # the per-primitive sums of the mono and per-sample kernels (the warp
     # aggregation and the slot adds) removed
@@ -185,10 +223,7 @@ ABLATIONS = {
     # the blockwise gradient kernel's camera sums (warp, block and the
     # float64 atomics) removed
     "bw_no_cam_sums": [
-        ("bw_grad_kernel.cu",
-         r"const int lane = threadIdx\.x & 31, warp = threadIdx\.x >> 5;.*?"
-         r"atomicAdd\(A\.cg \+ threadIdx\.x, static_cast<double>\(t\)\);\s*\}",
-         f"for (int i = 0; i < kCam; ++i) if (cam_acc[i] == {_NEVER}) A.cg[i] = cam_acc[i];", 1),
+        ("bw_grad_kernel.cu", r"block_add_cam\(red, cam_acc, A\.cg\);", _CAM_KEPT, 1),
     ],
     # the blockwise gradient kernel without its launch bound (ptxas picks
     # the registers)
@@ -217,22 +252,53 @@ ABLATIONS = {
     # divergent branch, with its reconvergence barrier)
     "scan_no_vote": [("trace.cuh", r"if \(__any_sync\(__activemask\(\), any\)\) \{", "if (any) {", 1)],
 
-    # the blockwise kernel's rows read from device memory at every size:
-    # what staging them in shared memory buys
-    "bw_no_stage": [("blockwise_kernel.cu", r"if \(n_spheres <= kStageRows\) \{", "if (false) {",
-                     1)],
+    # the blockwise and blockwise record kernels' rows read from device
+    # memory at every size: what staging them in shared memory buys
+    "bw_no_stage": [("blockwise_kernel.cu", r"bool staged\(int n_spheres\) \{ return n_spheres <= "
+                     r"kStageRows; \}", "bool staged(int n_spheres) { return false; }", 1)],
+    # the record kernels' seven record stores per bounce and their jitter
+    # stores removed (the radiance still written), each value kept alive
+    "rec_no_writes": _REC_NO_WRITES,
+    # the record form's table-row scan without its root work (sqrtf, the
+    # roots and the select): t0 = t = -bq
+    "rec_no_scan_root": [
+        ("trace.cuh", r"      const float sq = sqrtf\(fmaxf\(disc, 0\.0f\)\);\n"
+         r"      const float t0 = -bq - sq;\n      const float t1 = -bq \+ sq;\n"
+         r"      const float t = t0 >= kMinHit \? t0 : t1;",
+         "      const float t0 = -bq;\n      const float t = t0;", 1),
+    ],
+    # the wavefront reverse's per-row sums removed (the per-ray float64
+    # atomics, or the per-warp sums and their leaders' atomics), the
+    # PrimGrad kept alive
+    "wf_rev_no_atomics": _WF_REV_NO_ATOMICS,
+    # the gen launch's camera sums (block_sum trees or shuffles, and their
+    # float64 atomics) removed
+    "wf_rev_no_cam": _WF_REV_NO_CAM,
+    "wf_rev_no_atomics_cam": _WF_REV_NO_ATOMICS + _WF_REV_NO_CAM,
+    # the later reverse launches' cotangents read and written at the ray's
+    # slot in the sorted table instead of its id: coalesced, wrong; what the
+    # scattered cot[id] accesses cost
+    "wf_rev_cot_coalesced": [("wf_grad_kernel.cu", r"float\* cot = A\.cot \+ id;",
+                              "float* cot = A.cot + j;", 1)],
 }
 
 
 def ablate(src: Path, dst: Path, edits) -> None:
+    """A copy of ``src`` at ``dst`` with ``edits`` applied; an edit's count
+    is how often it must match, or a tuple of the counts it may match (an
+    edit for one form of a kernel), and the copy must differ from src."""
     shutil.copytree(src, dst)
+    changed = 0
     for name, pattern, repl, count in edits:
         path = dst / name
         text, n = re.subn(pattern, repl, path.read_text(), flags=re.S)
-        if n != count:
+        if n not in (count if isinstance(count, tuple) else (count,)):
             raise RuntimeError(f"ablation edit {pattern!r} matched {n} times in {path}, "
                                f"expected {count}")
+        changed += n
         path.write_text(text)
+    if not changed:
+        raise RuntimeError(f"no ablation edit matched in {dst}")
 
 
 def build(csrc: Path, name: str, out_dir: Path, nvcc: str, flags) -> tuple[Path, list[str]]:
@@ -405,23 +471,32 @@ def kernel_cases(trees, fns, windows, result, ablations, card, only=()):
                                   .astype(np.float32)).to(dev) * (2.0 / (3 * wf_n))
     rkw = dict(size=wf_size, max_bounces=wf_depth, center_sample=True)
 
-    def wf_rev_chunk():
-        """(sg, pg, cg) of the chunk's reverse, the launches adding into
-        one set of tables as the pipeline's do."""
-        cot = torch.zeros((9, wf_n), device=dev)
+    # the cotangents that reach bounce 0: those left by the plain reverse
+    # of bounces 7..1 (the gen launch reads them and writes none)
+    wf_cot0 = torch.zeros((9, wf_n), device=dev)
+    for b in reversed(range(1, wf_depth)):
+        WG.wf_rev_plain(wf_sp, wf_pl, wf_counts[:2], wf_cam, seeds, *saved[b], wf_cot0,
+                        wf_cot_pix, bounce=b, **rkw)
+
+    def wf_rev_chunk(bounces):
+        """(sg, pg, cg) of the chunk's reverse launches ``bounces`` (from
+        the last down), adding into one set of tables as the pipeline's do;
+        bounces 7..1 start from zero cotangents, bounce 0 alone from
+        ``wf_cot0``."""
+        cot = torch.zeros((9, wf_n), device=dev) if bounces[-1] > 0 else wf_cot0
         out = tuple(torch.zeros(s, dtype=torch.float64, device=dev)
                     for s in ((9, wf_counts[0]), (5, wf_counts[1]), (16,)))
-        for b in reversed(range(wf_depth)):
+        for b in bounces:
             st, ii, ww, lim = saved[b]
             WG.wf_rev(wf_sp, wf_pl, wf_counts[:2], wf_cam, seeds, st, ii, ww, lim, cot,
                       wf_cot_pix, bounce=b, out=out, **rkw)
         return out
 
-    def wf_rev_chunk_plain(with_l1):
+    def wf_rev_chunk_plain(bounces, with_l1):
         """The same through the plain version: ((sg, pg, cg), their L1s)."""
-        cot = torch.zeros((9, wf_n), device=dev)
+        cot = torch.zeros((9, wf_n), device=dev) if bounces[-1] > 0 else wf_cot0.clone()
         sums = l1s = None
-        for b in reversed(range(wf_depth)):
+        for b in bounces:
             st, ii, ww, lim = saved[b]
             vals, l1 = WG.wf_rev_plain(wf_sp, wf_pl, wf_counts[:2], wf_cam, seeds, st, ii, ww,
                                        lim, cot, wf_cot_pix, bounce=b, with_l1=with_l1, **rkw)
@@ -429,8 +504,12 @@ def kernel_cases(trees, fns, windows, result, ablations, card, only=()):
             l1s = l1 if l1s is None else [s + v for s, v in zip(l1s, l1)]
         return sums, l1s
 
-    # row 6's main path: the box scene of the blockwise records step
+    rev0, rev17 = (0,), tuple(range(wf_depth - 1, 0, -1))
+
+    # row 6's main path: the box scene of the blockwise records step; and
+    # past the 2048 sphere rows its scan stages in shared memory
     bigbox = rt_tpu_torch.loads(box_scene_toml(660, 24))
+    box2100 = rt_tpu_torch.loads(box_scene_toml(2100, 24))
     fma_x = torch.full(roofline.TILE, 1.0 + 1e-6, device=dev)
 
     proc1000 = rt_tpu_torch.scene.make_procedural_scene(1000)
@@ -481,8 +560,16 @@ def kernel_cases(trees, fns, windows, result, ablations, card, only=()):
          "records-step launch)", ("rt_blockwise_record",), BW.render_record_blockwise_tile,
          (*BW._device_tables(bigbox, "mg", True, dev), camera(bigbox, wf_size), seeds),
          dict(d8, size=wf_size, center_sample=False), 4, None),
-        ("wf_rev proc5000 960x540 2spp d8 chunk: bounces 7-0", ("rt_wf_rev",),
-         lambda: wf_rev_chunk(), (), {}, 4, wf_rev_chunk_plain),
+        ("blockwise_record_kernel 2100 spheres + 24 boxes 960x540 1 sample d8 (rows from device "
+         "memory)", ("rt_blockwise_record",), BW.render_record_blockwise_tile,
+         (*BW._device_tables(box2100, "mg", True, dev), camera(box2100, wf_size), seeds),
+         dict(d8, size=wf_size, center_sample=False), 2, None),
+        ("wf_rev proc5000 960x540 2spp d8 chunk: bounce 0", ("rt_wf_rev",),
+         lambda: wf_rev_chunk(rev0), (), {}, 8,
+         lambda with_l1: wf_rev_chunk_plain(rev0, with_l1)),
+        ("wf_rev proc5000 960x540 2spp d8 chunk: bounces 7-1", ("rt_wf_rev",),
+         lambda: wf_rev_chunk(rev17), (), {}, 4,
+         lambda with_l1: wf_rev_chunk_plain(rev17, with_l1)),
         ("fma_peak_kernel k=4096", ("rt_fma_peak",), roofline.fma_peak, (fma_x, 4096), {}, 16,
          None),
     ]
@@ -605,6 +692,17 @@ def package_cases(packages, windows, result, card):
             st = train.make_kernel_train_step(opt, scene, target, size, spp=spp, max_bounces=8,
                                               device="cuda")
             out[label] = (lambda i, st=st, params=params: st(params, 100 + i), 2)
+        # the records route on the box scene (the blockwise record kernel)
+        sys.path.insert(0, str(ROOT / "tests"))
+        from test_torch_common import box_scene_toml
+
+        bigbox = pkg.loads(box_scene_toml(660, 24))
+        box_tgt = torch.full((540, 960, 3), 0.2, device="cuda")
+        box_params = diff.extract_params(bigbox)
+        out["box-scene records step (660 spheres + 24 boxes 960x540 2spp d8)"] = (
+            lambda i: diff.records_loss_and_grad(box_params, bigbox, box_tgt, (960, 540), seed=i,
+                                                 spp=2, max_bounces=8, include_boxes=True,
+                                                 device="cuda"), 2)
         proc1000 = pkg.scene.make_procedural_scene(1000)
         out["1000-sphere frame (render_forward_blockwise 1000 spheres 1920x1080 8spp d8)"] = (
             lambda i: BW.render_forward_blockwise(proc1000, (1920, 1080), seed=i, spp=8,
@@ -690,6 +788,49 @@ def package_cases(packages, windows, result, card):
     result["packages"] = {"cells": rows, "config5_chunk_launches": launches}
 
 
+def smoke_runs(specs, tmp: Path, result, card):
+    """``--smoke NAME=CHECKOUT[+ABLATION]``: each checkout's ``chip_smoke.py``
+    run whole, one after another, from a copy (with ``ABLATIONS[ABLATION]``
+    applied to the copy's ``rt_tpu_torch/csrc``; an ablated build's failed
+    checks are logged instead of raised).  Reads from its ``[report]`` line
+    the device ms per kernel of the config-5 chunk's reverse (CUPTI,
+    ``wf_timing.wf_rev.chunk_device_ms``): the same launches, timed inside
+    the script that surrounds them."""
+    rows = {}
+    for spec in specs:
+        name, _, rest = spec.partition("=")
+        path, _, abl = rest.partition("+")
+        if abl and abl not in ABLATIONS:
+            raise ValueError(f"--smoke {spec}: unknown ablation")
+        root = tmp / f"smoke-{name}"
+        shutil.copytree(Path(path), root, ignore=shutil.ignore_patterns(
+            ".git", "_build", "chiprun_out", "chip_checkout", "docs", "__pycache__"))
+        if abl:
+            csrc = root / "rt_tpu_torch" / "csrc"
+            shutil.move(csrc, root / "csrc-orig")
+            ablate(root / "csrc-orig", csrc, ABLATIONS[abl])
+        code = ("import sys\nsys.argv = ['chip_smoke.py']\nimport chip_smoke as s\n"
+                + ("s.check = lambda c, m: c or s.log('[chip_ab] check not held (ablated build): '"
+                   " + m)\n" if abl else "") + "sys.exit(s.main())\n")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                              text=True)
+        seconds = time.perf_counter() - t0
+        report = next((json.loads(ln[len("[report] "):]) for ln in proc.stdout.splitlines()
+                       if ln.startswith("[report] ")), {})
+        rev = report.get("wf_timing", {}).get("wf_rev", {}).get("chunk_device_ms", {})
+        rows[name] = {"checkout": path, "ablation": abl or None, "rc": proc.returncode,
+                      "seconds": seconds, "wf_rev_chunk_device_ms": rev,
+                      "not_held": [ln for ln in proc.stdout.splitlines()
+                                   if ln.startswith("[chip_ab]")],
+                      "tail": (proc.stdout + proc.stderr)[-3000:]}
+        print(f"smoke {name} ({path}{' + ' + abl if abl else ''}): rc {proc.returncode} in "
+              f"{seconds:.0f} s; wf_rev chunk device ms per kernel {rev} | {card}", flush=True)
+        if proc.returncode != 0:
+            print(rows[name]["tail"], flush=True)
+    result["smoke"] = rows
+
+
 def main() -> int:
     import torch
 
@@ -699,6 +840,9 @@ def main() -> int:
                     help=f"one of {sorted(ABLATIONS)}, applied to a copy of TREE")
     ap.add_argument("--package", action="append", default=[], metavar="NAME=CHECKOUT")
     ap.add_argument("--no-kernels", action="store_true", help="only the --package cells")
+    ap.add_argument("--smoke", action="append", default=[], metavar="NAME=CHECKOUT[+ABLATION]",
+                    help="run CHECKOUT's chip_smoke.py whole (on an ablated build) and read its "
+                         "wf_rev device times")
     ap.add_argument("--only", action="append", default=[], metavar="TEXT",
                     help="only the kernel cases whose label holds TEXT (repeatable)")
     ap.add_argument("--sass", type=Path, metavar="DIR",
@@ -785,6 +929,9 @@ def main() -> int:
             name, _, path = spec.partition("=")
             packages[name] = load_package(name, Path(path).resolve())
         package_cases(packages, args.windows, result, card)
+    if args.smoke:
+        with tempfile.TemporaryDirectory() as tmp:
+            smoke_runs(args.smoke, Path(tmp), result, card)
     line = json.dumps(result)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -52,7 +52,10 @@ Phases (an exception in any phase exits non-zero before the result line):
    320x240 2 spp and 2000 spheres (past 1536) at 160x90 2 spp, each chunk
    equal to the blockwise kernel's; every reverse launch of the cornell and
    2000-sphere chunks within 1e-5 x L1 of wf_rev_plain, with the
-   run-to-run spread; and at the main path's shape, one 2-spp chunk of
+   run-to-run spread, and what the reverse's per-warp sums by winner could
+   get wrong: the 2000-sphere chunk with one winner for every lane of a
+   warp, with a winner per lane, with the live prefix ending mid-warp, and
+   a ragged 37x23 one-sample chunk (851 rays); and at the main path's shape, one 2-spp chunk of
    BASELINE config 5's slice (5000 spheres, 960x540), both kernels against
    their plain versions (the plain times are printed); the split scan of
    the later bounces on a tie-heavy scene (sphere rows duplicated side by
@@ -65,8 +68,10 @@ Phases (an exception in any phase exits non-zero before the result line):
    the 1-spp frame at the same seed: the render kernel's record form and
    the blockwise one on basic.toml (mg), dielectric.toml (sm) and
    basic+box (--boxes) at 800x600, the blockwise one also on 660 spheres +
-   24 boxes (past 640 primitives) at 320x240.  The FMA probe at k = 1024
-   and 4096 within 1e-5 of its plain version.
+   24 boxes (past 640 primitives) at 320x240, 2100 spheres + 24 boxes (past
+   the 2048 sphere rows its rejecting scan stages in shared memory) at
+   160x120, and the tie-heavy (--boxes) and grazing scenes at 320x240.
+   The FMA probe at k = 1024 and 4096 within 1e-5 of its plain version.
 4. Main paths through the entry points, each with the launch counters
    reset just before and read just after: the CLI renders basic.toml to a
    PNG and make_render_step renders BASELINE config 4's shape (500
@@ -108,8 +113,12 @@ Phases (an exception in any phase exits non-zero before the result line):
    route) and on the boxes.center entry with the largest gradient (on the
    replay with the records held: moving a box moves its silhouette, a
    term the detached-sampling gradient leaves out; the full-pipeline
-   difference is printed beside it) within 3e-2; peak device memory
-   printed; (d) the roofline probe at k = 1024 and 4096.
+   difference is printed beside it) within 3e-2, and the box-centre
+   gradient split by ray (each ray that reaches the box replays with its
+   own copy of the box table): the shares must sum to the route's
+   gradient, the largest are printed (``--box-rays NPZ`` writes them, for
+   tests/test_torch_box_centre.py); peak device memory printed; (d) the
+   roofline probe at k = 1024 and 4096.
 5. Timing: CUDA events around back-to-back calls
    (rt_tpu_torch.profiling.sustained) for every kernel (the mono and
    per-sample gradient kernels also by their CUPTI device time, which the
@@ -127,13 +136,17 @@ Phases (an exception in any phase exits non-zero before the result line):
    The wavefront kernels per launch on the 2-spp config-5 chunk (CUPTI
    device time), and per bounce (CUDA events around each launch, the stream
    held while the host queues the chunk) with each bounce's live rays,
-   lanes per ray and bound; the config-5 slice's frame and train step each beside
+   lanes per ray and bound, the reverse's bounce-0 and bounces 1-7 device
+   time each beside its bound (whose bytes count the float64 atomics the
+   kernel issues, 8 B each, counted from the saved winner words);
+   the config-5 slice's frame and train step each beside
    the blockwise route's in 5 interleaved windows (and the frame with a
    sort before every bounce, which must be the same frame).  Each record
    kernel per launch (the render kernel's at the headline shape, the
    blockwise one on the 684-primitive box scene at 960x540), the (a) step
    beside the mono step in interleaved windows with its device time split
-   between the record kernels and the replay's autograd, and the FMA probe
+   between the record kernels and the replay's autograd, the (c) box-scene
+   step (960x540, 2 spp) with the same split, and the FMA probe
    in TFLOP/s at k = 1024 and 4096 with its K-scaling verdict.
    Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
    FP32 operations over 33.5 Top/s, the operations counted from the kernel
@@ -153,6 +166,7 @@ that ("[report] ...") holds every number the run measured.
 
 from __future__ import annotations
 
+import argparse
 import json
 import struct
 import subprocess
@@ -1242,7 +1256,8 @@ def wf_rev_checked(tables, cam, seeds, size, depth, saved, cot_pix, label, repor
     n = saved[0][2].shape[0]
     cot = torch.zeros((9, n), device="cuda")
     kw = dict(size=size, max_bounces=depth, center_sample=True)
-    worst = {"max_abs": 0.0, "max_ratio_l1": 0.0, "run_to_run_ratio_l1": 0.0, "cot_ratio": 0.0}
+    worst = {"max_abs": 0.0, "max_ratio_l1": 0.0, "run_to_run_ratio_l1": 0.0, "cot_ratio": 0.0,
+             "l1": 0.0}
     plain_s = 0.0
     for b in reversed(range(depth)):
         state, ids, words, limit = saved[b]
@@ -1273,6 +1288,7 @@ def wf_rev_checked(tables, cam, seeds, size, depth, saved, cot_pix, label, repor
         worst["run_to_run_ratio_l1"] = max(worst["run_to_run_ratio_l1"], max(
             ((g - a).abs() / l.clamp_min(1e-30)).max().item() for g, a, w_, l in outs))
         worst["cot_ratio"] = max(worst["cot_ratio"], cot_ratio)
+        worst["l1"] += sum(l.sum().item() for _, _, _, l in outs)
         cot = cp
     report.setdefault("wf_rev_parity", []).append(dict(worst, case=label, size=size))
     log(f"[3] wf_rev {label} {size[0]}x{size[1]} d{depth}: max|d| {worst['max_abs']:.3g}, max "
@@ -1280,6 +1296,57 @@ def wf_rev_checked(tables, cam, seeds, size, depth, saved, cot_pix, label, repor
         f"{worst['run_to_run_ratio_l1']:.3g}, cotangents {worst['cot_ratio']:.3g} of their "
         f"largest; plain {plain_s:.2f} s")
     return worst["max_abs"], plain_s
+
+
+def wf_rev_warp_cases(saved, n_spheres):
+    """A recorded chunk's saved bounces, edited for what the reverse's
+    per-warp sums by winner could get wrong: every lane of a warp that hit
+    with the same winner (sphere row 7 at every bounce), every such lane
+    with its own (row = the lane's ray index modulo the rows), and the live
+    prefix ending mid-warp (at 32k + 13, k from half the bounce's live
+    rays).  Misses stay misses: the sky's cotangent reaches the earlier
+    bounces, so the sums are not all zero."""
+    import torch
+    from rt_tpu_torch.ops.render import WORD_MISS
+
+    def one(words):
+        return torch.where((words & WORD_MISS) != 0, words, 7)
+
+    def own(words):
+        row = (torch.arange(words.numel(), device=words.device) % n_spheres).to(torch.int32)
+        return torch.where((words & WORD_MISS) != 0, words, row)
+
+    def mid(state):
+        live = int((state[12] > 0).sum())
+        return torch.tensor([32 * max(live // 64, 1) + 13], dtype=torch.int32,
+                            device=state.device)
+
+    return {
+        "one winner per warp": [(st, ii, one(ww), lim) for st, ii, ww, lim in saved],
+        "a winner per lane": [(st, ii, own(ww), lim) for st, ii, ww, lim in saved],
+        "live prefix ending mid-warp": [(st, ii, ww, lim if st is None else mid(st))
+                                        for st, ii, ww, lim in saved],
+    }
+
+
+def wf_rev_atomics(state, words, limit):
+    """The float64 atomics of one reverse launch, counted from its saved
+    words as wf_grad_kernel.cu adds: per warp (32 consecutive rays of the
+    launch's table), one per slot of each distinct winner among its live
+    hits (9 for a sphere, 5 for a plane); and for the gen launch (state
+    None) 16 per block of 128 threads, the camera sums."""
+    import torch
+    from rt_tpu_torch.ops.render import WORD_MISS, WORD_PLANE, WORD_ROW
+
+    n = words.numel()
+    j = torch.arange(n, device=words.device)
+    live = torch.ones(n, dtype=torch.bool, device=words.device) if state is None else (
+        (state[12] > 0) & (j < limit[0] if limit is not None else True))
+    w = words.long()
+    hit = live & ((w & WORD_MISS) == 0)
+    groups = torch.unique((j[hit] // 32) * (1 << 26) + (w[hit] & (WORD_ROW | WORD_PLANE)))
+    plane = int(((groups & WORD_PLANE) != 0).sum())
+    return 9 * (groups.numel() - plane) + 5 * plane + (16 * -(-n // 128) if state is None else 0)
 
 
 def wf_work(tables, saved, rays0, per_bounce=False):
@@ -1430,6 +1497,25 @@ def wavefront_parity(scenes, report):
                                        .astype(np.float32)).cuda() * (2.0 / (3 * n_pix * 2))
             err, _ = wf_rev_checked(tables, cam, seeds, size, 8, saved, cot_pix, label, report)
             errs["wf_rev"] = max(errs["wf_rev"], err)
+            if key == "proc2000":
+                for case, edited in wf_rev_warp_cases(saved, tables[3][0]).items():
+                    err, _ = wf_rev_checked(tables, cam, seeds, size, 8, edited, cot_pix,
+                                            f"{label} ({case})", report)
+                    errs["wf_rev"] = max(errs["wf_rev"], err)
+                    check(report["wf_rev_parity"][-1]["l1"] > 0,
+                          f"wf_rev {label} ({case}): no gradient to compare")
+    # the reverse's per-warp sums on a ragged table: 37x23, one sample, 851
+    # rays (not a multiple of 32)
+    size = (37, 23)
+    tables = bw_tables(scenes["proc2000"], "mg")
+    cam = torch.from_numpy(R._pack_camera(scenes["proc2000"].camera, size)).cuda()
+    _, _, saved, _, err = wf_checked_chunk(tables, cam, seeds, size, 1, 8, True)
+    errs["wf_bounce"] = max(errs["wf_bounce"], err)
+    cot_pix = torch.from_numpy(np.random.default_rng(5).uniform(-1, 1, (37 * 23, 3))
+                               .astype(np.float32)).cuda() * (2.0 / (3 * 37 * 23))
+    err, _ = wf_rev_checked(tables, cam, seeds, size, 8, saved, cot_pix,
+                            "proc2000/mg (ragged: 851 rays)", report)
+    errs["wf_rev"] = max(errs["wf_rev"], err)
 
     # the split scan of the later bounces (G lanes per live ray, G from the
     # live count): a tie-heavy scene (sphere rows duplicated side by side
@@ -1677,20 +1763,29 @@ def wavefront_timing(scenes, step, params, target, shape, card, report):
     live_in = work["live"] - work["rays"]  # rays entering bounces 1..7 alive
     f_bound = bound(depth * tab + 60 * work["rays"] + (56 + 56) * live_in,
                     forward_ops(work, ns, npl))
-    hits = work["sphere"] + work["plane"]
     # the reverse's bytes by kind of launch: the gen launch reads each ray's
     # word, cotangent and pixel cotangent (4 + 36 + 12 B) and writes no
     # cotangent back; a later bounce's live ray reads its state, id and word
     # (40 + 4 + 4 B), its cotangent and pixel cotangent (36 + 12 B) and
     # writes its cotangent (36 B); every launch reads the 10 used floats of
-    # each distinct winner row; the float64 gradient tables (and the camera's
-    # 16) are read and written once per chunk (their atomics stay in L2)
-    grad_tab = 8 * (9 * ns + 5 * npl + 16)
-    r_bound = bound(52 * work["rays"] + 132 * live_in + 40 * work["rows"] + 2 * grad_tab,
-                    reverse_ops(work) + 70 * hits)
+    # each distinct winner row; and each float64 atomic the kernels issue
+    # moves 8 B (wf_rev_atomics: per warp, one per slot of each distinct
+    # winner, and the gen launch's camera sums)
+    atomics = [wf_rev_atomics(st, ww, lim) for st, _, ww, lim in saved]
+    work_b = wf_work(tables, saved, rays0, per_bounce=True)
+    r_parts = []
+    for b, w_b in enumerate(work_b):
+        w_b = dict(w_b, rays=w_b["rays"] if b == 0 else 0)
+        r_parts.append(bound((52 * w_b["rays"] if b == 0 else 132 * w_b["live"])
+                             + 40 * w_b["rows"] + 8 * atomics[b],
+                             reverse_ops(w_b) + 70 * (w_b["sphere"] + w_b["plane"])))
+    r_bound = (sum(t for t, _ in r_parts),
+               max(("bytes", "operations"), key=lambda k: sum(t for t, by in r_parts if by == k)))
+    r0_ms = sum(v for k, v in dr.items() if "wf_rev_gen_kernel" in k)
+    r17_ms = sum(v for k, v in dr.items() if "wf_rev_kernel" in k)
     # per bounce: device time, live rays entering it, lanes per ray, bound
     bounces = []
-    for b, w_b in enumerate(wf_work(tables, saved, rays0, per_bounce=True)):
+    for b, w_b in enumerate(work_b):
         live_b = w_b["live"]
         b_bytes = tab + (60 * w_b["rays"] if b == 0 else (56 + 56) * live_b)
         b_ops = forward_ops(dict(w_b, rays=w_b["rays"] if b == 0 else 0), ns, npl)
@@ -1708,7 +1803,10 @@ def wavefront_timing(scenes, step, params, target, shape, card, report):
                       "per_bounce": bounces},
         "wf_rev": {"ms": r_ms / depth, "plain_ms": shape["rev_plain_s"] * 1e3 / depth,
                    "bound_ms": r_bound[0] / depth, "bound_by": r_bound[1],
-                   "chunk_device_ms": dr},
+                   "chunk_device_ms": dr, "bounce0_ms": r0_ms, "bounces_1_7_ms": r17_ms,
+                   "bounce0_bound_ms": r_parts[0][0],
+                   "bounces_1_7_bound_ms": sum(t for t, _ in r_parts[1:]),
+                   "atomics_per_launch": atomics},
     }
 
     # the frame and the train step on the slice, each beside the blockwise
@@ -1784,6 +1882,11 @@ def wavefront_timing(scenes, step, params, target, shape, card, report):
         log(f"[5] {name} proc5000 960x540 {spp}spp d8 chunk: {r['ms']:.4f} ms per launch (8 per "
             f"chunk), plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}) | {card}")
+    wr = rows["wf_rev"]
+    log(f"[5] wf_rev per launch kind of the chunk (CUPTI device time): bounce 0 "
+        f"(wf_rev_gen_kernel) {wr['bounce0_ms']:.4f} ms (bound {wr['bounce0_bound_ms']:.4f}), "
+        f"bounces 1-7 (wf_rev_kernel) {wr['bounces_1_7_ms']:.4f} ms (bound "
+        f"{wr['bounces_1_7_bound_ms']:.4f}); float64 atomics per launch {atomics} | {card}")
     wb = rows["wf_bounce"]
     log(f"[5] wf_bounce per bounce of the chunk (CUDA events, the stream held while queued): "
         f"bounce 0 {wb['bounce0_ms']:.4f} ms (bound {wb['bounce0_bound_ms']:.4f}), bounces 1-7 "
@@ -1864,13 +1967,18 @@ REC_SHAPE = dict(size=(800, 600), spp=4, max_bounces=8)    # the headline shape
 BIG_BOX_SHAPE = dict(size=(960, 540), spp=2, max_bounces=8)  # the config-5 slice's
 
 
-def big_box_scene():
-    """660 spheres and 24 boxes: tests/test_pallas_blockwise.py's box scene
-    generator (the port's copy, tests/test_torch_common.py)."""
-    import rt_tpu_torch
-
+def box_scene_toml(n_spheres, n_boxes):
+    """tests/test_pallas_blockwise.py's box scene generator (the port's
+    copy, tests/test_torch_common.py)."""
     sys.path.insert(0, str(ROOT / "tests"))
-    from test_torch_common import box_scene_toml
+    from test_torch_common import box_scene_toml as toml
+
+    return toml(n_spheres, n_boxes)
+
+
+def big_box_scene():
+    """660 spheres and 24 boxes (box_scene_toml)."""
+    import rt_tpu_torch
 
     return rt_tpu_torch.loads(box_scene_toml(660, 24))
 
@@ -1952,7 +2060,14 @@ def records_parity(scenes, report):
         ("basic+box/mg --boxes", "basic+box", "mg", (800, 600), True),
     ]
     runs = [(c, False) for c in cases] + [(c, True) for c in cases]
-    runs.append((("660 spheres + 24 boxes --boxes", "bigbox", "mg", (320, 240), True), True))
+    # the blockwise record kernel's rejecting scan: rows staged in shared
+    # memory (660 spheres), rows from device memory (2100, past 2048), and
+    # the scan's edges (exact ties, grazing rays)
+    runs += [((label, key, "mg", size, boxes), True) for label, key, size, boxes in (
+        ("660 spheres + 24 boxes --boxes", "bigbox", (320, 240), True),
+        ("2100 spheres + 24 boxes --boxes", "box2100", (160, 120), True),
+        ("ties/mg --boxes", "ties", (320, 240), True),
+        ("grazing/mg", "grazing", (320, 240), False))]
     for (label, key, pers, size, boxes), blockwise in runs:
         scene = scenes[key]
         args = record_tables(scene, pers, size, boxes, blockwise)
@@ -2020,7 +2135,7 @@ def _grads_close(got, want):
     return ok, rel
 
 
-def records_main_paths(scenes, report):
+def records_main_paths(scenes, report, box_rays=None):
     """Phase 4 for the records route and the roofline probe, each path with
     the launch counters reset just before and read just after.  Returns
     (launches per kernel, the (a) inputs for phase 5)."""
@@ -2208,10 +2323,24 @@ def records_main_paths(scenes, report):
         f"central FD on the held records {fd_b:.6g} (rel {rel_b:.3g}), through the route "
         f"{fd_bf:.6g} (not held to a tolerance)")
     check(rel_a <= 3e-2, "(c) the albedo gradient disagrees with its finite difference")
+    total_b, top = box_gradient_rays(big_dev, recs, tgt_c, size_c, depth, i_box, c_box)
+    log(f"[4] (c) boxes.center[{i_box}, {c_box}] by ray: the rays that reach box {i_box} sum to "
+        f"{total_b:.6g} (the route's analytic {an_b:.6g}); the largest: "
+        + "; ".join(f"sample {t['sample']} pixel ({t['x']}, {t['y']}) {t['contribution']:.4g} "
+                    f"({t['contribution'] / total_b:.1%}), kinds {t['kind']}, root bits "
+                    f"{t['root_lo']}" for t in top[:5]))
+    check(abs(total_b - an_b) <= 1e-3 * abs(an_b) + 1e-9, "(c) the rays' box-centre gradients do "
+                                                        "not sum to the route's")
+    if box_rays:
+        save_box_rays(box_rays, top, dict(i_box=i_box, c_box=c_box, analytic=an_b, rays_sum=total_b,
+                                          size=size_c, depth=depth, scene=(660, 24)))
+        log(f"[4] (c) the {len(top)} largest rays' records written to {box_rays}")
     out["c"] = {"loss": loss_c.item(), "box_center_max": gb.abs().max().item(),
                 "box_extents_max": ge.abs().max().item(), "peak_bytes": peak_c,
                 "fd_albedo": [an_a, fd_a, rel_a], "fd_box_center": [i_box, c_box, an_b, fd_b, rel_b],
-                "fd_box_center_full_pipeline": fd_bf}
+                "fd_box_center_full_pipeline": fd_bf, "box_center_rays_sum": total_b,
+                "box_center_top_rays": [{k: v for k, v in t.items() if k not in ("arrays",)}
+                                        for t in top[:8]]}
 
     # (d) the roofline path: the probe at its two chain lengths
     reset()
@@ -2220,7 +2349,91 @@ def records_main_paths(scenes, report):
     read("(d) roofline.measure_fma_peak k=1024 and 4096", fma_peak_kernel=2 * (1 + 3 * 16))
     out["d"] = {"tflops_1k": tf_1k, "tflops_4k": tf_4k, "scaling": dt_4k / dt_1k}
     report["records_main_path"] = dict(out, launches=total)
-    return total, {"params": params, "target": target}
+    return total, {"params": params, "target": target,
+                   "box": dict(params=params_c, scene=big, target=tgt_c, size=size_c, kw=kw_c)}
+
+
+REC_NAMES = ("kind", "idx", "root_lo", "live_in", "miss", "alive_out", "reflect_bit", "lam_deg")
+
+
+def box_gradient_rays(scene, recs, target, size, depth, i_box, c_box, top=8):
+    """The records route's gradient of boxes.center[i_box, c_box] split by
+    ray: each ray that reaches box i_box at a live bounce replays with its
+    own copy of the box table (its kind-3 records point into it), so the
+    gradient of sum(w * radiance) with w the loss's weight of each ray
+    (dL/drad, from the replayed image) lands in that ray's copy.  Returns
+    (the rays' sum, the ``top`` largest by magnitude, each with its sample,
+    pixel, contribution, kinds and root bits per bounce, and its arrays)."""
+    import dataclasses
+
+    import torch
+    from rt_tpu_torch import diff
+    from rt_tpu_torch.integrator import _pixel_grid
+    from rt_tpu_torch.replay import PathRecords, replay_radiance
+
+    w, h = size
+    n, spp = w * h, len(recs)
+    grid = _pixel_grid(size, target.device)
+    with torch.no_grad():
+        img = 0.0
+        for r in recs:
+            o, d = diff._record_rays(scene.camera, size, grid, r["jitter"])
+            img = img + replay_radiance(scene, o, d, None, PathRecords(*(r[k] for k in REC_NAMES)),
+                                        max_bounces=depth, draws=(r["ur"], r["coin"]),
+                                        include_boxes=True)
+        wgt = 2.0 * (img / spp - target.reshape(n, 3)) / (3 * n * spp)
+    nb = scene.boxes.center.shape[0]  # the table's rows (count <= rows)
+    per_sample = []
+    for s, r in enumerate(recs):
+        rays = ((r["kind"] == 3) & (r["idx"] == i_box) & r["live_in"]).any(0).nonzero()[:, 0]
+        m = rays.numel()
+        if m == 0:
+            continue
+        center = scene.boxes.center.repeat(m, 1).requires_grad_(True)
+        boxes = dataclasses.replace(scene.boxes, center=center,
+                                    extents=scene.boxes.extents.repeat(m, 1),
+                                    material=scene.boxes.material.repeat(m),
+                                    count=(m - 1) * nb + scene.boxes.count)
+        sub = {k: r[k][:, rays] for k in REC_NAMES}
+        sub["idx"] = torch.where(sub["kind"] == 3,
+                                 sub["idx"] + nb * torch.arange(m, device=rays.device), sub["idx"])
+        o, d = diff._record_rays(scene.camera, size, grid[rays], r["jitter"][rays])
+        rad = replay_radiance(dataclasses.replace(scene, boxes=boxes), o, d, None,
+                              PathRecords(*(sub[k] for k in REC_NAMES)), max_bounces=depth,
+                              draws=(r["ur"][:, rays], r["coin"][:, rays]), include_boxes=True)
+        (g,) = torch.autograd.grad((rad * wgt[rays]).sum(), center)
+        per_sample.append((s, rays, o.detach(), d.detach(),
+                           g.reshape(m, nb, 3)[:, i_box, c_box].double()))
+    contrib = torch.cat([c for *_, c in per_sample])
+    total = contrib.sum().item()
+    out = []
+    for k in contrib.abs().argsort(descending=True)[:top].tolist():
+        for s, rays, o, d, c in per_sample:  # the sample holding ray k
+            if k < rays.numel():
+                break
+            k -= rays.numel()
+        ray, r = int(rays[k]), recs[s]
+        arrays = {"o": o[k], "d": d[k], "weight": wgt[ray], "ur": r["ur"][:, ray],
+                  "coin": r["coin"][:, ray], **{name: r[name][:, ray] for name in REC_NAMES}}
+        out.append({"contribution": c[k].item(), "sample": s, "x": ray % w, "y": ray // w,
+                    "kind": arrays["kind"].tolist(), "root_lo": arrays["root_lo"].int().tolist(),
+                    "arrays": arrays})
+    return total, out
+
+
+def save_box_rays(path, top, meta):
+    """The rays of box_gradient_rays as one .npz: per ray its camera ray,
+    loss weight, records and draws, stacked, with ``meta``."""
+    import numpy as np
+
+    arrays = {k: np.stack([t["arrays"][k].cpu().numpy() for t in top])
+              for k in top[0]["arrays"]}
+    arrays.update(contribution=np.asarray([t["contribution"] for t in top]),
+                  sample=np.asarray([t["sample"] for t in top]),
+                  pixel=np.asarray([[t["x"], t["y"]] for t in top]),
+                  meta=np.asarray(json.dumps(meta)))
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **arrays)
 
 
 def records_timing(scenes, shape_a, card, report):
@@ -2294,6 +2507,33 @@ def records_timing(scenes, shape_a, card, report):
         f"record kernels {rec_ms:.3f}, replay autograd and the rest {dev_ms - rec_ms:.2f}; busy "
         f"{step_row['busy_share']:.3f} | {card}")
 
+    # the box-scene step (c): 2 blockwise record launches, then the replay's
+    # autograd; its device time split between the record kernels and the rest
+    bx = shape_a["box"]
+
+    def box_step(i):
+        return diff.records_loss_and_grad(bx["params"], bx["scene"], bx["target"], bx["size"],
+                                          **dict(bx["kw"], seed=i))
+
+    box_step(0)
+    torch.cuda.synchronize()
+    ws_b = [window_s(box_step, 2) for _ in range(5)]
+    med_b = sorted(ws_b)[2]
+    db = profiling.device_times(box_step, iters=2)
+    brec_ms = sum(v for k, v in db.items() if "blockwise_record_kernel" in k)
+    bdev_ms = sum(db.values())
+    box_row = {
+        "step_ms": med_b * 1e3, "step_windows_ms": [x * 1e3 for x in ws_b],
+        "fwd_bwd_mrays_s": profiling.mrays_per_sec(bx["size"], bx["kw"]["spp"], med_b),
+        "device_ms": {"record_kernels": brec_ms, "replay_autograd_and_rest": bdev_ms - brec_ms},
+        "busy_share": bdev_ms / (med_b * 1e3),
+        "step_device_ms_top": dict(sorted(db.items(), key=lambda kv: -kv[1])[:12]),
+    }
+    log(f"[5] records_loss_and_grad box scene (660 spheres + 24 boxes) 960x540 2spp d8: "
+        f"{box_row['step_ms']:.2f} ms = {box_row['fwd_bwd_mrays_s']:.2f} Mrays/s fwd+bwd; device "
+        f"ms per step: record kernels {brec_ms:.3f} (2 launches), replay autograd and the rest "
+        f"{bdev_ms - brec_ms:.2f}; busy {box_row['busy_share']:.3f} | {card}")
+
     # the probe: TFLOP/s at both chain lengths and the scaling verdict
     x = torch.full((256, 128), 1.0 + 1e-6, device="cuda")
     tf_1k, dt_1k = roofline.measure_fma_peak(1024)
@@ -2313,13 +2553,19 @@ def records_timing(scenes, shape_a, card, report):
         f"scaling {scaling:.2f}x: {'valid' if valid else 'INVALID'}; plain "
         f"{rows['fma_peak_kernel']['plain_ms']:.1f} ms | {card}")
     check(valid, f"the FMA probe's K-scaling check failed ({scaling:.2f}x)")
-    report["records_timing"] = dict(rows, records_step=step_row)
+    report["records_timing"] = dict(rows, records_step=step_row, box_records_step=box_row)
     return rows
 
 
 def main() -> int:
     import numpy as np
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--box-rays", type=Path, metavar="NPZ",
+                    help="write the rays that carry the largest shares of phase 4 (c)'s "
+                         "box-centre gradient (records, draws, camera rays, loss weights) here")
+    opts = ap.parse_args()
 
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -2420,6 +2666,7 @@ def main() -> int:
     wf_errs = wavefront_parity(scenes, report)
     wf_shape = wavefront_main_shape(scenes, report, wf_errs)
     scenes["bigbox"] = big_box_scene()
+    scenes["box2100"] = rt_tpu_torch.loads(box_scene_toml(2100, 24))
     rec_errs = records_parity(scenes, report)
 
     # ---- 4. main path through the entry points ----
@@ -2454,7 +2701,7 @@ def main() -> int:
     grad_launches, step_mse, step_c3 = grad_main_paths(scenes, report)
     bw_launches, step_bw, params_bw = blockwise_main_paths(scenes, report)
     wf_launches, step_wf, params_wf, target_wf = wavefront_main_paths(scenes, report)
-    rec_launches, shape_a = records_main_paths(scenes, report)
+    rec_launches, shape_a = records_main_paths(scenes, report, opts.box_rays)
 
     # ---- 5. timing (CUDA events; device time by kernel from the profiler) ----
     size = (800, 600)

@@ -51,8 +51,13 @@
 // (the record pass of pallas_loss_and_grad past the unrolled kernel's 640
 // primitives; its record math is _bounce_once's want_record="replay"): one
 // sample per pixel with the replay records, trace.cuh's record_pixel with
-// the blockwise kernel's record conventions, all rows read from device
-// memory by the table-row scan (kGeoTable, not the rejecting scan).
+// the blockwise kernel's record conventions.  Its spheres are scanned as
+// blockwise_kernel's: the rejecting scan over compact rows staged in shared
+// memory up to kStageRows spheres, over the rows' heads in device memory
+// beyond (a record scene may have 16384 primitives), the near-root flag of
+// the winner kept by the row it takes (trace.cuh's record note); planes
+// and boxes (24 boxes on the box scene, against 660 spheres) keep their
+// table rows.
 // The JAX kernel scans without cull or Morton order, so the recorded index
 // (the table row) is the scene index.  What bounds it: the scan, as
 // above, and the record writes (7 x 4 bytes per pixel per bounce).
@@ -70,6 +75,28 @@ namespace {
 constexpr int kCols = 16;
 constexpr int kStageRows = 2048;  // the most sphere rows staged in shared memory (32 KB)
 
+// Whether a launch on n_spheres sphere rows takes the staged form
+// (kGeoCompact) or the device-memory form (kGeoHead16).
+bool staged(int n_spheres) { return n_spheres <= kStageRows; }
+
+// The sphere rows the rejecting scan reads: kGeoCompact stages the
+// n_spheres compact rows (cx, cy, cz, r * r) in the block's dynamic shared
+// memory `s_geo` (every thread of the block reaches the barrier),
+// kGeoHead16 reads the rows' float4 heads from device memory.
+template <int kGeo>
+__device__ __forceinline__ const float4* scan_rows(const float* __restrict__ spheres,
+                                                   int n_spheres, float4* s_geo) {
+  if constexpr (kGeo == kGeoCompact) {
+    for (int i = threadIdx.x; i < n_spheres; i += blockDim.x) {
+      const float* q = spheres + i * kCols;
+      s_geo[i] = make_float4(q[0], q[1], q[2], q[3] * q[3]);
+    }
+    __syncthreads();
+    return s_geo;
+  }
+  return reinterpret_cast<const float4*>(spheres);
+}
+
 // kWords: the words form (trace_pixel's), one sample per launch.  kGeo:
 // kGeoCompact stages the n_spheres compact rows in dynamic shared memory
 // (n_spheres <= kStageRows), kGeoHead16 reads the rows' heads from device
@@ -83,15 +110,7 @@ __global__ void __launch_bounds__(kThreads) blockwise_kernel(
     float* __restrict__ out, int width, int height, float inv_w, float inv_h, int spp,
     int max_bounces, int center_sample, int rng_sphere, int32_t* __restrict__ words) {
   extern __shared__ float4 s_geo[];
-  const float4* geo = reinterpret_cast<const float4*>(spheres);
-  if constexpr (kGeo == kGeoCompact) {
-    for (int i = threadIdx.x; i < n_spheres; i += blockDim.x) {
-      const float* q = spheres + i * kCols;
-      s_geo[i] = make_float4(q[0], q[1], q[2], q[3] * q[3]);
-    }
-    __syncthreads();
-    geo = s_geo;
-  }
+  const float4* geo = scan_rows<kGeo>(spheres, n_spheres, s_geo);
   const int n = width * height;
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
   if (gid >= n) return;
@@ -107,20 +126,24 @@ __global__ void __launch_bounds__(kThreads) blockwise_kernel(
   o[2] = acc[2];
 }
 
+// kGeo as blockwise_kernel's.
+template <int kGeo>
 __global__ void __launch_bounds__(kThreads) blockwise_record_kernel(
     const float* __restrict__ spheres, int n_spheres,
     const float* __restrict__ planes, int n_planes,
     const float* __restrict__ boxes, int n_boxes,
     const float* __restrict__ cam, const int32_t* __restrict__ seeds, RecordPtrs P, int width,
     int height, float inv_w, float inv_h, int max_bounces, int center_sample, int rng_sphere) {
+  extern __shared__ float4 s_geo[];
+  const float4* geo = scan_rows<kGeo>(spheres, n_spheres, s_geo);
   const int n = width * height;
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
   if (gid >= n) return;
   const Tables T{spheres, n_spheres, planes, n_planes, boxes, n_boxes};
-  record_pixel<kCols, kCols, kRecBlockwise>(
+  record_pixel<kCols, kCols, kRecBlockwise, kGeo>(
       T, cam, static_cast<uint32_t>(gid), n, static_cast<float>(gid % width),
       static_cast<float>(gid / width), static_cast<uint32_t>(seeds[0]), inv_w, inv_h,
-      max_bounces, center_sample, rng_sphere, true, P);
+      max_bounces, center_sample, rng_sphere, true, P, geo);
 }
 
 // One launch of blockwise_kernel<kWords, *>: the staged form where the
@@ -132,7 +155,7 @@ void launch_blockwise(const float* spheres, int n_spheres, const float* planes, 
                       int max_bounces, int center_sample, int rng_sphere, int32_t* words,
                       cudaStream_t stream) {
   const int blocks = (width * height + kThreads - 1) / kThreads;
-  if (n_spheres <= kStageRows) {
+  if (staged(n_spheres)) {
     const size_t smem = sizeof(float4) * static_cast<size_t>(n_spheres);
     blockwise_kernel<kWords, kGeoCompact><<<blocks, kThreads, smem, stream>>>(
         spheres, n_spheres, planes, n_planes, boxes, n_boxes, cam, seeds, out, width, height,
@@ -187,8 +210,16 @@ extern "C" int rt_blockwise_record(
     int max_bounces, int center_sample, int rng_sphere, void* stream) {
   const int blocks = (width * height + kThreads - 1) / kThreads;
   const RecordPtrs P{rad, kind, idx, bits, urx, ury, urz, coin, jitter};
-  blockwise_record_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      spheres, n_spheres, planes, n_planes, boxes, n_boxes, cam, seeds, P, width, height,
-      inv_w, inv_h, max_bounces, center_sample, rng_sphere);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (staged(n_spheres)) {
+    const size_t smem = sizeof(float4) * static_cast<size_t>(n_spheres);
+    blockwise_record_kernel<kGeoCompact><<<blocks, kThreads, smem, s>>>(
+        spheres, n_spheres, planes, n_planes, boxes, n_boxes, cam, seeds, P, width, height,
+        inv_w, inv_h, max_bounces, center_sample, rng_sphere);
+  } else {
+    blockwise_record_kernel<kGeoHead16><<<blocks, kThreads, 0, s>>>(
+        spheres, n_spheres, planes, n_planes, boxes, n_boxes, cam, seeds, P, width, height,
+        inv_w, inv_h, max_bounces, center_sample, rng_sphere);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -675,17 +675,23 @@ __device__ PrimGrad bounce_adjoint(const float* s_pl, const float* s_sp, const f
   return pg;
 }
 
-// Sum of v over the block, in a fixed order; the result is valid in thread 0.
-__device__ __forceinline__ float block_sum(float* red, float v) {
-  red[threadIdx.x] = v;
-  __syncthreads();
-  for (unsigned stride = blockDim.x / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) red[threadIdx.x] = red[threadIdx.x] + red[threadIdx.x + stride];
-    __syncthreads();
+// Adds the block's camera partials (cam_acc, one set per thread) to the
+// float64 camera cotangent cg: over each warp by shuffles, then over the
+// block's kThreads / 32 warps in a fixed order through `red` (that many
+// times kCam floats of shared memory), and one atomicAdd per block and
+// float.  Every thread of the block calls it (one barrier).
+__device__ __forceinline__ void block_add_cam(float* red, const float cam_acc[kCam], double* cg) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = 0; i < kCam; ++i) {
+    const float c = warp_sum(cam_acc[i]);
+    if (lane == 0) red[warp * kCam + i] = c;
   }
-  const float r = red[0];
   __syncthreads();
-  return r;
+  if (threadIdx.x < kCam) {
+    float t = red[threadIdx.x];
+    for (int w = 1; w < kThreads / 32; ++w) t = t + red[w * kCam + threadIdx.x];
+    atomicAdd(cg + threadIdx.x, static_cast<double>(t));
+  }
 }
 
 }  // namespace

@@ -151,17 +151,7 @@ __global__ void __launch_bounds__(kThreads, 4) bw_grad_kernel(Args A) {
 
   // the camera partials: over the warp by shuffles, then over the block's
   // warps in a fixed order, and one float64 atomic per block and float
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = 0; i < kCam; ++i) {
-    const float c = warp_sum(cam_acc[i]);
-    if (lane == 0) red[warp * kCam + i] = c;
-  }
-  __syncthreads();
-  if (threadIdx.x < kCam) {
-    float t = red[threadIdx.x];
-    for (int w = 1; w < kThreads / 32; ++w) t = t + red[w * kCam + threadIdx.x];
-    atomicAdd(A.cg + threadIdx.x, static_cast<double>(t));
-  }
+  block_add_cam(red, cam_acc, A.cg);
 }
 
 }  // namespace

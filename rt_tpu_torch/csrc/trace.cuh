@@ -37,9 +37,10 @@
 //     ray to its hit point and new direction, as _bounce_once does (only
 //     the wavefront state keeps them, and nothing reads a dead ray's).
 //
-// The rejecting scan (template argument kGeo of bounce_once and
-// trace_pixel; the render kernel and both forms of the blockwise kernel,
-// queue 2 rows 1 and 5): the sphere rows come as compact float4 rows
+// The rejecting scan (template argument kGeo of bounce_once, trace_pixel
+// and record_pixel; the render kernel, both forms of the blockwise kernel
+// and the blockwise record kernel, queue 2 rows 1, 5 and 6): the sphere
+// rows come as compact float4 rows
 // (cx, cy, cz, rr) in shared memory, rr the float32 product r * r (the
 // value every row test computes), or as the float4 heads (cx, cy, cz, r)
 // of the 16-float device-memory rows (one 128-bit load per row; rr
@@ -52,7 +53,9 @@
 // a number is -0 only for -0 - +0), so nothing else changes either.  One
 // branch per group of rows lets a warp skip the root work when none of its
 // lanes needs it (scan_spheres_rejecting).
-// The record forms and the wavefront kernel keep the table-row scan
+// The blockwise record form runs it too (kRoot: row_root also keeps the
+// near-root flag of the row it takes; see the record note below); the
+// unrolled record form and the wavefront kernel keep the table-row scan
 // (kGeoTable), which compiles to the code it had before.
 //
 // The record form of bounce_once (template argument kRec, used by
@@ -74,8 +77,13 @@
 // led the scan (a box may beat it later); the blockwise kernel
 // (kRecBlockwise) computes the reflect bit always and recomputes the root
 // bit from the winner's sphere row, an all-zero row unless a sphere won.
-// The existing kernels instantiate kRecNone, for which none of this is
-// compiled.
+// So the blockwise form's root bit is a function of the winner alone, and
+// the rejecting scan, which takes the same rows in the same order, gives
+// the serial scan's bit: the flag of the last row taken is the winner's
+// whenever a sphere wins.  The unrolled form's bit (the sphere that last
+// led, even when a box wins later) is the same too, but that form keeps
+// the table-row scan.  The forward kernels instantiate kRecNone, for which
+// none of this is compiled.
 
 #pragma once
 
@@ -282,21 +290,25 @@ __device__ __forceinline__ void row_disc(const float4& g, float rr, float ox, fl
 }
 
 // The rest of the row test, for a row with disc >= 0: the roots, the
-// select and the tie rules, as the serial scan.
+// select and the tie rules, as the serial scan; kRoot (the record form)
+// also keeps the taken row's near-root flag, as its serial scan does.
+template <bool kRoot>
 __device__ __forceinline__ void row_root(float bq, float disc, int row, float& best, int& kind,
-                                         int& win) {
+                                         int& win, bool& root) {
   const float sq = sqrtf(disc);
   const float t0 = -bq - sq;
   const float t1 = -bq + sq;
   const float t = t0 >= kMinHit ? t0 : t1;
   if (t >= kMinHit && (t < best || (t == best && kind == kPlane))) {
     best = t; kind = kSphere; win = row;
+    if constexpr (kRoot) root = t0 >= kMinHit;
   }
 }
 
 // The rejecting scan over n sphere rows of `geo` (kGeoCompact or
 // kGeoHead16; see the note above): the serial scan's winner over them,
-// updating best, kind and win as the table-row loop of bounce_once does.
+// updating best, kind, win and, with kRoot, root as the table-row loop of
+// bounce_once does.
 // Rows go in groups of kRejectGroup: each row's terms up to disc, then one
 // branch into the group's root work, in which each row with disc >= 0
 // runs row_root, in row order.  The branch is a warp vote: the warp takes
@@ -305,11 +317,11 @@ __device__ __forceinline__ void row_root(float bq, float disc, int row, float& b
 // reconvergence barrier; most groups skip it (the root work is rare), and
 // the rows' loads of a group go out together.  chip_ab.py's scan_group_*
 // and scan_no_vote variants measured the group size and the vote.
-template <int kGeo>
+template <int kGeo, bool kRoot = false>
 __device__ __forceinline__ void scan_spheres_rejecting(const float4* __restrict__ geo, int n,
                                                        float ox, float oy, float oz, float dx,
                                                        float dy, float dz, float& best,
-                                                       int& kind, int& win) {
+                                                       int& kind, int& win, bool& root) {
   constexpr int kStep = kGeo == kGeoHead16 ? 4 : 1;  // float4s per row
   int i = 0;
   for (; i + kRejectGroup <= n; i += kRejectGroup) {
@@ -324,7 +336,7 @@ __device__ __forceinline__ void scan_spheres_rejecting(const float4* __restrict_
     if (__any_sync(__activemask(), any)) {
 #pragma unroll
       for (int k = 0; k < kRejectGroup; ++k) {
-        if (disc[k] >= 0.0f) row_root(bq[k], disc[k], i + k, best, kind, win);
+        if (disc[k] >= 0.0f) row_root<kRoot>(bq[k], disc[k], i + k, best, kind, win, root);
       }
     }
   }
@@ -332,7 +344,7 @@ __device__ __forceinline__ void scan_spheres_rejecting(const float4* __restrict_
     const float4 g = geo[i * kStep];
     float bq, disc;
     row_disc(g, kGeo == kGeoHead16 ? g.w * g.w : g.w, ox, oy, oz, dx, dy, dz, bq, disc);
-    if (disc >= 0.0f) row_root(bq, disc, i, best, kind, win);
+    if (disc >= 0.0f) row_root<kRoot>(bq, disc, i, best, kind, win, root);
   }
 }
 
@@ -479,14 +491,15 @@ __device__ __forceinline__ bool finish_bounce(const Tables& T, uint32_t pix, uin
 // with first 0 and step 1, written out; see its note), then
 // finish_bounce.  kGeo other than kGeoTable scans the spheres with
 // scan_spheres_rejecting over `geo`, the same rows as T.spheres (kRecNone
-// only).
+// and kRecBlockwise: see the record note above).
 template <int kPrimStride, int kBoxStride, int kRec = kRecNone, int kGeo = kGeoTable>
 __device__ __forceinline__ bool bounce_once(const Tables& T, uint32_t pix, uint32_t seed,
                                             uint32_t c, int rng_sphere, Ray& r, float rad[3],
                                             int32_t& word, Record* rec = nullptr,
                                             bool has_die = true,
                                             const float4* __restrict__ geo = nullptr) {
-  static_assert(kGeo == kGeoTable || kRec == kRecNone, "the record forms scan the table rows");
+  static_assert(kGeo == kGeoTable || kRec != kRecUnrolled,
+                "the unrolled record form scans the table rows");
   const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
   // ---- closest hit ----
   float best = kBig;
@@ -518,7 +531,8 @@ __device__ __forceinline__ bool bounce_once(const Tables& T, uint32_t pix, uint3
       }
     }
   } else {
-    scan_spheres_rejecting<kGeo>(geo, T.n_spheres, ox, oy, oz, dx, dy, dz, best, kind, win);
+    scan_spheres_rejecting<kGeo, kRec != kRecNone>(geo, T.n_spheres, ox, oy, oz, dx, dy, dz,
+                                                   best, kind, win, root);
   }
   if (T.n_boxes > 0) {
     const float ivx = 1.0f / (fabsf(dx) > 1e-12f ? dx : 1e-12f);
@@ -586,13 +600,16 @@ __device__ __forceinline__ void trace_pixel(
 // records (the record kernels, rows 2 and 6): the sample's counters are
 // trace_pixel's with spp = 1, its jitter is written even at the pixel
 // centre (0.5), every bounce writes its draws, and once the path has ended
-// a bounce writes kind, idx and bits 0.
-template <int kPrimStride, int kBoxStride, int kRec>
+// a bounce writes kind, idx and bits 0.  The spheres are scanned as
+// bounce_once's kGeo says (the blockwise form: the rejecting scan over
+// `geo`).
+template <int kPrimStride, int kBoxStride, int kRec, int kGeo = kGeoTable>
 __device__ __forceinline__ void record_pixel(const Tables& T, const float* __restrict__ cam,
                                              uint32_t pix, int n, float px, float py,
                                              uint32_t seed, float inv_w, float inv_h,
                                              int max_bounces, int center_sample, int rng_sphere,
-                                             bool has_die, const RecordPtrs& P) {
+                                             bool has_die, const RecordPtrs& P,
+                                             const float4* __restrict__ geo = nullptr) {
   float jx = 0.5f, jy = 0.5f;
   if (!center_sample) {
     jx = hash_u01(pix, seed, 1u);
@@ -608,8 +625,8 @@ __device__ __forceinline__ void record_pixel(const Tables& T, const float* __res
     const uint32_t c = 2u + 4u * static_cast<uint32_t>(b);
     Record rec{0, 0, 0, 0.0f, 0.0f, 0.0f, 0.0f};
     if (alive) {
-      alive = bounce_once<kPrimStride, kBoxStride, kRec>(T, pix, seed, c, rng_sphere, r, rad,
-                                                         word, &rec, has_die);
+      alive = bounce_once<kPrimStride, kBoxStride, kRec, kGeo>(T, pix, seed, c, rng_sphere, r,
+                                                               rad, word, &rec, has_die, geo);
     } else {
       unit_draws(pix, seed, c, rng_sphere, rec.ux, rec.uy, rec.uz, rec.coin);
     }

@@ -29,17 +29,28 @@
 //
 // What bounds it on this card.  Per live ray and bounce: ~200-350 FP32
 // operations of the adjoint, 56 bytes of saved state and word, 36 bytes
-// of cotangent read and written, and 9 (sphere) or 5 (plane) float64
-// atomics into the gradient tables; no scan, so the reverse is a small
-// share of a train step next to the forward's scans.  The design:
+// of cotangent read and written, and the winner's 9 (sphere) or 5 (plane)
+// gradient slots; no scan, so the reverse is a small share of a train step
+// next to the forward's scans.  And the sums: with one float64 atomic per
+// slot per ray, ablation builds (chip_ab.py; PERF.md) put 84% of the
+// bounce-0 launch of a 1,036,800-ray chunk and 32% of the later ones in
+// those atomics: camera rays in pixel order, most of a warp's lanes on the
+// few rows the camera sees, so the adds to their addresses serialize.
+// The design:
 //   * one thread per ray of the saved table; a dead ray's bounce is the
-//     identity on its cotangents and adds no gradient, so its thread
-//     returns at once, and threads past the live prefix read nothing;
-//   * per-row gradients go to one float64 (9, S) and (5, P) table per
-//     step with global atomics (add_prim_grad), as bw_grad_kernel.cu does
-//     (float32 atomics in varying order reached half the card check's tolerance
-//     there); the camera sums of the gen launch through a fixed-order tree
-//     reduction of the block and one float64 atomic per block and float.
+//     identity on its cotangents and adds no gradient, so its lane skips
+//     the adjoint (key -1) but still reaches the warp's sums; a warp whose
+//     first lane lies past the live prefix leaves as a whole, and lanes
+//     past the prefix read nothing;
+//   * per-row gradients are summed per warp by winner first (bounce.cuh
+//     warp_add_prim_grad: lanes grouped with __match_any_sync, each
+//     group's slots summed by a butterfly of shuffles), and the groups'
+//     leaders add to one float64 (9, S) and (5, P) table per step with
+//     global atomics, as bw_grad_kernel.cu does (float32 atomics in varying
+//     order reached half the card check's tolerance there);
+//   * the camera sums of the gen launch go over the warp by shuffles, then
+//     over the block's warps in a fixed order, and one float64 atomic per
+//     block and float (bounce.cuh block_add_cam).
 
 #include "bounce.cuh"
 
@@ -68,9 +79,10 @@ struct Args {
 
 // Reverse of one live ray's bounce whose draws start after counter c:
 // v = (o, d, thr) entering it, rec its winner word; co, cd, ct in place.
-__device__ __forceinline__ void reverse_ray(const Args& A, uint32_t pix, uint32_t seed,
-                                            uint32_t c, const float v[kStashF], int32_t rec,
-                                            float co[3], float cd[3], float ct[3]) {
+// Returns the winner's payload cotangents.
+__device__ __forceinline__ PrimGrad reverse_ray(const Args& A, uint32_t pix, uint32_t seed,
+                                                uint32_t c, const float v[kStashF], int32_t rec,
+                                                float co[3], float cd[3], float ct[3]) {
   const float ox = v[0], oy = v[1], oz = v[2], dx = v[3], dy = v[4], dz = v[5];
   // the winner's distance and root bit (_recompute_t: the scan's float ops)
   float best = kBig;
@@ -102,43 +114,49 @@ __device__ __forceinline__ void reverse_ray(const Args& A, uint32_t pix, uint32_
   const uint32_t word = decisions<kCols>(A.planes, A.spheres, ox, oy, oz, dx, dy, dz, true, best,
                                          win, ispl, root, ux, uy, uz, coin);
   const float crad[3] = {A.cot_pix[pix * 3 + 0], A.cot_pix[pix * 3 + 1], A.cot_pix[pix * 3 + 2]};
-  add_prim_grad(bounce_adjoint<kCols>(A.planes, A.spheres, v, word, ux, uy, uz, crad, co, cd, ct),
-                A.sg, A.pg, A.n_spheres, A.n_planes);
+  return bounce_adjoint<kCols>(A.planes, A.spheres, v, word, ux, uy, uz, crad, co, cd, ct);
 }
 
 __global__ void __launch_bounds__(kThreads) wf_rev_kernel(Args A) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= A.n) return;
-  const float* s = A.state + j;
   const int n = A.n;
-  if ((A.limit != nullptr && j >= *A.limit) || !(s[12 * n] > 0.0f)) return;
-  const uint32_t id = static_cast<uint32_t>(A.ids[j]);
-  const uint32_t pix = id % static_cast<uint32_t>(A.n_pix);
-  const uint32_t smp = id / static_cast<uint32_t>(A.n_pix);
-  const uint32_t c = smp * (2u + 4u * static_cast<uint32_t>(A.max_bounces)) + 2u +
-                     4u * static_cast<uint32_t>(A.bounce);
-  float v[kStashF];
-  for (int k = 0; k < kStashF; ++k) v[k] = s[k * n];
-  float* cot = A.cot + id;
-  const int64_t m = A.n_rays;
-  float co[3] = {cot[0 * m], cot[1 * m], cot[2 * m]};
-  float cd[3] = {cot[3 * m], cot[4 * m], cot[5 * m]};
-  float ct[3] = {cot[6 * m], cot[7 * m], cot[8 * m]};
-  reverse_ray(A, pix, static_cast<uint32_t>(A.seed[0]), c, v, A.words[j], co, cd, ct);
-  for (int k = 0; k < 3; ++k) {
-    cot[k * m] = co[k];
-    cot[(3 + k) * m] = cd[k];
-    cot[(6 + k) * m] = ct[k];
+  const int live_n = A.limit != nullptr ? min(n, *A.limit) : n;
+  if ((j & ~31) >= live_n) return;  // the whole warp lies past the live prefix
+  PrimGrad g;
+  g.key = -1;
+  const float* s = A.state + j;
+  if (j < live_n && s[12 * n] > 0.0f) {  // a live ray; every lane reaches the warp's sums
+    const uint32_t id = static_cast<uint32_t>(A.ids[j]);
+    const uint32_t pix = id % static_cast<uint32_t>(A.n_pix);
+    const uint32_t smp = id / static_cast<uint32_t>(A.n_pix);
+    const uint32_t c = smp * (2u + 4u * static_cast<uint32_t>(A.max_bounces)) + 2u +
+                       4u * static_cast<uint32_t>(A.bounce);
+    float v[kStashF];
+    for (int k = 0; k < kStashF; ++k) v[k] = s[k * n];
+    float* cot = A.cot + id;
+    const int64_t m = A.n_rays;
+    float co[3] = {cot[0 * m], cot[1 * m], cot[2 * m]};
+    float cd[3] = {cot[3 * m], cot[4 * m], cot[5 * m]};
+    float ct[3] = {cot[6 * m], cot[7 * m], cot[8 * m]};
+    g = reverse_ray(A, pix, static_cast<uint32_t>(A.seed[0]), c, v, A.words[j], co, cd, ct);
+    for (int k = 0; k < 3; ++k) {
+      cot[k * m] = co[k];
+      cot[(3 + k) * m] = cd[k];
+      cot[(6 + k) * m] = ct[k];
+    }
   }
+  warp_add_prim_grad<true>(g, A.sg, A.pg, A.n_spheres, A.n_planes);
 }
 
 __global__ void __launch_bounds__(kThreads) wf_rev_gen_kernel(Args A) {
-  __shared__ float red[kThreads];
+  __shared__ float red[kThreads / 32 * kCam];
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   float cam_acc[kCam];
   for (int i = 0; i < kCam; ++i) cam_acc[i] = 0.0f;
+  PrimGrad g;
+  g.key = -1;
 
-  if (j < A.n) {  // no early return: every thread reaches the barriers below
+  if (j < A.n) {  // no early return: every lane reaches the sums below
     const uint32_t pix = static_cast<uint32_t>(j % A.n_pix);
     const uint32_t smp = static_cast<uint32_t>(j / A.n_pix);
     const uint32_t seed = static_cast<uint32_t>(A.seed[0]);
@@ -157,14 +175,11 @@ __global__ void __launch_bounds__(kThreads) wf_rev_gen_kernel(Args A) {
     float co[3] = {cot[0 * m], cot[1 * m], cot[2 * m]};
     float cd[3] = {cot[3 * m], cot[4 * m], cot[5 * m]};
     float ct[3] = {cot[6 * m], cot[7 * m], cot[8 * m]};
-    reverse_ray(A, pix, seed, base + 2u, v, A.words[j], co, cd, ct);
+    g = reverse_ray(A, pix, seed, base + 2u, v, A.words[j], co, cd, ct);
     raygen_adjoint(cam, rp, co, cd, cam_acc);
   }
-
-  for (int i = 0; i < kCam; ++i) {
-    const float c = block_sum(red, cam_acc[i]);
-    if (threadIdx.x == 0) atomicAdd(A.cg + i, static_cast<double>(c));
-  }
+  warp_add_prim_grad<true>(g, A.sg, A.pg, A.n_spheres, A.n_planes);
+  block_add_cam(red, cam_acc, A.cg);
 }
 
 }  // namespace

@@ -64,9 +64,10 @@ def apply_params(scene, params: dict[str, torch.Tensor]):
     return scene
 
 
-def params_from_numpy(d: dict, device="cpu") -> dict[str, torch.Tensor]:
+def params_from_numpy(d: dict, device="cuda") -> dict[str, torch.Tensor]:
     """Params given as arrays (for instance ``{k: np.asarray(v)}`` of the
-    JAX package's params) as this package's dict of tensors on ``device``,
+    JAX package's params) as this package's dict of tensors on ``device``
+    (the card unless the caller asks for the CPU, as every entry point),
     with the same dtypes and values."""
     return {k: torch.from_numpy(np.array(v)).to(device) for k, v in d.items()}
 

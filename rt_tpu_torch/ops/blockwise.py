@@ -328,6 +328,8 @@ def render_record_blockwise_tile(spheres, planes, boxes, counts, cam, seeds, *, 
     w, h = size
     ns, npl, nb = counts
     _check_tables(fn, (spheres, planes, boxes), counts, dev)
+    if spheres.data_ptr() % 16:
+        raise ValueError(f"{fn}: the sphere table must be 16-byte aligned (float4 rows)")
     _check(fn, "cam", cam, torch.float32, (16,), dev)
     _check(fn, "seeds", seeds, torch.int32, (1,), dev)
     if w < 1 or h < 1 or max_bounces < 0 or w * h * max(max_bounces, 3) >= 2**31:

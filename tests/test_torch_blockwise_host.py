@@ -141,14 +141,14 @@ def test_tables_torch_match_tables_jnp(name, personality):
     s_pad, p_pad = jb._bucket(js.spheres.count), jb._bucket(js.planes.count)
     want = jbg._tables_jnp(js, jp, personality, s_pad, p_pad, size)
     build = tbg._tables_torch(ts, personality, s_pad, p_pad, size, "cpu")
-    got = build(tdiff.params_from_numpy({k: np.asarray(v) for k, v in jp.items()}))
+    got = build(tdiff.params_from_numpy({k: np.asarray(v) for k, v in jp.items()}, device="cpu"))
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     # the same tables as the forward route's host set-up of the scene at
     # those params, but for the index column (the kernels do not read it)
     concrete = tdiff.apply_params(ts, tdiff.params_from_numpy(
-        {k: np.asarray(v) for k, v in jp.items()}))
+        {k: np.asarray(v) for k, v in jp.items()}, device="cpu"))
     s_tab, p_tab, _, _ = tb._device_tables(concrete, personality, False, torch.device("cpu"))
     cam = torch.from_numpy(tr._pack_camera(concrete.camera, size))
     for g, w in zip(got, (s_tab, p_tab, cam)):

@@ -18,7 +18,7 @@ from rt_tpu_torch import diff
 from rt_tpu_torch.ops import grad as tg
 from rt_tpu_torch.ops import render as tr
 from test_torch_common import (BOX_TOML, PLANES_TOML, SCENES, assert_frames_close,
-                               grazing_scene_toml, tie_scene_toml)
+                               box_scene_toml, grazing_scene_toml, tie_scene_toml)
 
 pytestmark = pytest.mark.cuda
 
@@ -528,6 +528,55 @@ def test_wf_rev_matches_plain(cuda, name, personality):
         cot = cot_plain
 
 
+@pytest.mark.parametrize("case", ["shared", "own", "mid_warp", "ragged"])
+def test_wf_rev_warp_sums(cuda, case):
+    """The reverse adds its gradients per warp by winner (bounce.cuh
+    warp_add_prim_grad, all 32 lanes at the call): every launch within 1e-5
+    x L1 of the plain version where every lane of a warp that hit has the
+    same winner (sphere row 7), where every such lane has its own (row =
+    ray index modulo the rows), where the live prefix ends mid-warp (limit
+    32k + 13), and on a ragged table of 851 rays (37x23, one sample: not a
+    multiple of 32).  The misses stay misses, so the sky's cotangent
+    reaches the earlier bounces and the sums are not all zero."""
+    from rt_tpu_torch.ops import wavefront_grad as twg
+
+    scene = rt_tpu_torch.scene.make_procedural_scene(1600)
+    size, spp, depth = ((37, 23), 1, 4) if case == "ragged" else ((48, 32), 2, 4)
+    (sp, pl, _, counts), cam, seeds, _, _, saved = _wf_record(cuda, scene, "mg", False, size, spp,
+                                                              depth, "reference", False)
+    n_pix = size[0] * size[1]
+    n = n_pix * spp
+    cot_pix = torch.from_numpy(np.random.default_rng(7).uniform(-1e-4, 1e-4, (n_pix, 3))
+                               .astype(np.float32)).to(cuda)
+    cot = torch.zeros((9, n), device=cuda)
+    total = 0.0
+    for b in reversed(range(depth)):
+        state, ids, words, limit = saved[b]
+        miss = (words & tr.WORD_MISS) != 0
+        if case == "shared":
+            words = torch.where(miss, words, 7)
+        elif case == "own":
+            own = (torch.arange(words.numel(), device=cuda) % counts[0]).to(torch.int32)
+            words = torch.where(miss, words, own)
+        elif case == "mid_warp" and b > 0:
+            live = int((state[12] > 0).sum())
+            limit = torch.tensor([32 * max(live // 64, 1) + 13], dtype=torch.int32, device=cuda)
+        cot_plain = cot.clone()
+        got = twg.wf_rev(sp, pl, counts[:2], cam, seeds, state, ids, words, limit, cot, cot_pix,
+                         size=size, bounce=b, max_bounces=depth, center_sample=True)
+        want, l1 = twg.wf_rev_plain(sp, pl, counts[:2], cam, seeds, state, ids, words, limit,
+                                    cot_plain, cot_pix, size=size, bounce=b, max_bounces=depth,
+                                    center_sample=True, with_l1=True)
+        torch.cuda.synchronize()
+        _assert_within_l1(got, want, l1)
+        total += float(want[0].abs().sum() + want[1].abs().sum())
+        if b:
+            scale = cot_plain.abs().max().clamp_min(1e-30)
+            assert (cot - cot_plain).abs().max() <= 1e-5 * scale, b
+        cot = cot_plain
+    assert total > 0  # the launches added gradients
+
+
 def test_wavefront_entry_points_launch_the_kernels(cuda):
     """Past 1536 spheres mg_auto takes the wavefront route (one gen and 3
     bounce launches per chunk at depth 4) and renders the blockwise frame
@@ -613,6 +662,44 @@ def test_record_kernels_match_plain(cuda, name, personality, include_boxes, rng_
         assert torch.equal(rad, want_rad) and torch.equal(rad, frame)
         for k in want:
             assert torch.equal(recs[k], want[k]), k
+
+
+@pytest.mark.parametrize("name,size,include_boxes", [
+    ("box660", (320, 240), True),
+    ("box2048", (64, 48), True),
+    ("box2100", (64, 48), True),
+    ("ties", (96, 64), True),
+    ("grazing", (96, 64), False),
+])
+def test_blockwise_record_kernel_rejecting_scan(cuda, name, size, include_boxes):
+    """The blockwise record kernel scans spheres with the rejecting scan,
+    keeping the winner's near-root flag (csrc/trace.cuh row_root): bit for
+    bit with its plain version (every record array and the radiance), with
+    both centre settings, on the 660-sphere + 24-box scene (rows staged in
+    shared memory), on 2048 spheres (the most rows staged) and 2100 (rows
+    from device memory), each with 24 boxes, and on the tie-heavy and
+    grazing scenes."""
+    from rt_tpu_torch.ops import blockwise as tb
+
+    scene = rt_tpu_torch.loads({"box660": lambda: box_scene_toml(660, 24),
+                                "box2048": lambda: box_scene_toml(2048, 24),
+                                "box2100": lambda: box_scene_toml(2100, 24),
+                                "ties": tie_scene_toml, "grazing": grazing_scene_toml}[name]())
+    tabs = _bw_tables(cuda, scene, "mg", include_boxes)
+    cam = torch.from_numpy(tr._pack_camera(scene.camera, size)).to(cuda)
+    seeds = torch.tensor([29], dtype=torch.int32, device=cuda)
+    for center in (True, False):
+        kw = dict(size=size, max_bounces=8, center_sample=center)
+        rad, recs = tb.render_record_blockwise_tile(*tabs, cam, seeds, **kw)
+        want_rad, want = tb.render_record_blockwise_tile_plain(*tabs, cam, seeds, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(rad, want_rad), (name, center)
+        for k in want:
+            assert torch.equal(recs[k], want[k]), (name, center, k)
+        hits = ((recs["bits"] & 16) > 0) & (recs["kind"] == 1)
+        assert hits.any() and ((recs["bits"][hits] & 1) > 0).any(), name
+        if include_boxes:
+            assert (recs["kind"] == 3).any(), name
 
 
 @pytest.mark.parametrize("k_fma", [64, 1024])

@@ -108,7 +108,7 @@ def test_assemble_and_pad_match_jax():
 def test_params_carry_bit_for_bit():
     js = rt_tpu.loads(SHARED_TOML)
     jp = jdiff.extract_params(js)
-    tp = tdiff.params_from_numpy({k: np.asarray(v) for k, v in jp.items()})
+    tp = tdiff.params_from_numpy({k: np.asarray(v) for k, v in jp.items()}, device="cpu")
     ts = rt_tpu_torch.from_jax_scene(js)
     assert set(tp) == set(tdiff.extract_params(ts))
     for k, v in tdiff.extract_params(ts).items():

@@ -28,7 +28,7 @@ def assert_step_matches_jax(name, personality, mode, size=(16, 8), spp=2, max_bo
     w, h = size
     target = np.random.default_rng(0).uniform(0.0, 0.5, (h, w, 3)).astype(np.float32)
     jp = jdiff.extract_params(js)
-    tp = tdiff.params_from_numpy({k: np.asarray(v) for k, v in jp.items()})
+    tp = tdiff.params_from_numpy({k: np.asarray(v) for k, v in jp.items()}, device="cpu")
     kw = dict(seed=seed, spp=spp, max_bounces=max_bounces, personality=personality)
     if mode == "blockwise":
         want_loss, want = jbg.bw_mse_loss_and_grad(jp, js, jnp.asarray(target), size,

@@ -23,7 +23,7 @@ from test_torch_ops import jax_scene
 
 def _params(js):
     jp = jdiff.extract_params(js)
-    return jp, tdiff.params_from_numpy({k: np.asarray(v) for k, v in jp.items()})
+    return jp, tdiff.params_from_numpy({k: np.asarray(v) for k, v in jp.items()}, device="cpu")
 
 
 def assert_grads_close(got, want):

@@ -147,7 +147,7 @@ def test_replay_matches_jax(cid):
     want_loss, want = jdiff._replay_value_and_grad(
         jp, js, jnp.asarray(target), [jflat], size=SIZE, personality=pers,
         max_bounces=BOUNCES, include_boxes=boxes, grid=grid_j)
-    tp = tdiff.params_from_numpy({k: np.asarray(v) for k, v in jp.items()})
+    tp = tdiff.params_from_numpy({k: np.asarray(v) for k, v in jp.items()}, device="cpu")
     loss, got = tdiff._replay_value_and_grad(
         tp, ts, torch.from_numpy(target), [tflat], size=SIZE, personality=pers,
         max_bounces=BOUNCES, include_boxes=boxes, grid=tint._pixel_grid(SIZE))

@@ -36,7 +36,7 @@ def test_wf_step_matches_jax():
     size = (12, 8)
     target = np.random.default_rng(0).uniform(0.0, 0.5, (8, 12, 3)).astype(np.float32)
     jp = jdiff.extract_params(js)
-    tp = tdiff.params_from_numpy({k: np.asarray(v) for k, v in jp.items()})
+    tp = tdiff.params_from_numpy({k: np.asarray(v) for k, v in jp.items()}, device="cpu")
     kw = dict(spp=5, max_bounces=3)   # two chunks (4 + 1 samples), two chunk seeds
     want_loss, want = jwg.make_wf_mse_step(jp, js, jnp.asarray(target), size, interpret=True,
                                            **kw)(13)
