@@ -159,6 +159,29 @@ Phases (an exception in any phase exits non-zero before the result line):
    and the disc >= 0 pairs beside its bound, as for the blockwise kernel's
    config-4 train-step launch.
 
+6. The jnp-style path (rt_tpu's own front door: torch ops, no kernel;
+   every kernel counter is reset before it and read after, and none may
+   have launched).  (a) The threefry bits (``random_bits`` and ``uniform``)
+   equal on the card and the CPU for 2 seeds x 3 fold chains x 65536x3
+   counters, and ``closest_hit`` on 2^17 random rays of basic+box
+   (--boxes), cornell, 500 spheres and the tie-heavy scene (--boxes):
+   every winner equal to the CPU's, the largest |dt| printed.  (b) The CLI
+   without --renderer on basic.toml at 800x600 with the scene's 30 spp and
+   10 bounces: ``mg`` resolves to mg_ray_tracer and writes its PNG; the
+   frame time, Mrays/s and the card's busy share of a 1-spp frame; the
+   card's 96x64 4-spp frame against the CPU's (2e-5 on >= 99.5% of
+   pixels); the rasterizer and null renderers at 800x600.  (c) mg_auto on
+   17000 procedural spheres at 320x240, 1 spp, depth 4: route "jnp", its
+   warning, the frame time.  (d) ``diff.loss_and_grad`` at the README's
+   shape (basic, 800x600, 4 spp, depth 4) in both grad modes: the losses
+   to rel 1e-5, the gradients within atol 3e-4 x max|g| and rtol 3e-3, a
+   central FD on materials.reflectivity[0] within 2e-2 (bench.py's rule),
+   each mode's time and peak memory.  (e) ``train.fit`` on
+   examples/inverse_rendering.py's set-up (96x64, 4 spp, depth 4, lr 3e-2,
+   albedo) for 30 steps must lower the loss; 4 steps against 2 steps and a
+   resume from the step-2 checkpoint, within 1e-6 relative; a step of the
+   README's fit at 400x300 timed.
+
 The last two lines are the card line and {"ok": true, "device": ...};
 the line before them is the per-kernel JSON summary, and the line before
 that ("[report] ...") holds every number the run measured.
@@ -2557,6 +2580,302 @@ def records_timing(scenes, shape_a, card, report):
     return rows
 
 
+# ---- the jnp-style path (rt_tpu's own front door): the threefry rng,
+# closest_hit, the integrator, loss_and_grad and fit.  It is PyTorch on the
+# card from end to end and launches none of the ten kernels. ----
+
+# examples/inverse_rendering.py's scene
+INVERSE_TOML = """
+materials = [ { type = 'lambert', albedo = [0.85, 0.85, 0.85] },
+              { type = 'lambert', albedo = [0.2, 0.45, 0.85] },
+              { type = 'metal',   albedo = [0.9, 0.9, 0.9], roughness = 0.1 } ]
+spheres = [ { material = 0, position = [0, -1000, 0], radius = 1000 },
+            { material = 1, position = [-0.7, 0.5, 0] },
+            { material = 2, position = [0.7, 0.5, 0] } ]
+camera = { position = [0, 1, 3], direction = 'forward' }
+"""
+
+
+def kernel_wrappers():
+    """Every kernel wrapper of the port (each counts its launches)."""
+    from rt_tpu_torch import roofline
+    from rt_tpu_torch.ops import blockwise as BW
+    from rt_tpu_torch.ops import blockwise_grad as BWG
+    from rt_tpu_torch.ops import grad as G
+    from rt_tpu_torch.ops import render as R
+    from rt_tpu_torch.ops import wavefront as WF
+    from rt_tpu_torch.ops import wavefront_grad as WFG
+
+    return (R.render_tile, R.render_record_tile, G.mse_step_tile, G.grad_tile,
+            BW.render_blockwise_tile, BW.render_record_blockwise_tile, BWG.bw_grad_tile,
+            WF.wf_bounce, WFG.wf_rev, roofline.fma_peak)
+
+
+def frame_gap(got, want):
+    """(share of pixels beyond 2e-5, largest |difference|) of two frames."""
+    d = (got.float().cpu() - want.float().cpu()).abs()
+    return (d > 2e-5).any(dim=-1).float().mean().item(), d.max().item()
+
+
+def grads_gap(got, want):
+    """The largest |g - w| / (3e-4 max|w| + 3e-3 |w|) over every gradient
+    entry (inf if one is not finite): <= 1 holds the gradients to atol
+    3e-4 x max|g| and rtol 3e-3."""
+    import torch
+
+    worst = 0.0
+    for k, w in want.items():
+        w, g = w.cpu(), got[k].cpu()
+        if not torch.isfinite(g).all().item():
+            return float("inf")
+        lim = 3e-4 * max(w.abs().max().item(), 1e-12) + 3e-3 * w.abs()
+        worst = max(worst, ((g - w).abs() / lim).max().item())
+    return worst
+
+
+def cli_render_s(text):
+    """The render time the CLI prints ("rendered WxH@Nspp on DEV in T s")."""
+    import re
+
+    return float(re.search(r" in ([0-9.]+)s ", text).group(1))
+
+
+def jnp_parity(scenes, report):
+    """Phase 6 (a): the threefry bits and the closest hit on the card
+    against the CPU."""
+    import numpy as np
+    import torch
+    from rt_tpu_torch import rng
+    from rt_tpu_torch.ops.intersect import closest_hit
+
+    for seed in (0, -3):
+        for chain in ((0,), (3, 1), (7, 2, 5)):
+            key = rng.fold(rng.make_key(seed), *chain)
+            for fn, shape in ((rng.random_bits, 65536 * 3), (rng.uniform, (65536, 3))):
+                got = fn(key, shape, device="cuda").cpu()
+                check(torch.equal(got, fn(key, shape, device="cpu")),
+                      f"{fn.__name__} seed {seed} chain {chain}: the card differs from the CPU")
+    log("[6] threefry: random_bits and uniform equal (torch.equal) on the card and the CPU, "
+        "2 seeds x 3 fold chains x 65536x3 counters")
+    rows = []
+    n, piece = 1 << 17, 1 << 14
+    for name, include_boxes in (("basic+box", True), ("cornell", False), ("proc500", False),
+                                ("ties", True)):
+        scene, card = scenes[name], scenes[name].to("cuda")
+        g = np.random.default_rng(7)
+        o = (scene.camera.position.numpy() + g.normal(size=(n, 3)) * 1.5).astype(np.float32)
+        d = g.normal(size=(n, 3)) - [0.0, 0.3, 1.0]
+        d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+        o, d = torch.from_numpy(o), torch.from_numpy(d)
+        differ, hits, dt = 0, 0, 0.0
+        for lo in range(0, n, piece):
+            oo, dd = o[lo:lo + piece], d[lo:lo + piece]
+            want = closest_hit(scene.spheres, scene.planes, scene.boxes, oo, dd,
+                               include_boxes=include_boxes)
+            got = closest_hit(card.spheres, card.planes, card.boxes, oo.cuda(), dd.cuda(),
+                              include_boxes=include_boxes)
+            same = torch.ones(oo.shape[0], dtype=torch.bool)
+            for k in ("kind", "idx", "root_lo", "material", "hit"):
+                same &= getattr(got, k).cpu() == getattr(want, k)
+            differ += int((~same).sum())
+            hits += int(want.hit.sum())
+            both = want.hit & got.hit.cpu()
+            if both.any():
+                dt = max(dt, (got.t.cpu() - want.t)[both].abs().max().item())
+        rows.append({"scene": name, "rays": n, "hits": hits, "winners_differ": differ,
+                     "max_abs_dt": dt})
+        log(f"[6] closest_hit {name}{' --boxes' if include_boxes else ''}: {n} rays, {hits} hits, "
+            f"winners differing from the CPU: {differ}, largest |dt| {dt:.3g}")
+        check(differ == 0, f"closest_hit {name}: {differ} winners differ from the CPU")
+    report["jnp_parity"] = {"closest_hit": rows}
+
+
+def jnp_main_paths(scenes, card, report):
+    """Phase 6 (b)-(e): the CLI's default renderer, the integrator past the
+    kernels' limits, loss_and_grad at the README's shape in both modes, and
+    fit, with every kernel counter reset before and read after (the path
+    launches none).  Times are host clocks around work that ends in a
+    synchronise."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    import rt_tpu_torch
+    from rt_tpu_torch import diff, integrator, log as tlog, profiling, renderer, rng, train
+    from rt_tpu_torch.cli import main as cli_main
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matrix products are on")
+    wrappers = kernel_wrappers()
+    for fn in wrappers:
+        fn.launches = 0
+    out = {}
+    basic = scenes["basic"]
+    size = (800, 600)
+
+    def cli(argv):
+        so, se = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+            rc = cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for ln in (so.getvalue() + se.getvalue()).splitlines():
+            log(f"    cli: {ln}")
+        check(rc == 0, f"cli {' '.join(argv)} exited with {rc}")
+        return so.getvalue(), se.getvalue(), wall
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) the JAX CLI's default: mg -> mg_ray_tracer, the scene's 30 spp, 10 bounces
+        png = Path(tmp) / "default.png"
+        text, _, wall = cli(["--scene", str(ROOT / "scenes" / "basic.toml"), "--size", "800x600",
+                             "--device", "cuda", "--out", str(png)])
+        check("created renderer: mg_ray_tracer" in text, "the CLI default is not mg_ray_tracer")
+        check(png_rgba(png).shape == (600, 800, 4), "the default frame's PNG has the wrong shape")
+        spp, depth = basic.samples_per_pixel, basic.max_bounces
+        render_s = cli_render_s(text)
+        one = lambda i: integrator.render_image(basic, size, rng.make_key(i), spp=1)  # noqa: E731
+        t1 = profiling.sustained(one, iters=1, windows=3)
+        busy = sum(profiling.device_times(one, iters=1).values()) / (t1["median"] * 1e3)
+        out["cli_default"] = {"renderer": "mg_ray_tracer", "spp": spp, "max_bounces": depth,
+                              "cli_wall_s": wall, "render_s": render_s,
+                              "mrays_s": profiling.mrays_per_sec(size, spp, render_s),
+                              "one_spp_frame_ms": t1["median"] * 1e3,
+                              "one_spp_busy_share": busy}
+        log(f"[6] (b) CLI default (mg_ray_tracer) basic 800x600 {spp}spp d{depth}: frame "
+            f"{render_s:.2f} s = {out['cli_default']['mrays_s']:.2f} Mrays/s (command "
+            f"{wall:.2f} s); one 1-spp frame {t1['median'] * 1e3:.1f} ms, card busy "
+            f"{busy:.3f} of it | {card}")
+        got = integrator.render_image(basic, (96, 64), rng.make_key(0), spp=4, device="cuda")
+        want = integrator.render_image(basic, (96, 64), rng.make_key(0), spp=4, device="cpu")
+        share, mx = frame_gap(got, want)
+        log(f"[6] (b) 96x64 4spp d{depth}, card against CPU: {share:.5f} of pixels beyond 2e-5, "
+            f"max |d| {mx:.3g}")
+        check(share <= 0.005, f"the card's 96x64 frame differs from the CPU's on {share} of pixels")
+        out["cli_default"].update(parity_share=share, parity_max_abs=mx)
+        for name in ("rasterizer", "null_renderer"):
+            text, _, wall = cli(["--scene", str(ROOT / "scenes" / "basic.toml"), "--renderer", name,
+                                 "--size", "800x600", "--device", "cuda",
+                                 "--out", str(Path(tmp) / f"{name}.png")])
+            check(f"created renderer: {name}" in text, f"--renderer {name}")
+            out[name] = {"cli_wall_s": wall, "render_s": cli_render_s(text)}
+            log(f"[6] (b) {name} 800x600: {out[name]['render_s']:.2f} s (command {wall:.2f} s)")
+        share, mx = frame_gap(integrator.render_rasterizer(basic, size),
+                              integrator.render_rasterizer(basic, size, device="cpu"))
+        check(share <= 0.005, f"the rasterizer's card frame differs from the CPU's on {share}")
+
+        # (c) past the kernels' 16384 primitives: mg_auto takes the integrator
+        big = rt_tpu_torch.scene.make_procedural_scene(17000)
+        route = renderer.auto_route(big, "cuda")
+        check(route == "jnp", f"17000 spheres route to {route}")
+        tlog.reset_warnings()
+        npy = Path(tmp) / "big.npy"
+        text, err, wall = cli(["--procedural", "17000", "--renderer", "mg_auto", "--size",
+                               "320x240", "--spp", "1", "--bounces", "4", "--device", "cuda",
+                               "--out", str(npy)])
+        check("falling back to the jnp-style integrator" in err, "no warning for the jnp route")
+        img = np.load(npy)
+        check(img.shape == (240, 320, 3) and np.isfinite(img).all(), "the 17000-sphere frame")
+        out["past_kernels"] = {"route": route, "spheres": 17000, "render_s": cli_render_s(text),
+                               "cli_wall_s": wall, "ray_chunk": integrator.default_ray_chunk(big)}
+        log(f"[6] (c) mg_auto procedural 17000 320x240 1spp d4: route {route}, warned; frame "
+            f"{out['past_kernels']['render_s']:.2f} s (chunks of "
+            f"{out['past_kernels']['ray_chunk']} rays) | {card}")
+
+        # (d) gradients at the README's shape, both grad modes
+        kw = dict(spp=4, max_bounces=4, device="cuda")
+        params = {k: v.cuda() for k, v in diff.extract_params(basic).items()}
+        p_tgt = dict(params, **{"materials.albedo": params["materials.albedo"]
+                                * torch.tensor([0.8, 1.0, 0.9, 1.0], device="cuda")})
+        with torch.no_grad():
+            target = diff.render_for_loss(p_tgt, basic, size, rng.make_key(5), **kw)
+        res = {}
+        diff.loss_and_grad(params, basic, target[::10, ::10], (80, 60), rng.make_key(1),
+                           **kw)  # a small call first: one-time set-up
+        for mode in ("replay", "autodiff"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, grads = diff.loss_and_grad(params, basic, target, size, rng.make_key(1),
+                                             grad_mode=mode, **kw)
+            torch.cuda.synchronize()
+            res[mode] = (loss, grads, time.perf_counter() - t0, torch.cuda.max_memory_allocated())
+        (l_r, g_r, s_r, m_r), (l_a, g_a, s_a, m_a) = res["replay"], res["autodiff"]
+        gap = grads_gap(g_r, g_a)
+        rel = abs(l_r.item() - l_a.item()) / abs(l_a.item())
+        name, eps = "materials.reflectivity", 1e-3
+        fd_l = []
+        for sign in (1, -1):
+            p = dict(params, **{name: params[name].clone()})
+            p[name][0] += sign * eps
+            with torch.no_grad():
+                fd_l.append(diff.image_loss(p, basic, target, size, rng.make_key(1), **kw).item())
+        fd = (fd_l[0] - fd_l[1]) / (2 * eps)
+        an = g_r[name][0].item()
+        grad_ok = abs(an - fd) <= max(2e-2 * abs(fd), 1e-4)
+        out["loss_and_grad"] = {"shape": "basic 800x600 4spp d4", "replay_s": s_r,
+                                "autodiff_s": s_a, "replay_peak_bytes": m_r,
+                                "autodiff_peak_bytes": m_a, "loss": l_r.item(),
+                                "loss_rel_gap": rel, "grads_gap": gap, "grad_an": an,
+                                "grad_fd": fd, "grad_ok": grad_ok}
+        log(f"[6] (d) loss_and_grad basic 800x600 4spp d4: replay {s_r:.2f} s (peak "
+            f"{m_r / 2**30:.2f} GiB), autodiff {s_a:.2f} s (peak {m_a / 2**30:.2f} GiB); loss "
+            f"rel gap {rel:.3g}, gradients at {gap:.3f} of the tolerance; reflectivity[0] "
+            f"analytic {an:.6g}, central FD {fd:.6g}: grad_ok={grad_ok} | {card}")
+        check(rel <= 1e-5 and gap <= 1.0, "replay and autodiff gradients disagree")
+        check(grad_ok, "the jnp path's gradient disagrees with finite differences")
+
+        # (e) fit: examples/inverse_rendering.py's set-up, then the README's shape
+        inv = rt_tpu_torch.loads(INVERSE_TOML)
+        true = {k: v.cuda() for k, v in diff.extract_params(inv).items()}
+        fkw = dict(spp=4, max_bounces=4)
+        with torch.no_grad():
+            target_e = diff.render_for_loss(true, inv, (96, 64), rng.make_key(0), **fkw)
+        albedo = true["materials.albedo"].clone()
+        albedo[1] = torch.tensor([0.8, 0.8, 0.2, 1.0])
+        start = diff.apply_params(inv, {"materials.albedo": albedo.cpu()})
+        t0 = time.perf_counter()
+        fitted, losses = train.fit(start, target_e, (96, 64), steps=30, learning_rate=3e-2,
+                                   param_names=["materials.albedo"], verbose=False, **fkw)
+        fit_s = time.perf_counter() - t0
+        rec = fitted["materials.albedo"][1, :3].tolist()
+        log(f"[6] (e) fit 96x64 4spp d4, 30 steps: loss {losses[0]:.5g} -> {losses[-1]:.5g}, "
+            f"albedo[1] {[round(v, 4) for v in rec]} (true [0.2, 0.45, 0.85]); "
+            f"{fit_s / 30 * 1e3:.1f} ms a step | {card}")
+        check(losses[-1] < losses[0], "fit did not lower the loss")
+        ckpt = dict(learning_rate=3e-2, param_names=["materials.albedo"], verbose=False,
+                    checkpoint_every=2, **fkw)
+        full, _ = train.fit(start, target_e, (96, 64), steps=4,
+                            checkpoint_dir=str(Path(tmp) / "full"), **ckpt)
+        train.fit(start, target_e, (96, 64), steps=2, checkpoint_dir=str(Path(tmp) / "cut"),
+                  **ckpt)
+        resumed, _ = train.fit(start, target_e, (96, 64), steps=4,
+                               checkpoint_dir=str(Path(tmp) / "cut"), **ckpt)
+        a, b = full["materials.albedo"], resumed["materials.albedo"]
+        resume_gap = ((a - b).abs() / a.abs().clamp_min(1e-12)).max().item()
+        log(f"[6] (e) 4 steps against 2 + resume from step 2: largest relative gap {resume_gap:.3g}")
+        check(resume_gap <= 1e-6, "the resumed run differs from the uninterrupted one")
+        with torch.no_grad():
+            target_r = diff.render_for_loss(true, inv, (400, 300), rng.make_key(0), **fkw)
+        p_r = {"materials.albedo": albedo.clone()}
+        step = train.make_train_step(torch.optim.Adam(list(p_r.values()), lr=1e-2), start,
+                                     target_r, (400, 300))
+        key = rng.make_key(0)
+        t_r = profiling.sustained(lambda i: step(p_r, rng.fold(key, i)), iters=1, windows=3)
+        out["fit"] = {"steps": 30, "losses": losses, "albedo1": rec, "step_ms_96x64":
+                      fit_s / 30 * 1e3, "resume_rel_gap": resume_gap,
+                      "readme_step_ms_400x300": t_r["median"] * 1e3,
+                      "readme_step_spread_ms": [t_r["min"] * 1e3, t_r["max"] * 1e3]}
+        log(f"[6] (e) README fit step 400x300 4spp d4 (albedo, replay): {t_r['median'] * 1e3:.1f} "
+            f"ms (spread {t_r['min'] * 1e3:.1f}-{t_r['max'] * 1e3:.1f}) | {card}")
+
+    torch.cuda.synchronize()
+    launched = {fn.__name__: fn.launches for fn in wrappers}
+    log(f"[6] kernel launches on the jnp path: {launched}")
+    check(not any(launched.values()), f"the jnp path launched kernels: {launched}")
+    report["jnp_path"] = out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2783,6 +3102,13 @@ def main() -> int:
     bw_rows = blockwise_timing(scenes, step_bw, params_bw, card, report)
     wf_rows = wavefront_timing(scenes, step_wf, params_wf, target_wf, wf_shape, card, report)
     rec_rows = records_timing(scenes, shape_a, card, report)
+
+    # ---- 6. the jnp-style path ----
+    t6 = time.perf_counter()
+    jnp_parity(scenes, report)
+    jnp_main_paths(scenes, card, report)
+    report["jnp_phase_s"] = time.perf_counter() - t6
+    log(f"[6] the jnp-style path's phase: {report['jnp_phase_s']:.1f} s")
 
     check("jax" not in sys.modules and "rt_tpu" not in sys.modules, "JAX was imported")
     log("[report] " + json.dumps(report))

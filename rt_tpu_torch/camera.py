@@ -8,6 +8,10 @@ Re-implements the reference's pinhole camera (camera.hpp):
   rotated into world space.  Ray origin lies on the near plane.
 * NDC convention (camera.hpp:42-48): x = 2*sx/W - 1, y = 1 - 2*sy/H.
 * vfov is the vertical field of view, default pi/4 (camera.hpp:54).
+* :func:`view_projection`, :func:`world_to_screen` and
+  :func:`screen_to_world` are ``viewport()``'s matrices and projections
+  (camera.hpp:21-48, 121-137), with NDC depth in [0, 1] (near → 0, far →
+  1); the rasterizer bounds its hits with them.
 
 Every function takes and returns float32 tensors on the device of its
 inputs.  :func:`look_rotation` writes its norms and cross products out
@@ -20,7 +24,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["look_rotation", "rotate_yaw", "rotate_pitch", "generate_rays"]
+__all__ = ["look_rotation", "rotate_yaw", "rotate_pitch", "generate_rays", "view_projection",
+           "world_to_screen", "screen_to_world"]
 
 
 def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -89,6 +94,19 @@ def rotate_pitch(rotation: torch.Tensor, angle: float) -> torch.Tensor:
     return _axis_angle(rotation[:, 0], angle) @ rotation
 
 
+def _view_dirs(camera, size, pixel_pos):
+    """The view-space direction through each pixel position, rotated into
+    world space: (..., 3)."""
+    w, h = size
+    dev = pixel_pos.device
+    th = torch.tan(torch.tensor(camera.vfov, dtype=torch.float32) * 0.5).to(dev)
+    aspect = torch.tensor(w / h, dtype=torch.float32, device=dev)
+    nx = 2.0 * (pixel_pos[..., 0] / w) - 1.0
+    ny = 1.0 - 2.0 * (pixel_pos[..., 1] / h)
+    d_view = torch.stack([nx * th * aspect, ny * th, -torch.ones_like(nx)], dim=-1)
+    return d_view @ camera.rotation.to(dev).T
+
+
 def generate_rays(camera, size: tuple[int, int], pixel_pos: torch.Tensor):
     """Primary rays for continuous pixel positions.
 
@@ -103,16 +121,48 @@ def generate_rays(camera, size: tuple[int, int], pixel_pos: torch.Tensor):
       (origins, directions): (..., 3) tensors.  Origins lie on the near
       plane; directions are unit (mg_ray_tracer.cpp:190-193).
     """
-    w, h = size
     dev = pixel_pos.device
-    th = torch.tan(torch.tensor(camera.vfov, dtype=torch.float32) * 0.5).to(dev)
-    aspect = torch.tensor(w / h, dtype=torch.float32, device=dev)
-    nx = 2.0 * (pixel_pos[..., 0] / w) - 1.0
-    ny = 1.0 - 2.0 * (pixel_pos[..., 1] / h)
-    dvx = nx * th * aspect
-    dvy = ny * th
-    d_view = torch.stack([dvx, dvy, -torch.ones_like(nx)], dim=-1)
-    d_world = d_view @ camera.rotation.to(dev).T
+    d_world = _view_dirs(camera, size, pixel_pos)
     origins = camera.position.to(dev) + d_world * camera.near
     directions = d_world / _norm3(d_world)[..., None]
     return origins, directions
+
+
+def view_projection(camera, size: tuple[int, int]) -> torch.Tensor:
+    """Full 4x4 view-projection matrix (camera.hpp:121-137): perspective
+    with NDC z in [0, 1] composed with the inverse rigid pose."""
+    w, h = size
+    rot, pos = camera.rotation, camera.position
+    f = 1.0 / torch.tan(torch.tensor(camera.vfov, dtype=torch.float32) * 0.5)
+    n, fr = camera.near, camera.far
+    proj = torch.zeros((4, 4), dtype=torch.float32)
+    proj[0, 0], proj[1, 1] = f / (w / h), f
+    proj[2, 2], proj[2, 3], proj[3, 2] = fr / (n - fr), n * fr / (n - fr), -1.0
+    proj = proj.to(rot.device)
+    top = torch.cat([rot.T, -(rot.T @ pos)[:, None]], dim=1)
+    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=torch.float32, device=rot.device)
+    return proj @ torch.cat([top, bottom], dim=0)
+
+
+def world_to_screen(camera, size: tuple[int, int], world_pos: torch.Tensor):
+    """Project world positions to pixel coordinates and NDC depth
+    (camera.hpp:21-39): ((..., 2) pixels, (...,) depth)."""
+    vp = view_projection(camera, size).to(world_pos.device)
+    p = torch.cat([world_pos, torch.ones_like(world_pos[..., :1])], dim=-1)
+    clip = p @ vp.T
+    wcoord = clip[..., 3:4]
+    ndc = torch.where(wcoord != 0.0, clip / wcoord, clip)
+    w, h = size
+    sx = (ndc[..., 0] + 1.0) * (w / 2.0)
+    sy = (1.0 - ndc[..., 1]) * (h / 2.0)
+    return torch.stack([sx, sy], dim=-1), ndc[..., 2]
+
+
+def screen_to_world(camera, size: tuple[int, int], pixel_pos: torch.Tensor, depth) -> torch.Tensor:
+    """Un-project pixels at an NDC depth in [0, 1] (camera.hpp:42-48):
+    depth 0 → the near plane, 1 → the far plane."""
+    depth = torch.as_tensor(depth, dtype=torch.float32, device=pixel_pos.device)
+    # NDC depth d maps to view-space z by the projective interpolation of
+    # [near, far]: near*far / ((1-d)*far + d*near)
+    z = camera.near * camera.far / ((1.0 - depth) * camera.far + depth * camera.near)
+    return camera.position.to(pixel_pos.device) + _view_dirs(camera, size, pixel_pos) * z[..., None]

@@ -6,11 +6,15 @@ Same flags as ``python -m rt_tpu.cli`` plus ``--device`` (default
 * ``--list`` prints the registered renderers and exits (main.cpp:355-360).
 * ``--scene``: path, ``-`` for stdin, or empty → first *.toml under the
   search prefixes (scene.cpp:620-643).
-* ``--renderer``: fuzzy prefix resolution.  The default is ``mg_auto``
-  until the jnp-style ``mg_ray_tracer`` (the JAX CLI's default) is ported.
+* ``--renderer``: fuzzy prefix resolution, default ``mg`` →
+  ``mg_ray_tracer`` (main.cpp:346-351), the jnp-style integrator.  Every
+  renderer gets ``rng.make_key(--seed)`` as its key and ``--seed`` as its
+  seed: the ray tracers draw from the key, the kernel renderers from the
+  seed.
 * ``--watch`` re-renders when the scene file changes (mtime polled every
   0.5 s, main.cpp:235-249; a failed reload keeps the previous scene).
-* ``--boxes`` traces boxes (the megakernel's slab test).
+* ``--boxes`` traces boxes (the slab test) in the ray tracers and the
+  kernel renderers.
 
 ``--mesh``, ``--interactive`` and ``--preview`` are not ported yet and
 raise ``NotImplementedError``.
@@ -34,8 +38,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="list available renderers and exit")
     ap.add_argument("-s", "--scene", default="",
                     help="scene TOML path ('-' = stdin; default: first .toml found)")
-    ap.add_argument("-r", "--renderer", default="mg_auto",
-                    help="renderer name (fuzzy prefix; default mg_auto)")
+    ap.add_argument("-r", "--renderer", default="mg",
+                    help="renderer name (fuzzy prefix; default mg_ray_tracer)")
     ap.add_argument("-o", "--out", default="out.png",
                     help="output image path (.png/.ppm/.npy)")
     ap.add_argument("--size", default="800x600", help="WxH (default 800x600)")
@@ -122,7 +126,8 @@ def main(argv=None) -> int:
 
     def do_render(scene):
         t0 = time.perf_counter()
-        img = render(scene, (w, h), seed=args.seed, **opts).cpu()  # .cpu() waits for the device
+        key = rt_tpu_torch.rng.make_key(args.seed)
+        img = render(scene, (w, h), key, seed=args.seed, **opts).cpu()  # .cpu() waits for the device
         dt = time.perf_counter() - t0
         rt_tpu_torch.image.write_image(args.out, img)
         spp = opts.get("spp", scene.samples_per_pixel)

@@ -1,5 +1,5 @@
-"""Differentiable scene parameters and the records-and-replay gradient
-(port of ``rt_tpu.diff``'s parameter plumbing and ``pallas_loss_and_grad``).
+"""Differentiable rendering: scene parameters, losses, gradients (port of
+``rt_tpu.diff``).
 
 The differentiable leaves of a scene — sphere centres and radii, material
 albedo, roughness and reflectivity (which doubles as the dielectric IOR),
@@ -16,9 +16,12 @@ writes its path structure and draws, and ``torch.autograd`` through
 gradient of the MSE.  It is the gradient route for box scenes (the fused
 steps give boxes none) and for camera-pose fitting.
 
-Still to port: ``render_for_loss``, ``image_loss`` and ``loss_and_grad``
-need the pure-torch integrator (ROADMAP queue 1 item 2).  The fused
-training step, :func:`rt_tpu_torch.ops.grad.make_mse_step`, needs neither.
+Discrete decisions (the winning hit, the dielectric coin, live masks,
+metal absorption) carry no gradient: the detached-sampling convention, no
+edge or silhouette gradients.  :func:`loss_and_grad` differentiates the
+jnp-style integrator (:func:`rt_tpu_torch.integrator.render_image`), by
+default through the replay (``grad_mode="replay"``).  Losses are taken on
+pre-gamma radiance: the sqrt gamma has an infinite derivative at zero.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["extract_params", "apply_params", "params_from_numpy", "records_loss_and_grad"]
+__all__ = ["extract_params", "apply_params", "params_from_numpy", "render_for_loss", "image_loss",
+           "loss_and_grad", "records_loss_and_grad"]
 
 # Differentiable leaves, as (table, field) pairs.
 _PARAM_FIELDS = (
@@ -70,6 +74,55 @@ def params_from_numpy(d: dict, device="cuda") -> dict[str, torch.Tensor]:
     (the card unless the caller asks for the CPU, as every entry point),
     with the same dtypes and values."""
     return {k: torch.from_numpy(np.array(v)).to(device) for k, v in d.items()}
+
+
+def render_for_loss(params, scene, size: tuple[int, int], key, *, spp: int = 4,
+                    max_bounces: int = 4, personality: str = "mg", render_fn=None,
+                    grad_mode: str = "replay", device="cuda", **opts) -> torch.Tensor:
+    """The frame at ``params`` as pre-gamma radiance, (H, W, 3) on
+    ``device``.  ``render_fn(scene, size, key, **opts)`` replaces
+    :func:`rt_tpu_torch.integrator.render_image`; ``grad_mode`` defaults to
+    the replay (:mod:`rt_tpu_torch.replay`): the same value and gradient,
+    a far cheaper backward."""
+    from .integrator import _device, render_image
+
+    dev = _device(device)
+    scene = apply_params(scene.to(dev), {k: torch.as_tensor(v).to(dev) for k, v in params.items()})
+    if render_fn is None:
+        render_fn = render_image
+    return render_fn(scene, size, key, spp=spp, max_bounces=max_bounces,
+                     personality=personality, gamma=False, grad_mode=grad_mode, device=dev,
+                     **opts)
+
+
+def _as_tensor(a, device) -> torch.Tensor:
+    """A tensor or an array (copied) as a float32 tensor on ``device``."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.array(a, dtype=np.float32))
+    return a.to(device=device, dtype=torch.float32)
+
+
+def image_loss(params, scene, target, size, key, *, device="cuda", **opts) -> torch.Tensor:
+    """Mean squared error of the frame at ``params`` against a (H, W, 3)
+    pre-gamma ``target``."""
+    img = render_for_loss(params, scene, size, key, device=device, **opts)
+    return torch.mean((img - _as_tensor(target, img.device)) ** 2)
+
+
+def loss_and_grad(params, scene, target, size, key, *, device="cuda", **opts):
+    """``(loss, grads)``: the loss of :func:`image_loss` and its gradient
+    with respect to every tensor of ``params`` (a dict keyed like
+    :func:`extract_params`), on ``device``.  Deterministic for a fixed
+    ``key``, so finite differences check it directly."""
+    from .integrator import _device
+
+    dev = _device(device)
+    leaves = {k: torch.as_tensor(v).to(dev).detach().requires_grad_(True)
+              for k, v in params.items()}
+    loss = image_loss(leaves, scene, target, size, key, device=dev, **opts)
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return loss.detach(), {k: torch.zeros_like(v) if g is None else g
+                           for (k, v), g in zip(leaves.items(), grads)}
 
 
 def _record_rays(camera, size, grid, jitter):

@@ -5,12 +5,14 @@ renderers register under a unique key, are listed by :func:`all_renderers`,
 found by key or exact name, and the CLI resolves fuzzy prefixes
 (main.cpp:67-81).
 
-A renderer is a callable ``render(scene, size, *, seed=0, device="cuda",
-**opts) -> (H, W, 3)`` float32 radiance tensor on ``device``.
+A renderer is a callable ``render(scene, size, key=None, *, seed=0,
+device="cuda", **opts) -> (H, W, 3)`` float32 radiance tensor on
+``device``.  The registry holds the JAX registry's names in its order:
 
-Only the renderers whose path is ported are registered, under the JAX
-package's names so that each maps one to one onto its counterpart:
-
+* ``mg_ray_tracer`` / ``sm_ray_tracer`` — the jnp-style integrator
+  (:func:`rt_tpu_torch.integrator.render_image`), keyed by ``key`` (an
+  :mod:`rt_tpu_torch.rng` key; ``rng.make_key(seed)`` when none is given);
+* ``rasterizer`` and ``null_renderer`` — the preview and the black frame;
 * ``mg_pallas`` / ``sm_pallas`` — the forward megakernel
   (:func:`rt_tpu_torch.ops.render.render_forward`);
 * ``mg_blockwise`` / ``sm_blockwise`` — the blockwise kernel, runtime
@@ -18,13 +20,12 @@ package's names so that each maps one to one onto its counterpart:
   (:func:`rt_tpu_torch.ops.blockwise.render_forward_blockwise`);
 * ``mg_wavefront`` / ``sm_wavefront`` — the bounce-major wavefront kernel,
   the same tables (:func:`rt_tpu_torch.ops.wavefront.render_forward_wavefront`);
-* ``mg_auto`` / ``sm_auto`` — :func:`auto_route` picks one of the three.
+* ``mg_auto`` / ``sm_auto`` — :func:`auto_route` picks one of the three
+  kernels, or the integrator past their limits.
 
-The names keep "pallas" although nothing here is Pallas: on CUDA they run
-the hand-written CUDA kernels, and with ``device="cpu"`` their plain
-PyTorch versions.  The jnp integrator (``mg_ray_tracer``,
-``sm_ray_tracer``), the rasterizer and the null renderer are not ported
-yet (ROADMAP.md, queue 1).
+The kernel renderers take ``seed`` and ignore ``key``.  The names keep
+"pallas" although nothing here is Pallas: on CUDA they run the hand-written
+CUDA kernels, and with ``device="cpu"`` their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -105,20 +106,20 @@ def auto_route(scene, platform: str, include_boxes: bool = False) -> str:
     """The forward route for ``mg_auto``/``sm_auto`` on ``platform``
     ("cuda" or "cpu").
 
-    Returns "pallas" (the megakernel), "blockwise" or "wavefront" exactly
-    where the JAX package does on an accelerator: the megakernel up to its
-    640 primitives, then up to 16384 the blockwise kernel while the sphere
-    table pads to fewer than 2048 rows and the wavefront kernel from there.
-    A bigger scene would take the jnp integrator, which is not ported yet:
-    it raises ``NotImplementedError`` naming it, and is never rendered
-    another way instead.  The route does not depend on ``platform``: on
-    the CPU the same route runs its kernel's plain version.  Unlike the JAX
-    version, which returns ``(route, warning)``, this returns the route
-    alone: no route here falls back with a warning.
+    Returns "pallas" (the megakernel), "blockwise", "wavefront" or "jnp"
+    exactly where the JAX package does on an accelerator: the megakernel up
+    to its 640 primitives, then up to 16384 the blockwise kernel while the
+    sphere table pads to fewer than 2048 rows and the wavefront kernel from
+    there, and past the kernels' limits the jnp-style integrator (much
+    slower; ``mg_auto`` warns once, :func:`_jnp_warning`).  The route does
+    not depend on ``platform``: on the CPU a kernel route runs its
+    kernel's plain version, where the JAX package takes "jnp" for every
+    scene.  Unlike the JAX version, which returns ``(route, warning)``,
+    this returns the route alone.
     """
     if platform not in ("cuda", "cpu"):
         raise ValueError(f"unknown platform {platform!r}")
-    from .ops.blockwise import MAX_BLOCKWISE_PRIMS, _bucket, blockwise_supported
+    from .ops.blockwise import _bucket, blockwise_supported
     from .ops.render import supported
 
     if supported(scene, include_boxes):
@@ -126,16 +127,39 @@ def auto_route(scene, platform: str, include_boxes: bool = False) -> str:
     if blockwise_supported(scene, include_boxes):
         # wavefront_supported is blockwise_supported
         return "wavefront" if _bucket(scene.spheres.count) >= _WAVEFRONT_MIN_BUCKET else "blockwise"
-    n = scene.spheres.count + scene.planes.count + (scene.boxes.count if include_boxes else 0)
-    raise NotImplementedError(
-        f"auto renderer: a scene of {n} primitives (> {MAX_BLOCKWISE_PRIMS}) needs the jnp "
-        f"integrator route, which is not ported to {platform} yet")
+    return "jnp"
+
+
+def _jnp_warning(scene, include_boxes: bool) -> str:
+    """The JAX package's warning for a scene past the kernels' limits."""
+    from .ops.blockwise import MAX_BLOCKWISE_PRIMS
+
+    n = scene.spheres.count + scene.planes.count
+    why = (f"{n} primitives > {MAX_BLOCKWISE_PRIMS}" if n > MAX_BLOCKWISE_PRIMS else
+           f"--boxes with {scene.boxes.count} box(es) beyond the unrolled kernel's cap")
+    return ("auto renderer: scene unsupported by the CUDA kernels "
+            f"({why}) — falling back to the jnp-style integrator "
+            "(much slower than the kernels)")
 
 
 def _install_builtins() -> None:
+    from . import integrator
+
+    def _tracer(personality):
+        def factory():
+            def render(scene, size, key=None, *, seed: int = 0, device="cuda", **opts):
+                from . import rng
+
+                opts.setdefault("personality", personality)
+                return integrator.render_image(scene, size,
+                                               rng.make_key(seed) if key is None else key,
+                                               device=device, **opts)
+            return render
+        return factory
+
     def _pallas(personality):
         def factory():
-            def render(scene, size, *, seed: int = 0, **opts):
+            def render(scene, size, key=None, *, seed: int = 0, **opts):
                 from .ops.render import render_forward
 
                 return render_forward(scene, size, seed=seed, personality=personality, **opts)
@@ -144,7 +168,7 @@ def _install_builtins() -> None:
 
     def _blockwise(personality):
         def factory():
-            def render(scene, size, *, seed: int = 0, **opts):
+            def render(scene, size, key=None, *, seed: int = 0, **opts):
                 from .ops.blockwise import render_forward_blockwise
 
                 return render_forward_blockwise(scene, size, seed=seed, personality=personality,
@@ -154,7 +178,7 @@ def _install_builtins() -> None:
 
     def _wavefront(personality):
         def factory():
-            def render(scene, size, *, seed: int = 0, **opts):
+            def render(scene, size, key=None, *, seed: int = 0, **opts):
                 from .ops.wavefront import render_forward_wavefront
 
                 return render_forward_wavefront(scene, size, seed=seed, personality=personality,
@@ -164,15 +188,22 @@ def _install_builtins() -> None:
 
     def _auto(personality):
         def factory():
-            def render(scene, size, *, seed: int = 0, device="cuda", **opts):
+            def render(scene, size, key=None, *, seed: int = 0, device="cuda", **opts):
                 import torch
 
                 from .ops.blockwise import render_forward_blockwise
                 from .ops.render import render_forward
                 from .ops.wavefront import render_forward_wavefront
 
-                route = auto_route(scene, torch.device(device).type,
-                                   opts.get("include_boxes", False))
+                include_boxes = opts.get("include_boxes", False)
+                route = auto_route(scene, torch.device(device).type, include_boxes)
+                if route == "jnp":
+                    from .log import warn_once
+
+                    warning = _jnp_warning(scene, include_boxes)
+                    warn_once(("auto", personality, warning), warning)
+                    return _tracer(personality)()(scene, size, key, seed=seed, device=device,
+                                                  **opts)
                 fwd = {"pallas": render_forward, "blockwise": render_forward_blockwise,
                        "wavefront": render_forward_wavefront}[route]
                 return fwd(scene, size, seed=seed, personality=personality, device=device,
@@ -182,6 +213,10 @@ def _install_builtins() -> None:
 
     # registration order follows the JAX registry's (main.cpp:181-191
     # cycles through renderers in registry order)
+    register_renderer("mg_ray_tracer", _tracer("mg"))
+    register_renderer("sm_ray_tracer", _tracer("sm"))
+    register_renderer("rasterizer", lambda: integrator.render_rasterizer)
+    register_renderer("null_renderer", lambda: integrator.render_null)
     register_renderer("mg_pallas", _pallas("mg"))
     register_renderer("sm_pallas", _pallas("sm"))
     register_renderer("mg_blockwise", _blockwise("mg"))

@@ -24,11 +24,13 @@ into the gathered rows.  Every guard of the JAX replay is kept, so no
 masked-out lane feeds a non-finite value into the backward; ``.detach()``
 stands where JAX uses ``stop_gradient``.
 
-Not ported: ``draws=None`` (the threefry draws; ROADMAP queue 1 item 1),
-``prims_axis`` (the primitive-sharded replay; queue 1 item 9), and
-``trace_batch_recorded`` / ``trace_batch_replay``, which need
-``ops.intersect.closest_hit`` and the threefry ``rng`` (queue 1 items 1
-and 2).  Both raise ``NotImplementedError``.
+With ``draws=None`` the replay regenerates the threefry draws from
+``key`` with the folds of :func:`rt_tpu_torch.integrator.trace_batch`.
+:func:`trace_batch_recorded` is that trace with its records, and
+:func:`trace_batch_replay` records without a graph and returns the replay:
+the integrator's ``grad_mode="replay"``.  Not ported: ``prims_axis`` (the
+primitive-sharded replay; ROADMAP queue 1 item 8), which raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,11 +39,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .integrator import sky_colour
+from .integrator import _draws, sky_colour, trace_batch
 from .materials import personality_classes, scatter
 from .ops.intersect import MIN_HIT_DIST, dot3, gather_rows, safe_normalize
 
-__all__ = ["PathRecords", "replay_radiance"]
+__all__ = ["PathRecords", "trace_batch_recorded", "replay_radiance", "trace_batch_replay"]
 
 
 class PathRecords(NamedTuple):
@@ -69,23 +71,35 @@ def _fetch(table: torch.Tensor, idx: torch.Tensor, sel: torch.Tensor) -> torch.T
     return torch.where(mask, rows, 0.0)
 
 
+def trace_batch_recorded(scene, origins, dirs, key, *, personality: str = "mg",
+                         max_bounces: Optional[int] = None, rng_mode: str = "reference",
+                         hit_fn=None, include_boxes: bool = False):
+    """The forward trace with its records: ``(radiance (N, 3), PathRecords)``
+    with (max_bounces, N) records.  It is
+    :func:`rt_tpu_torch.integrator.trace_batch` itself (the same folds, the
+    same update order), reading each bounce's decisions as it goes."""
+    steps = []
+    rad = trace_batch(scene, origins, dirs, key, personality=personality,
+                      max_bounces=max_bounces, rng_mode=rng_mode, include_boxes=include_boxes,
+                      hit_fn=hit_fn, records=steps)
+    return rad, PathRecords(*(torch.stack(field) for field in zip(*steps)))
+
+
 def replay_radiance(scene, origins, dirs, key, records: PathRecords, *, personality: str = "mg",
-                    max_bounces: Optional[int] = None, draws=None,
+                    max_bounces: Optional[int] = None, rng_mode: str = "reference", draws=None,
                     prims_axis: Optional[str] = None, include_boxes: bool = False) -> torch.Tensor:
     """Differentiable (N, 3) radiance with the discrete path structure
     pinned to ``records``.
 
     ``draws`` = (unit vectors (B, N, 3), coins (B, N)): the draws the
-    record kernel used.  ``origins``/``dirs`` are the (N, 3) camera rays
-    and every table of ``scene`` lies on their device.  ``key`` seeds the
-    threefry draws of the JAX replay and is unused with ``draws``."""
-    del key
-    if draws is None:
-        raise NotImplementedError("replay_radiance without draws needs the threefry rng "
-                                  "(ROADMAP queue 1 item 1); pass the record kernel's draws")
+    record kernel used; without them the threefry draws of ``key`` (an
+    :mod:`rt_tpu_torch.rng` key) in ``rng_mode``, as
+    :func:`rt_tpu_torch.integrator.trace_batch` draws them.
+    ``origins``/``dirs`` are the (N, 3) camera rays and every table of
+    ``scene`` lies on their device."""
     if prims_axis is not None:
         raise NotImplementedError("the primitive-sharded replay waits for dist "
-                                  "(ROADMAP queue 1 item 9)")
+                                  "(ROADMAP queue 1 item 8)")
     if max_bounces is None:
         max_bounces = scene.max_bounces
     dev = origins.device
@@ -94,10 +108,11 @@ def replay_radiance(scene, origins, dirs, key, records: PathRecords, *, personal
     # kind=3 records exist only when the forward traced --boxes; the box
     # branch drops out entirely for box-free traces
     use_boxes = include_boxes and box.count > 0
-    ur_all, coin_all = draws
 
     o, d = origins, dirs
     n = o.shape[0]
+    if draws is None:
+        draws = _draws(key, max_bounces, n, rng_mode, dev)
     thr = torch.ones((n, 3), dtype=torch.float32, device=dev)
     rad = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     for b in range(max_bounces):
@@ -160,7 +175,7 @@ def replay_radiance(scene, origins, dirs, key, records: PathRecords, *, personal
 
         # the scatter with its decisions pinned
         brdf_class = classes[scene.materials.type[mat.long()].long()]
-        sc = scatter(scene.materials, brdf_class, mat, d, normal, ur_all[b], coin_all[b],
+        sc = scatter(scene.materials, brdf_class, mat, d, normal, draws[0][b], draws[1][b],
                      decisions=(records.reflect_bit[b], records.lam_deg[b]))
 
         live_h = records.live_in[b] & hit
@@ -168,3 +183,20 @@ def replay_radiance(scene, origins, dirs, key, records: PathRecords, *, personal
         o = torch.where(live_h[:, None], hit_p, o)
         d = torch.where(live_h[:, None], sc.direction, d)
     return rad
+
+
+def trace_batch_replay(scene, origins, dirs, key, *, personality: str = "mg",
+                       max_bounces: Optional[int] = None, rng_mode: str = "reference",
+                       hit_fn=None, prims_axis: Optional[str] = None,
+                       include_boxes: bool = False, **_unused) -> torch.Tensor:
+    """:func:`rt_tpu_torch.integrator.trace_batch` with replay-mode
+    gradients: the paths are recorded without a graph, and the replay of
+    them is returned (the same value up to rounding, the detached-sampling
+    gradient at a fraction of the backward's cost)."""
+    with torch.no_grad():
+        _, records = trace_batch_recorded(scene, origins, dirs, key, personality=personality,
+                                          max_bounces=max_bounces, rng_mode=rng_mode,
+                                          hit_fn=hit_fn, include_boxes=include_boxes)
+    return replay_radiance(scene, origins, dirs, key, records, personality=personality,
+                           max_bounces=max_bounces, rng_mode=rng_mode, prims_axis=prims_axis,
+                           include_boxes=include_boxes)

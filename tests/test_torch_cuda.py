@@ -726,3 +726,77 @@ def test_fma_peak_k_scaling(cuda):
     tf_4k, dt_4k = roofline.measure_fma_peak(4096)
     assert 2.5 <= dt_4k / dt_1k <= 6.0, (dt_1k, dt_4k)
     assert 1.0 < tf_4k < 200.0
+
+
+# ---- the jnp-style path (rng, closest_hit, integrator, diff): it runs no
+# kernel of its own, so the card is held to the CPU ----
+
+def test_threefry_bits_card_equal_cpu(cuda):
+    from rt_tpu_torch import rng
+
+    for seed in (0, -3):
+        for chain in ((0,), (3, 1), (7, 2, 5)):
+            key = rng.fold(rng.make_key(seed), *chain)
+            for fn in (rng.uniform, rng.unit_vector):
+                got = fn(key, (65536, 3) if fn is rng.uniform else (65536,), device=cuda)
+                want = fn(key, (65536, 3) if fn is rng.uniform else (65536,), device="cpu")
+                assert torch.equal(got.cpu(), want), (seed, chain, fn.__name__)
+
+
+@pytest.mark.parametrize("name,include_boxes", [("box", True), ("cornell_spheres.toml", False),
+                                                ("proc500", False), ("ties", True)])
+def test_closest_hit_card_matches_cpu(cuda, name, include_boxes):
+    from rt_tpu_torch.ops.intersect import closest_hit
+
+    scene = rt_tpu_torch.loads(tie_scene_toml()) if name == "ties" else _scene(name)
+    rng = np.random.default_rng(4)
+    o = (scene.camera.position.numpy() + rng.normal(size=(1 << 14, 3)) * 1.5).astype(np.float32)
+    d = rng.normal(size=(1 << 14, 3)) - [0.0, 0.3, 1.0]
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    want = closest_hit(scene.spheres, scene.planes, scene.boxes, o, d, include_boxes=include_boxes)
+    sc = scene.to(cuda)
+    got = closest_hit(sc.spheres, sc.planes, sc.boxes, o.to(cuda), d.to(cuda),
+                      include_boxes=include_boxes)
+    for k in ("kind", "idx", "root_lo", "material", "hit"):
+        assert torch.equal(getattr(got, k).cpu(), getattr(want, k)), k
+    assert (got.kind.cpu() > 0).any()
+    assert torch.allclose(got.t.cpu(), want.t, rtol=1e-6, atol=0)
+    assert torch.allclose(got.normal.cpu(), want.normal, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("name,personality", [("basic.toml", "mg"), ("dielectric.toml", "sm")])
+def test_render_image_card_matches_cpu(cuda, name, personality):
+    from rt_tpu_torch import integrator, rng
+
+    scene = _scene(name)
+    kw = dict(spp=2, max_bounces=4, personality=personality, ray_chunk=500)
+    got = integrator.render_image(scene, (32, 24), rng.make_key(5), device=cuda, **kw)
+    want = integrator.render_image(scene, (32, 24), rng.make_key(5), device="cpu", **kw)
+    assert got.device.type == "cuda"
+    assert_frames_close(got.cpu(), want)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            integrator.render_image(scene, (8, 6), rng.make_key(5), device=cuda, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("grad_mode", ["replay", "autodiff"])
+def test_loss_and_grad_card_matches_cpu(cuda, grad_mode):
+    from rt_tpu_torch import rng
+
+    scene = _scene("basic.toml")
+    target = np.random.default_rng(2).uniform(0, 0.6, (24, 32, 3)).astype(np.float32)
+    kw = dict(spp=2, max_bounces=4, grad_mode=grad_mode)
+    params = diff.extract_params(scene)
+    loss, grads = diff.loss_and_grad({k: v.to(cuda) for k, v in params.items()}, scene, target,
+                                     (32, 24), rng.make_key(1), device=cuda, **kw)
+    w_loss, w_grads = diff.loss_and_grad(params, scene, target, (32, 24), rng.make_key(1),
+                                         device="cpu", **kw)
+    assert float(loss) == pytest.approx(float(w_loss), rel=1e-5)
+    for k, w in w_grads.items():
+        g = grads[k].cpu()
+        assert torch.isfinite(g).all(), k
+        assert torch.allclose(g, w, rtol=3e-3, atol=3e-4 * max(w.abs().max().item(), 1e-12)), k

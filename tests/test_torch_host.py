@@ -136,6 +136,34 @@ def test_rotations_and_rays_close():
     np.testing.assert_allclose(d.numpy(), np.asarray(jd), atol=1e-6)
 
 
+def test_viewport_projections_close():
+    """view_projection, world_to_screen and screen_to_world against the
+    JAX package's (the rasterizer bounds its hits with screen_to_world)."""
+    js = jax_scene("cornell_spheres.toml")
+    ts = rt_tpu_torch.from_jax_scene(js)
+    size = (32, 24)
+    np.testing.assert_allclose(tcam.view_projection(ts.camera, size).numpy(),
+                               np.asarray(jcam.view_projection(js.camera, size)), rtol=1e-6,
+                               atol=1e-6)
+    rng = np.random.default_rng(4)
+    pix = rng.uniform(0, 24, size=(64, 2)).astype(np.float32)
+    for depth in (0.0, 0.5, 1.0):
+        got = tcam.screen_to_world(ts.camera, size, torch.from_numpy(pix), depth).numpy()
+        want = np.asarray(jcam.screen_to_world(js.camera, size, jnp.asarray(pix), depth))
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    pts = (np.asarray(js.camera.position) + rng.normal(size=(64, 3)) - [0, 0, 4]).astype(np.float32)
+    got_px, got_z = tcam.world_to_screen(ts.camera, size, torch.from_numpy(pts))
+    want_px, want_z = jcam.world_to_screen(js.camera, size, jnp.asarray(pts))
+    np.testing.assert_allclose(got_px.numpy(), np.asarray(want_px), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got_z.numpy(), np.asarray(want_z), rtol=1e-5, atol=1e-6)
+    # a pixel un-projected at a depth projects back onto itself
+    back, z = tcam.world_to_screen(ts.camera, size,
+                                   tcam.screen_to_world(ts.camera, size, torch.from_numpy(pix),
+                                                        0.5))
+    np.testing.assert_allclose(back.numpy(), pix, atol=1e-3)
+    np.testing.assert_allclose(z.numpy(), 0.5, atol=1e-4)
+
+
 def test_colour_and_classes_equal():
     for name in sorted(jcol.NAMED_COLOURS):
         for compat in (True, False):
@@ -196,7 +224,9 @@ def test_warn_once(capsys):
 def test_import_needs_no_jax():
     code = ("import sys, rt_tpu_torch, rt_tpu_torch.cli, rt_tpu_torch.ops.render, "
             "rt_tpu_torch.ops.blockwise_grad, rt_tpu_torch.ops.wavefront_grad, "
-            "rt_tpu_torch.train; "
+            "rt_tpu_torch.train, rt_tpu_torch.rng, rt_tpu_torch.integrator, "
+            "rt_tpu_torch.replay, rt_tpu_torch.diff, rt_tpu_torch.ops.intersect, "
+            "rt_tpu_torch.renderer, rt_tpu_torch.camera; "
             "assert 'jax' not in sys.modules and 'rt_tpu' not in sys.modules; "
             "assert 'triton' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120,
@@ -204,13 +234,13 @@ def test_import_needs_no_jax():
 
 
 def test_registry_and_auto_route():
-    assert [d.name for d in treg.all_renderers()] == ["mg_pallas", "sm_pallas", "mg_blockwise",
-                                                      "sm_blockwise", "mg_wavefront",
-                                                      "sm_wavefront", "mg_auto", "sm_auto"]
+    assert [d.name for d in treg.all_renderers()] == [d.name for d in
+                                                      rt_tpu.renderer.all_renderers()]
     assert treg.find_by_name_fuzzy("mg_a").name == "mg_auto"
-    assert treg.find_by_name_fuzzy("sm").name == "sm_pallas"
+    assert treg.find_by_name_fuzzy("sm").name == "sm_ray_tracer"
+    assert treg.find_by_name_fuzzy("mg").name == "mg_ray_tracer"
     with pytest.raises(KeyError):
-        treg.create("mg_ray_tracer")
+        treg.create("zz_tracer")
     basic = rt_tpu_torch.load(str(SCENES / "basic.toml"))
     assert treg.auto_route(basic, "cuda") == "pallas"
     assert treg.auto_route(basic, "cpu") == "pallas"
@@ -224,22 +254,47 @@ def test_registry_and_auto_route():
     img = treg.create("mg_auto")(huge, (8, 8), spp=1, max_bounces=1, device="cpu")
     assert torch.equal(img, treg.create("mg_wavefront")(huge, (8, 8), spp=1, max_bounces=1,
                                                         device="cpu"))
-    with pytest.raises(NotImplementedError, match="jnp integrator"):
-        treg.auto_route(rt_tpu_torch.scene.make_procedural_scene(17000), "cuda")
+    # past the kernels' 16384 primitives: the jnp-style integrator, with a warning
+    past = rt_tpu_torch.scene.make_procedural_scene(17000)
+    assert treg.auto_route(past, "cuda") == treg.auto_route(past, "cpu") == "jnp"
+    img = treg.create("mg_auto")(past, (8, 8), seed=3, spp=1, max_bounces=1, device="cpu")
+    assert torch.equal(img, rt_tpu_torch.integrator.render_image(
+        past, (8, 8), rt_tpu_torch.rng.make_key(3), spp=1, max_bounces=1, device="cpu"))
     img = treg.create("sm_pallas")(basic, (8, 6), seed=2, spp=1, max_bounces=2, device="cpu")
     assert img.shape == (6, 8, 3)
+    img = treg.create("mg_ray_tracer")(basic, (8, 6), seed=2, spp=1, max_bounces=2, device="cpu")
+    assert torch.equal(img, treg.create("mg_ray_tracer")(
+        basic, (8, 6), rt_tpu_torch.rng.make_key(2), spp=1, max_bounces=2, device="cpu"))
+    assert treg.create("null")(basic, (8, 6), device="cpu").abs().max() == 0
+
+
+def test_auto_route_warns_past_the_kernels(capsys):
+    from rt_tpu_torch import log
+
+    log.reset_warnings()
+    past = rt_tpu_torch.scene.make_procedural_scene(17000)
+    for _ in range(2):
+        treg.create("sm_auto")(past, (4, 2), spp=1, max_bounces=1, device="cpu")
+    err = capsys.readouterr().err
+    assert err.count("warning: auto renderer") == 1 and "17000 primitives > 16384" in err
 
 
 def test_cli(tmp_path, capsys):
     assert main(["--list"]) == 0
-    assert capsys.readouterr().out.split() == ["mg_pallas", "sm_pallas", "mg_blockwise",
-                                               "sm_blockwise", "mg_wavefront", "sm_wavefront",
-                                               "mg_auto", "sm_auto"]
+    assert capsys.readouterr().out.split() == [d.name for d in rt_tpu.renderer.all_renderers()]
     out = tmp_path / "img.png"
     rc = main(["--scene", str(SCENES / "dielectric.toml"), "--renderer", "sm", "--size", "12x8",
                "--spp", "1", "--bounces", "2", "--device", "cpu", "--out", str(out)])
     assert rc == 0 and _read_png(out).shape == (8, 12, 4)
-    assert "created renderer: sm_pallas" in capsys.readouterr().out
+    assert "created renderer: sm_ray_tracer" in capsys.readouterr().out
+    # the default renderer is mg_ray_tracer, keyed by --seed
+    rc = main(["--scene", str(SCENES / "basic.toml"), "--size", "8x6", "--spp", "1",
+               "--bounces", "2", "--seed", "4", "--device", "cpu", "--out", str(tmp_path / "d.npy")])
+    assert rc == 0 and "created renderer: mg_ray_tracer" in capsys.readouterr().out
+    want = rt_tpu_torch.integrator.render_image(rt_tpu_torch.load(str(SCENES / "basic.toml")),
+                                                (8, 6), rt_tpu_torch.rng.make_key(4), spp=1,
+                                                max_bounces=2, device="cpu")
+    np.testing.assert_array_equal(np.load(tmp_path / "d.npy"), want.numpy())
     assert main(["--procedural", "10", "--size", "8x6", "--spp", "1", "--device", "cpu",
                  "--out", str(tmp_path / "p.npy")]) == 0
     assert np.load(tmp_path / "p.npy").shape == (6, 8, 3)

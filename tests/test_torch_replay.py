@@ -164,13 +164,21 @@ def test_replay_matches_jax(cid):
 
 
 def test_replay_unported_options_raise():
+    """``prims_axis`` (dist) still raises; ``draws=None``, which raised
+    before the threefry rng was ported, regenerates the draws from the key
+    (the same radiance as the draws passed in)."""
+    from rt_tpu_torch import rng as trng
+
     ts = rt_tpu_torch.loads(REPLAY_BOX_TOML)
     z = torch.zeros((1, 4), dtype=torch.int32)
     recs = trep.PathRecords(z, z, *(z.bool(),) * 6)
     o = torch.zeros((4, 3))
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        trep.replay_radiance(ts, o, o, None, recs, max_bounces=1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    key = trng.make_key(3)
+    got = trep.replay_radiance(ts, o, o, key, recs, max_bounces=1)
+    want = trep.replay_radiance(ts, o, o, None, recs, max_bounces=1,
+                                draws=tint._draws(key, 1, 4, "reference", "cpu"))
+    assert got.shape == (4, 3) and torch.equal(got, want)
+    with pytest.raises(NotImplementedError, match=r"dist \(ROADMAP queue 1 item 8\)"):
         trep.replay_radiance(ts, o, o, None, recs, max_bounces=1, prims_axis="prims",
                              draws=(torch.zeros((1, 4, 3)), torch.zeros((1, 4))))
 

@@ -124,11 +124,7 @@ def test_auto_route_matches_jax():
         assert twg.wf_grad_supported(ts) == jwg.wf_grad_supported(js), n
         want, _ = jreg.auto_route(js, "tpu")
         seen.add(want)
-        if want == "jnp":
-            with pytest.raises(NotImplementedError, match="jnp integrator"):
-                treg.auto_route(ts, "cuda")
-        else:
-            assert treg.auto_route(ts, "cuda") == want == treg.auto_route(ts, "cpu"), n
+        assert treg.auto_route(ts, "cuda") == want == treg.auto_route(ts, "cpu"), n
     assert seen == {"pallas", "blockwise", "wavefront", "jnp"}
 
 
