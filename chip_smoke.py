@@ -182,6 +182,48 @@ Phases (an exception in any phase exits non-zero before the result line):
    resume from the step-2 checkpoint, within 1e-6 relative; a step of the
    README's fit at 400x300 timed.
 
+7. The measurement layer and the surface (each path's kernel counters
+   set to 0 just before it and read just after; the kernels line adds
+   them to ``launches`` and gives them as ``launches_phase7``).  (a) The
+   native CPU baseline (rt_tpu_torch._native, built with native/Makefile's
+   flags) on the host at the headline shape (basic, 800x600, 4 spp, depth
+   8, mg): seconds (median of 3) and Mrays/s beside the mono step's, its
+   frame mean within 0.01 of the render kernel's.  (b)
+   ``profiling.interleaved`` over make_mse_step and make_render_step at the
+   headline shape, 9 windows of 16: ratio_step_over_fwd.  (c)
+   ``profiling.trace`` and ``RenderTimer`` around one CLI frame (mg_auto,
+   basic 800x600 4 spp) in a fresh process: the counters, and a Chrome
+   trace file holding the CLI's operators and the render kernel; then the
+   same frame traced in this process, its device events reported (after
+   phases 5 and 6 the profiler records none here: ``--profiler-probe``).
+   (d) ``--preview`` with mg_auto on basic 800x600: the
+   frame's 100 x 38 half-blocks after its image.  (e) Whether the viewer's
+   ``_kick`` returns before its frame is done, per route (behind a spin
+   kernel); then ``interactive`` through a pty with mg_auto at 192x108:
+   '+' cycles to sm_auto, 'w' moves, 'q' quits with rc 0.  (f)
+   ``python -m rt_tpu_torch.render_4k`` at 3840x2160 and 8 spp (two chunks
+   of 4 samples, 33,177,600 rays each): the chunk it reports, its time,
+   Mrays/s and peak device memory, a finite frame equal (torch.equal) to
+   the same render with a sort before every bounce; then one chunk at
+   that width through the wavefront kernel (bounce 0, and bounce 2 under
+   its live-prefix limit) bit for bit with wf_bounce_plain: the
+   5000-sphere chunk on ~45,000 columns across its ids (the first, the
+   last, those around the limit, the top ids) and the 3-sphere basic
+   chunk on all 33,177,600.  (g)
+   ``rt_tpu_torch.examples.big_scene_training`` at its defaults (500
+   spheres, 400x300, 2 spp, 20 steps): the blockwise and blockwise-gradient
+   kernels launch and the held-out image MAE falls; then both kernels at
+   that shape against their plain versions (the target's 2-spp launch and
+   each sample's words form bit for bit, each sample's gradient launch
+   within 1e-5 x L1).  (h)
+   ``rt_tpu_torch.examples.inverse_rendering`` for 10 steps: the loss
+   falls, no kernel launches.
+
+``python3 chip_smoke.py --profiler-probe`` runs only a probe of the
+profiler instead: in one process, device_times sessions of 10,000, 100,000
+and 300,000 small kernels, and a basic 800x600 1-spp frame traced before
+the first and after each; it prints the device events each trace holds.
+
 The last two lines are the card line and {"ok": true, "device": ...};
 the line before them is the per-kernel JSON summary, and the line before
 that ("[report] ...") holds every number the run measured.
@@ -2876,6 +2918,624 @@ def jnp_main_paths(scenes, card, report):
     report["jnp_path"] = out
 
 
+# ---- phase 7: the measurement layer and the surface ----
+
+# the kernels line's name of each wrapper that phase 7's paths launch
+P7_KERNELS = {"render_tile": "render_kernel", "mse_step_tile": "mse_step_kernel",
+              "render_blockwise_tile": "blockwise_kernel", "bw_grad_tile": "bw_grad_kernel",
+              "wf_bounce": "wf_bounce"}
+
+VIEWER_SCENE = """
+samples_per_pixel = 4
+max_bounces = 4
+materials = [ { type = 'lambert', albedo = 'red' }, { type = 'metal', albedo = 'white' } ]
+spheres = [ { material = 0, position = [0.0, 1.0, -3.0], radius = 0.5 },
+            { material = 1, position = [0.0, -100.5, -3.0], radius = 100 } ]
+"""
+
+
+def pty_read_until(fd, pattern, proc, timeout=120.0):
+    """Read a pty until ``pattern`` (regex) appears, within ``timeout``."""
+    import os
+    import re
+    import select
+
+    buf = b""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        r, _, _ = select.select([fd], [], [], 0.25)
+        if r:
+            try:
+                chunk = os.read(fd, 65536)
+            except OSError:
+                break
+            if not chunk:
+                break
+            buf += chunk
+            if re.search(pattern, buf.decode("utf-8", "replace")):
+                return buf.decode("utf-8", "replace")
+        elif proc.poll() is not None:
+            break
+    raise RuntimeError(f"chip_smoke: {pattern!r} not seen from the viewer (rc "
+                       f"{proc.poll()}): {buf.decode('utf-8', 'replace')[-600:]!r}")
+
+
+def kick_probe(scenes, size):
+    """Whether ``viewer._kick`` returns before its frame is done, per route
+    and for the low-res frame: a spin kernel holds the stream for ~3x the
+    host time of a kick (at least 50 ms) before the kick; if the kick waits
+    for the device anywhere, the stream is idle when it returns."""
+    import torch
+    from rt_tpu_torch import renderer, rng, viewer
+
+    key = rng.make_key(0)
+    raster = renderer.create("rasterizer")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    end.synchronize()
+    cycles_per_ms = 20_000_000 / start.elapsed_time(end)
+    out = {}
+    for label, name, scene_key, spp, low in (
+            ("mg_auto", "mg_auto", "basic", None, False),
+            ("mg_blockwise", "mg_blockwise", "proc1000", 1, False),
+            ("mg_wavefront", "mg_wavefront", "proc2000", 1, False),
+            ("mg_ray_tracer", "mg_ray_tracer", "basic", 1, False),
+            ("rasterizer", "rasterizer", "basic", None, False),
+            ("null_renderer", "null_renderer", "basic", None, False),
+            ("low-res frame (rasterizer x0.33)", "mg_auto", "basic", None, True)):
+        render = renderer.create(name)
+
+        def kick():
+            return viewer._kick(render, raster, scenes[scene_key], size, key, spp=spp,
+                                low_res=low, low_res_scale=0.33, device="cuda")
+
+        kick()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kick()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(cycles_per_ms * max(3 * host_ms, 50.0)))
+        t0 = time.perf_counter()
+        img = kick()
+        returned_ms = (time.perf_counter() - t0) * 1e3
+        busy = not torch.cuda.current_stream().query()
+        torch.cuda.synchronize()
+        check(torch.isfinite(img).all().item(), f"{label}: the viewer's frame is not finite")
+        out[label] = {"returned_before_done": busy, "kick_host_ms": host_ms,
+                      "kick_behind_busy_stream_ms": returned_ms}
+    return out
+
+
+TRACE_CHILD = """
+import json, sys
+from rt_tpu_torch import profiling
+from rt_tpu_torch.cli import main
+from rt_tpu_torch.ops import render as R
+
+scene, trace_dir, png = sys.argv[1:4]
+R.render_tile.launches = 0
+with profiling.trace(trace_dir):
+    with profiling.RenderTimer((800, 600), 4, name="cli_frame") as t:
+        rc = main(["--scene", scene, "-r", "mg_auto", "--size", "800x600", "--spp", "4",
+                   "--bounces", "8", "--device", "cuda", "--out", png])
+print(json.dumps({"rc": rc, "render_kernel": R.render_tile.launches,
+                  "counters": profiling.counters}))
+"""
+
+
+def trace_events(path):
+    """A Chrome trace's event counts by category and its kernels' names."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    cats = {}
+    for e in events:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    return cats, [e["name"] for e in events if e.get("cat") == "kernel"]
+
+
+def wf_wide_chunk(scene, size, k, label, subset):
+    """One chunk of ``k`` samples at ``size`` through ``wf_bounce`` as the
+    4K frame runs it: bounce 0, the sort before bounce 1, bounce 1, the
+    sort before bounce 2 (whose live count becomes the limit), bounce 2
+    with that limit.  Bounces 0 and 2 are held bit for bit against
+    ``wf_bounce_plain`` on the same inputs: on every column, or (``subset``,
+    where the plain version's scan over the whole table would take minutes)
+    on 32,768 columns spread over the chunk, the first and the last 2,048
+    columns, the 4,096 around the limit and the rays whose ids are the top
+    2,048.  Columns at and past the limit must come out as they went in.
+    Returns the row for the report."""
+    import torch
+    from rt_tpu_torch.ops import render as R
+    from rt_tpu_torch.ops import wavefront as WF
+
+    dev = torch.device("cuda")
+    w, h = size
+    n = w * h * k
+    sp, pl, bx, counts = WF._device_tables(scene, "mg", False, dev)
+    cam = R._upload(R._pack_camera(scene.camera, size), dev)
+    seeds = R._upload(R._chunk_seeds(0, 1, 1), dev)[0]  # the frame's first chunk
+    kw = dict(size=size, max_bounces=8)
+    tabs = (sp, pl, bx, counts, cam, seeds)
+
+    def columns(*extra):
+        spread = torch.arange(1 << 15, device=dev) * (n - 1) // ((1 << 15) - 1)  # exact
+        parts = [spread,
+                 torch.arange(0, 2048, device=dev), torch.arange(n - 2048, n, device=dev),
+                 *extra]
+        return torch.unique(torch.cat(parts))
+
+    def gap(a, b):
+        return (a - b).abs().max().item() if a.numel() else 0.0
+
+    t0 = time.perf_counter()
+    state = torch.empty((13, n), dtype=torch.float32, device=dev)
+    ids = torch.empty(n, dtype=torch.int32, device=dev)
+    WF.wf_bounce(*tabs, state, ids, bounce=0, center_sample=True, **kw)
+    cols = columns() if subset else None
+    m = n if cols is None else len(cols)
+    want = torch.empty((13, m), dtype=torch.float32, device=dev)
+    want_ids = torch.empty(m, dtype=torch.int32, device=dev)
+    WF.wf_bounce_plain(*tabs, want, want_ids, bounce=0, center_sample=True, rays=cols, **kw)
+    got, got_ids = (state, ids) if cols is None else (state[:, cols], ids[cols])
+    ok0 = torch.equal(got, want) and torch.equal(got_ids, want_ids)
+    err0, m0 = gap(got, want), m
+    del want, want_ids, got, got_ids
+
+    state, ids, _ = WF._sort_state(state, ids, 2)
+    WF.wf_bounce(*tabs, state, ids, bounce=1, **kw)
+    state, ids, limit = WF._sort_state(state, ids, 2)
+    entering = state.clone()
+    WF.wf_bounce(*tabs, state, ids, limit, bounce=2, **kw)
+    lim = int(limit[0])
+    lanes = WF._split_lanes(lim)
+    if subset:
+        cols = columns(torch.arange(max(0, lim - 2048), min(n, lim + 2048), device=dev),
+                       torch.nonzero(ids >= n - 2048).flatten())
+        inside, past = cols[cols < lim], cols[cols >= lim]
+        want = entering[:, inside].clone()
+        WF.wf_bounce_plain(*tabs, want, ids[inside].clone(), bounce=2, **kw)
+        ok2 = (torch.equal(state[:, inside], want)
+               and torch.equal(state[:, past], entering[:, past]))
+        err2 = max(gap(state[:, inside], want), gap(state[:, past], entering[:, past]))
+        m2 = len(cols)
+    else:
+        want = entering.clone()
+        WF.wf_bounce_plain(*tabs, want, ids.clone(), limit, bounce=2, **kw)
+        ok2, err2, m2 = torch.equal(state, want), gap(state, want), n
+    torch.cuda.synchronize()
+    row = {"case": label, "size": size, "samples": k, "rays": n, "counts": counts,
+           "bounce0_columns": m0, "bounce0_max_abs": err0, "bounce2_limit": lim,
+           "bounce2_split_lanes": lanes, "bounce2_columns": m2, "bounce2_max_abs": err2,
+           "max_id": int(ids.max()), "seconds": time.perf_counter() - t0}
+    del state, ids, entering, want
+    torch.cuda.empty_cache()
+    log(f"[7] (f) wf_bounce {label} {w}x{h} x{k} samples = {n:,} rays ({counts} rows): bounce 0 "
+        f"on {m0:,} columns, bounce 2 (limit {lim:,}, {lanes} lanes a ray) on {m2:,} columns: "
+        f"bit for bit with wf_bounce_plain ({row['seconds']:.1f} s)")
+    check(ok0, f"wf_bounce {label}: bounce 0 differs from its plain version (max|d| {err0})")
+    check(ok2, f"wf_bounce {label}: bounce 2 differs from its plain version (max|d| {err2})")
+    return row
+
+
+def bw_example_checks(scene, size, spp, depth):
+    """The blockwise kernels at big_scene_training's shape against their
+    plain versions: the target's forward (``spp`` samples in one launch),
+    each sample's words form and its gradient launch, with the train
+    step's seeds and cotangent scale.  Returns (row, max |d| per kernel)."""
+    import torch
+    from rt_tpu_torch.ops import blockwise as BW
+    from rt_tpu_torch.ops import blockwise_grad as BG
+    from rt_tpu_torch.ops import render as R
+
+    dev = torch.device("cuda")
+    w, h = size
+    sp, pl, bx, counts = bw_tables(scene, "mg")
+    cam = R._upload(R._pack_camera(scene.camera, size), dev)
+    kw = dict(size=size, max_bounces=depth)
+    fwd_seeds = R._upload(R._chunk_seeds(0, 1, 1), dev)[0]
+    got = BW.render_blockwise_tile(sp, pl, bx, counts, cam, fwd_seeds, spp=spp,
+                                   center_sample=True, **kw)
+    want = BW.render_blockwise_tile_plain(sp, pl, bx, counts, cam, fwd_seeds, spp=spp,
+                                          center_sample=True, **kw)
+    check(torch.equal(got, want), f"blockwise {w}x{h} {spp}spp d{depth} ({counts} rows): the "
+                                  "target's launch differs from its plain version")
+    target = want * float(1.0 / spp)
+    seeds = R._upload(BG._sample_seeds(3, spp), dev)
+    frames, words = [], []
+    for s in range(spp):
+        f, wd = BW.render_blockwise_tile(sp, pl, bx, counts, cam, seeds[s:s + 1], spp=1,
+                                         center_sample=(s == 0), words=True, **kw)
+        f_want, w_want = BW.render_blockwise_tile_plain(sp, pl, bx, counts, cam, seeds[s:s + 1],
+                                                        spp=1, center_sample=(s == 0),
+                                                        words=True, **kw)
+        check(torch.equal(f, f_want) and torch.equal(wd, w_want),
+              f"blockwise words form, sample {s} at {w}x{h} d{depth}: differs from its plain "
+              "version")
+        frames.append(f)
+        words.append(wd)
+    cot = 2.0 * (sum(frames) * float(1.0 / spp) - target) / (3.0 * w * h * spp)
+    g_err, g_ratio = 0.0, 0.0
+    for s in range(spp):
+        g = BG.bw_grad_tile(sp, pl, counts[:2], cam, seeds[s:s + 1], cot, words[s],
+                            center_sample=(s == 0), **kw)
+        g_want, l1 = BG.bw_grad_tile_plain(sp, pl, counts[:2], cam, seeds[s:s + 1], cot,
+                                           words[s], center_sample=(s == 0), with_l1=True, **kw)
+        for a, b, l in zip(g, g_want, l1):
+            if not a.numel():
+                continue
+            check(torch.isfinite(a).all().item(), "bw_grad: output not finite")
+            check(((a - b).abs() <= GRAD_TOL * l).all().item(),
+                  f"bw_grad sample {s} at {w}x{h} d{depth}: kernel differs from its plain "
+                  f"version beyond {GRAD_TOL} x L1")
+            g_err = max(g_err, (a - b).abs().max().item())
+            g_ratio = max(g_ratio, ((a - b).abs() / l.clamp_min(1e-30)).max().item())
+    torch.cuda.synchronize()
+    row = {"size": size, "spp": spp, "depth": depth, "counts": counts,
+           "bw_grad_max_abs": g_err, "bw_grad_max_ratio_l1": g_ratio}
+    log(f"[7] (g) blockwise kernels at {w}x{h} {spp}spp d{depth} ({counts} rows): the target's "
+        f"launch and {spp} words-form launches bit for bit with their plain versions; bw_grad "
+        f"max|d| {g_err:.3g}, max |d|/L1 {g_ratio:.3g} (tolerance {GRAD_TOL})")
+    return row, {"blockwise_kernel": 0.0, "bw_grad_kernel": g_err}
+
+
+def surface_phase(scenes, step_mse, card, report):
+    """Phase 7: the native baseline, the measurement layer (interleaved,
+    RenderTimer, trace), the CLI's --preview, the viewer, render_4k at
+    3840x2160 and the two examples.  Each path's kernel counters are set
+    to 0 just before it and read just after; the comparisons with the
+    plain versions run outside those windows.  Returns the launches per
+    kernel over phase 7's paths and the comparisons' max |kernel - plain|
+    per kernel."""
+    import contextlib
+    import io
+    import os
+    import pty
+    import re
+    import signal
+    import warnings
+
+    import numpy as np
+    import torch
+    import rt_tpu_torch
+    from rt_tpu_torch import _native, profiling, render_4k
+    from rt_tpu_torch.cli import main as cli_main
+    from rt_tpu_torch.examples import big_scene_training, inverse_rendering
+    from rt_tpu_torch.ops import render as R
+    from rt_tpu_torch.ops import wavefront as WF
+    from rt_tpu_torch.viewer import ansi_preview
+
+    wrappers = kernel_wrappers()
+    total = {name: 0 for name in P7_KERNELS.values()}
+    errs = {}
+    out = {}
+
+    def reset():
+        torch.cuda.synchronize()
+        for fn in wrappers:
+            fn.launches = 0
+
+    def read(label, **want):
+        """Add this path's launches to the phase's; ``want``: kernels that
+        must have launched (a count, or True for at least once)."""
+        torch.cuda.synchronize()
+        got = {P7_KERNELS.get(fn.__name__, fn.__name__): fn.launches for fn in wrappers}
+        for k in total:
+            total[k] += got[k]
+        moved = {k: v for k, v in got.items() if v}
+        log(f"[7] {label}: kernel launches {moved}")
+        for k, v in want.items():
+            check(got[k] >= 1 if v is True else got[k] == v,
+                  f"{label}: {k} launched {got[k]} times, expected {v}")
+        return got
+
+    def quiet(fn, *args):
+        """Call ``fn`` with its stdout captured; its lines are logged, but
+        for ANSI preview rows (counted)."""
+        so = io.StringIO()
+        with contextlib.redirect_stdout(so):
+            res = fn(*args)
+        rows = 0
+        for ln in so.getvalue().splitlines():
+            if "\x1b[" in ln:
+                rows += 1
+            else:
+                log(f"    {ln[:300]}")
+        if rows:
+            log(f"    ({rows} ANSI preview rows)")
+        return res, so.getvalue()
+
+    basic = scenes["basic"]
+    size = (800, 600)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+
+        # (a) the native CPU baseline at the headline shape
+        t0 = time.perf_counter()
+        lib = _native.build()
+        build_s = time.perf_counter() - t0
+        _native.render_mg_cpu(basic, size, spp=1, max_bounces=8)  # loads it; warm-up
+        runs = [_native.render_mg_cpu(basic, size, spp=4, max_bounces=8) for _ in range(3)]
+        secs = sorted(r[1] for r in runs)
+        img_n = runs[0][0]
+        mono = report["grad_timing"]["headline_step"]["fwd_bwd_mrays_s"]
+        native_mrays = profiling.mrays_per_sec(size, 4, secs[1])
+        kernel_frame = R.render_forward(basic, size, spp=4, max_bounces=8, device="cuda").cpu()
+        gap = abs(float(img_n.mean()) - float(kernel_frame.mean()))
+        out["native"] = {"library": str(_native._LIB._name), "build_s": build_s,
+                         "seconds": secs, "mrays_s": native_mrays, "host_threads": os.cpu_count(),
+                         "mono_step_mrays_s": mono, "mono_over_native": mono / native_mrays,
+                         "frame_mean": float(img_n.mean()),
+                         "kernel_frame_mean": float(kernel_frame.mean())}
+        log(f"[7] (a) native CPU baseline (g++ {' '.join(_native.make_flags()[0])}; built in "
+            f"{build_s:.2f} s as {lib.name}, {os.cpu_count()} host threads) basic 800x600 4spp "
+            f"d8 mg: {secs[1]:.4f} s (spread {secs[0]:.4f}-{secs[2]:.4f}) = {native_mrays:.2f} "
+            f"Mrays/s; the mono step {mono:.1f} Mrays/s fwd+bwd = {mono / native_mrays:.1f}x; "
+            f"frame mean {img_n.mean():.4f} against the render kernel's {kernel_frame.mean():.4f}"
+            f" | {card}")
+        check(np.isfinite(img_n).all() and img_n.shape == (600, 800, 3),
+              "the native frame is not finite or has the wrong shape")
+        check(secs[0] > 0, "the native tracer reported no time")
+        check(gap < 0.01, f"the native frame's mean is {gap:.4f} from the kernel frame's")
+        check(_native.available(), "the native library does not load after its build")
+
+        # (b) profiling.interleaved: the headline step against its forward
+        fwd = R.make_render_step(basic, size, spp=4, max_bounces=8, device="cuda")
+        reset()
+        st, fw = profiling.interleaved([lambda i: step_mse(i), lambda i: fwd(seed=i)], iters=16,
+                                       windows=9)
+        read("(b) profiling.interleaved, make_mse_step and make_render_step, 9 windows of 16",
+             mse_step_kernel=16 * 10 + 1, render_kernel=16 * 10 + 1)
+        ratio = st["median"] / fw["median"]
+        out["interleaved"] = {"step_ms": st["median"] * 1e3, "fwd_ms": fw["median"] * 1e3,
+                              "step_windows_ms": [v * 1e3 for v in st["windows"]],
+                              "fwd_windows_ms": [v * 1e3 for v in fw["windows"]],
+                              "ratio_step_over_fwd": ratio,
+                              "fwd_bwd_mrays_s": profiling.mrays_per_sec(size, 4, st["median"]),
+                              "fwd_ref_mrays_s": profiling.mrays_per_sec(size, 4, fw["median"])}
+        log(f"[7] (b) interleaved headline (basic 800x600 4spp d8): step {st['median'] * 1e3:.4f}"
+            f" ms (spread {st['min'] * 1e3:.4f}-{st['max'] * 1e3:.4f}), forward "
+            f"{fw['median'] * 1e3:.4f} ms (spread {fw['min'] * 1e3:.4f}-{fw['max'] * 1e3:.4f}): "
+            f"ratio_step_over_fwd {ratio:.3f} | {card}")
+        check(sorted(st) == ["max", "median", "min", "windows"] and len(st["windows"]) == 9,
+              "interleaved returned other keys or windows")
+        check(0.0 < ratio < 100.0, f"ratio_step_over_fwd {ratio}")
+
+        # (c) RenderTimer and trace around one CLI frame, in a fresh process:
+        # the card's events must be in its trace
+        trace_dir = tmp / "trace"
+        child = subprocess.run([sys.executable, "-c", TRACE_CHILD, str(ROOT / "scenes" /
+                                "basic.toml"), str(trace_dir), str(tmp / "cli.png")],
+                               capture_output=True, text=True, cwd=ROOT, timeout=300,
+                               env=dict(os.environ, PYTHONPATH=str(ROOT)))
+        check(child.returncode == 0, f"the traced CLI frame's process exited with "
+                                     f"{child.returncode}: {child.stderr[-1500:]}")
+        res = json.loads(child.stdout.strip().splitlines()[-1])
+        total["render_kernel"] += res["render_kernel"]
+        log(f"[7] (c) the CLI frame under trace and RenderTimer (a fresh process): kernel "
+            f"launches {{'render_kernel': {res['render_kernel']}}}")
+        check(res["rc"] == 0 and res["render_kernel"] == 1,
+              f"the traced CLI frame: rc {res['rc']}, {res['render_kernel']} render_kernel "
+              "launches, expected 1")
+        check("holds no device event" not in child.stderr, "trace() warned of no device event")
+        traces = sorted(trace_dir.glob("trace_*.json"))
+        check(len(traces) == 1, f"trace files {traces}")
+        cats, kernels = trace_events(traces[0])
+        c = res["counters"]
+        out["timer_trace"] = {"seconds": c["cli_frame.seconds"], "mrays_s": c["cli_frame.mrays"],
+                              "trace_bytes": traces[0].stat().st_size, "trace_events": cats,
+                              "trace_device_events": c["trace.device_events"],
+                              "trace_render_kernels": sum("render_kernel" in k for k in kernels)}
+        log(f"[7] (c) RenderTimer cli_frame: {c['cli_frame.seconds']:.4f} s = "
+            f"{c['cli_frame.mrays']:.1f} Mrays/s (the CLI's start, set-up and PNG included); "
+            f"trace {traces[0].name} {traces[0].stat().st_size} B, events by category {cats} "
+            f"({out['timer_trace']['trace_render_kernels']} render_kernel; "
+            f"{c['trace.device_events']} device events counted by trace())")
+        check(c["cli_frame.seconds"] > 0 and c["cli_frame.mrays"] > 0, "RenderTimer counters")
+        check(cats.get("cpu_op", 0) > 0, "the trace holds no CPU operators")
+        check(out["timer_trace"]["trace_render_kernels"] >= 1 and c["trace.device_events"] > 0,
+              "the trace holds no render_kernel event")
+        # the same frame traced in this process, reported only: after the
+        # profiler sessions of phases 5 and 6 it has held no device event
+        # (profiling.LOST_EVENTS), and trace() warns
+        reset()
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            with profiling.trace(str(tmp / "trace_here")):
+                rc, _ = quiet(cli_main, ["--scene", str(ROOT / "scenes" / "basic.toml"), "-r",
+                                         "mg_auto", "--size", "800x600", "--spp", "4",
+                                         "--bounces", "8", "--device", "cuda", "--out",
+                                         str(tmp / "cli_here.png")])
+        read("(c) the CLI frame under trace in this process", render_kernel=1)
+        here = sorted((tmp / "trace_here").glob("trace_*.json"))
+        check(rc == 0 and len(here) == 1, f"cli rc {rc}, trace files {here}")
+        cats_here, kernels_here = trace_events(here[0])
+        out["timer_trace"]["in_process"] = {
+            "trace_events": cats_here, "device_events": profiling.counters["trace.device_events"],
+            "render_kernels": sum("render_kernel" in k for k in kernels_here),
+            "warned": [str(w_.message)[-160:] for w_ in warned
+                       if "no device event" in str(w_.message)]}
+        log(f"[7] (c) the same frame traced in this process after phases 1-6: events by category "
+            f"{cats_here}, {profiling.counters['trace.device_events']} device events, trace() "
+            f"warned: {bool(out['timer_trace']['in_process']['warned'])}")
+
+        # (d) --preview with mg_auto on basic 800x600
+        reset()
+        rc, text = quiet(cli_main, ["--scene", str(ROOT / "scenes" / "basic.toml"), "-r",
+                                    "mg_auto", "--size", "800x600", "--preview", "--device",
+                                    "cuda", "--out", str(tmp / "preview.npy")])
+        read("(d) cli --preview mg_auto basic 800x600", render_kernel=True)
+        frame = np.load(tmp / "preview.npy")
+        check(rc == 0 and text.endswith(ansi_preview(frame) + "\n"),
+              "--preview did not print the frame's half-blocks")
+        check(text.count("▀") == 100 * 38, f"{text.count('▀')} half-blocks, expected 100 x 38")
+        log(f"[7] (d) --preview: {text.count('▀')} half-blocks (100 columns x 38 rows) after the "
+            "frame's PNG")
+
+        # (e) the viewer through a pty: cycle with +, move with w, quit with q
+        out["kick"] = kick_probe(scenes, (192, 108))
+        for route, v in out["kick"].items():
+            log(f"[7] (e) viewer kick {route} 192x108: returned before its frame was done: "
+                f"{v['returned_before_done']} (kick {v['kick_host_ms']:.2f} ms of host time; "
+                f"{v['kick_behind_busy_stream_ms']:.2f} ms behind a busy stream)")
+        scene_file = tmp / "viewer.toml"
+        scene_file.write_text(VIEWER_SCENE)
+        master, slave = pty.openpty()
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        env.pop("RT_TPU_DEBUG", None)
+        code = ("from rt_tpu_torch.viewer import interactive;"
+                f"interactive({str(scene_file)!r}, 'mg_auto', size=(192, 108), device='cuda')")
+        t0 = time.perf_counter()
+        err_file = tmp / "viewer.err"
+        with open(err_file, "wb") as err_out:
+            proc = subprocess.Popen([sys.executable, "-c", code], stdin=slave, stdout=slave,
+                                    stderr=err_out, env=env, cwd=ROOT, close_fds=True)
+        os.close(slave)
+        try:
+            pty_read_until(master, r"\[mg_auto\] 192x108", proc)
+            first_s = time.perf_counter() - t0
+            os.write(master, b"+")
+            pty_read_until(master, r"\[sm_auto\] 192x108", proc)
+            os.write(master, b"w")
+            pty_read_until(master, r"\[sm_auto\]", proc)
+            time.sleep(0.6)  # the full-quality frame 0.5 s after the move
+            os.write(master, b"q")
+            pty_read_until(master, r"bye", proc)
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGKILL)
+                proc.wait()
+            os.close(master)
+        err = err_file.read_text(errors="replace")
+        session_s = time.perf_counter() - t0
+        out["viewer"] = {"rc": rc, "first_frame_s": first_s, "session_s": session_s}
+        log(f"[7] (e) viewer pty (mg_auto 192x108, +, w, q): rc {rc}, first frame after "
+            f"{first_s:.1f} s (the child's start included), session {session_s:.1f} s")
+        check(rc == 0, f"the viewer exited with {rc}: {err[-600:]}")
+
+        # (f) render_4k at 3840x2160, 8 spp: two 4-sample chunks of 33.2 M rays
+        reset()
+        t0 = time.perf_counter()
+        img4k, text = quiet(render_4k.main, ["--spp", "8", "--out", str(tmp / "4k.png")])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        read("(f) render_4k 3840x2160 8spp", wf_bounce=2 * 8)
+        check("4 samples a chunk" in text, "render_4k did not report 4 samples a chunk")
+        check(img4k.shape == (2160, 3840, 3) and torch.isfinite(img4k).all().item(),
+              "the 4K frame has the wrong shape or is not finite")
+        t1 = time.perf_counter()
+        every = WF.render_forward_wavefront(rt_tpu_torch.scene.make_procedural_scene(5000),
+                                            (3840, 2160), seed=0, spp=8, spp_chunk=8,
+                                            max_bounces=8, sort_schedule=tuple(range(1, 8)),
+                                            device="cuda")
+        torch.cuda.synchronize()
+        every_s = time.perf_counter() - t1
+        reset()
+        check(torch.equal(img4k, every), "the 4K frame differs with a sort before every bounce")
+        rays = 3840 * 2160 * 8
+        m = [float(v) for v in re.findall(r": ([0-9.]+) s wall \(([0-9.]+) Mrays/s\)",
+                                          text)[0]]
+        out["render_4k_8spp"] = {"render_s": m[0], "mrays_s": m[1], "command_s": wall,
+                                 "peak_gib": peak,
+                                 "estimate_gib": render_4k.chunk_bytes(3840 * 2160 * 4) / 2**30,
+                                 "sorted_every_bounce_s": every_s,
+                                 "sorted_every_bounce_mrays_s": rays / every_s / 1e6,
+                                 "mean": img4k.mean().item()}
+        del img4k, every
+        torch.cuda.empty_cache()
+        log(f"[7] (f) render_4k 3840x2160 8spp d8 (chunks of 4 samples, 33,177,600 rays): "
+            f"{m[0]:.3f} s = {m[1]:.2f} Mrays/s, peak device memory {peak:.3f} GiB (estimate "
+            f"{out['render_4k_8spp']['estimate_gib']:.3f}); with a sort before every bounce "
+            f"{every_s:.3f} s, the same frame (torch.equal) | {card}")
+        # the kernel at this width against its plain version: the frame's
+        # chunk on columns across it, and every column of a few-row scene
+        out["wf_wide"] = [
+            wf_wide_chunk(scenes["proc5000"], (3840, 2160), 4, "proc5000 (the 4K frame's chunk)",
+                          subset=True),
+            wf_wide_chunk(scenes["basic"], (3840, 2160), 4, "basic (every column)",
+                          subset=False)]
+        errs["wf_bounce"] = max(max(r["bounce0_max_abs"], r["bounce2_max_abs"])
+                                for r in out["wf_wide"])
+
+        # (g) examples/big_scene_training at its defaults
+        reset()
+        res, _ = quiet(big_scene_training.main, [])
+        got = read("(g) big_scene_training (500 spheres, 400x300, 2 spp, 20 steps)",
+                   blockwise_kernel=True, bw_grad_kernel=True)
+        e0, e1 = res["mae"]
+        out["big_scene_training"] = dict(res, launches={k: v for k, v in got.items() if v})
+        log(f"[7] (g) big_scene_training: {res['ms_per_step']:.2f} ms a step, loss "
+            f"{res['losses'][0]:.6f} -> {res['losses'][-1]:.6f}, held-out MAE {e0:.4f} -> "
+            f"{e1:.4f} | {card}")
+        check(e1 < e0, f"the held-out MAE did not fall ({e0} -> {e1})")
+        out["bw_example_shape"], bw_errs = bw_example_checks(scenes["proc500"], (400, 300), 2, 4)
+        errs.update(bw_errs)
+
+        # (h) examples/inverse_rendering for 10 steps (the jnp path: no kernel)
+        reset()
+        t0 = time.perf_counter()
+        res, _ = quiet(inverse_rendering.main, ["--steps", "10", "--out", str(tmp / "inv")])
+        inv_s = time.perf_counter() - t0
+        got = read("(h) inverse_rendering, 10 steps")
+        check(not any(got.values()), "inverse_rendering (the jnp path) launched kernels")
+        out["inverse_rendering"] = dict(res, seconds=inv_s)
+        log(f"[7] (h) inverse_rendering 10 steps: {inv_s:.1f} s, loss {res['losses'][0]:.6g} -> "
+            f"{res['losses'][-1]:.6g}, albedo[1] {res['albedo1']} | {card}")
+        check(res["losses"][-1] < res["losses"][0], "inverse_rendering's loss did not fall")
+        check(sorted(p.name for p in (tmp / "inv").iterdir())
+              == ["after.png", "before.png", "target.png"], "inverse_rendering's PNGs")
+
+    out["launches"] = total
+    out["max_abs_err"] = errs
+    report["surface"] = out
+    return total, errs
+
+
+def profiler_probe():
+    """Whether earlier profiler sessions leave later ones without device
+    events: one process traces a frame, then runs ``device_times``
+    sessions of growing numbers of small kernels, tracing the frame after
+    each.  Returns the rows printed."""
+    import warnings
+
+    import torch
+    import rt_tpu_torch
+    from rt_tpu_torch import profiling
+    from rt_tpu_torch.ops import render as R
+
+    step = R.make_render_step(rt_tpu_torch.load(str(ROOT / "scenes" / "basic.toml")),
+                              (800, 600), spp=1, max_bounces=8, device="cuda")
+    x = torch.zeros(16, device="cuda")
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        def traced(label, kernels):
+            with warnings.catch_warnings(record=True) as warned:
+                warnings.simplefilter("always")
+                with profiling.trace(tmp):
+                    step(seed=0)
+            lost = any("no device event" in str(w.message) for w in warned)
+            rows.append({"after": label, "session_kernels": kernels,
+                         "trace_device_events": profiling.counters["trace.device_events"],
+                         "warned": lost})
+            log(f"[probe] {label}: the frame's trace holds "
+                f"{rows[-1]['trace_device_events']} device events (trace() warned: {lost})")
+
+        traced("a fresh process", None)
+        for n in (10_000, 100_000, 300_000):
+            def adds(i, n=n):
+                for _ in range(n):
+                    x.add_(1.0)
+
+            t0 = time.perf_counter()
+            got = profiling.device_times(adds, iters=1)
+            log(f"[probe] device_times session of {n} kernels: {time.perf_counter() - t0:.1f} s, "
+                f"{sum(got.values()):.3f} ms of device time recorded")
+            traced(f"a session of {n} kernels", n)
+    return rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2884,6 +3544,9 @@ def main() -> int:
     ap.add_argument("--box-rays", type=Path, metavar="NPZ",
                     help="write the rays that carry the largest shares of phase 4 (c)'s "
                          "box-centre gradient (records, draws, camera rays, loss weights) here")
+    ap.add_argument("--profiler-probe", action="store_true",
+                    help="run only the profiler probe (device events lost after large "
+                         "sessions) and exit")
     opts = ap.parse_args()
 
     # ---- 1. device ----
@@ -2919,6 +3582,10 @@ def main() -> int:
         for ln in ptxas:
             log(f"    {name}: {ln}")
         report["ptxas"][name] = ptxas
+    if opts.profiler_probe:
+        log(json.dumps({"profiler_probe": profiler_probe()}))
+        log(card)
+        return 0
 
     # ---- 3. kernel against plain version, on the card ----
     scenes = {
@@ -3110,6 +3777,12 @@ def main() -> int:
     report["jnp_phase_s"] = time.perf_counter() - t6
     log(f"[6] the jnp-style path's phase: {report['jnp_phase_s']:.1f} s")
 
+    # ---- 7. the measurement layer and the surface ----
+    t7 = time.perf_counter()
+    p7, p7_errs = surface_phase(scenes, step_mse, card, report)
+    report["surface_phase_s"] = time.perf_counter() - t7
+    log(f"[7] the measurement and surface phase: {report['surface_phase_s']:.1f} s")
+
     check("jax" not in sys.modules and "rt_tpu" not in sys.modules, "JAX was imported")
     log("[report] " + json.dumps(report))
 
@@ -3118,7 +3791,8 @@ def main() -> int:
         "route": "cuda",
         "source": "rt_tpu_torch/csrc/render_kernel.cu",
         "replaces": "rt_tpu/ops/pallas_render.py:171",
-        "launches": launches + grad_launches["render_kernel"],
+        "launches": launches + grad_launches["render_kernel"] + p7["render_kernel"],
+        "launches_phase7": p7["render_kernel"],
         "max_abs_err": max_err,
         "ms": b["config4_launch_ms"],
         "plain_ms": b["plain_ms"],
@@ -3134,8 +3808,9 @@ def main() -> int:
         row = g_rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": "rt_tpu_torch/csrc/grad_kernel.cu",
-            "replaces": replaces, "launches": grad_launches[name],
-            "max_abs_err": grad_errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "replaces": replaces, "launches": grad_launches[name] + p7.get(name, 0),
+            "launches_phase7": p7.get(name, 0), "max_abs_err": grad_errs[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
             "device_ms": row["device_ms"],
         })
@@ -3144,8 +3819,10 @@ def main() -> int:
         row = bw_rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"rt_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": bw_launches[name],
-            "max_abs_err": bw_errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "replaces": replaces, "launches": bw_launches[name] + p7[name],
+            "launches_phase7": p7[name], "max_abs_err": max(bw_errs[name], p7_errs[name]),
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
             "shape": row["shape"], "plain_shape": row["plain_shape"],
         })
@@ -3155,8 +3832,10 @@ def main() -> int:
         row = wf_rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"rt_tpu_torch/csrc/{source}.cu",
-            "replaces": replaces, "launches": wf_launches[name],
-            "max_abs_err": wf_errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "replaces": replaces, "launches": wf_launches[name] + p7.get(name, 0),
+            "launches_phase7": p7.get(name, 0),
+            "max_abs_err": max(wf_errs[name], p7_errs.get(name, 0.0)), "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
             **{k: row[k] for k in ("bounce0_ms", "bounces_1_7_ms") if k in row},
         })

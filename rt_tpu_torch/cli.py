@@ -7,17 +7,21 @@ Same flags as ``python -m rt_tpu.cli`` plus ``--device`` (default
 * ``--scene``: path, ``-`` for stdin, or empty → first *.toml under the
   search prefixes (scene.cpp:620-643).
 * ``--renderer``: fuzzy prefix resolution, default ``mg`` →
-  ``mg_ray_tracer`` (main.cpp:346-351), the jnp-style integrator.  Every
-  renderer gets ``rng.make_key(--seed)`` as its key and ``--seed`` as its
-  seed: the ray tracers draw from the key, the kernel renderers from the
-  seed.
+  ``mg_ray_tracer`` (main.cpp:346-351), the jnp-style integrator.  As in
+  the JAX CLI, every renderer is called as ``render(scene, (w, h), key)``
+  with ``key = rng.make_key(--seed)``: the ray tracers draw from the key,
+  and the kernel renderers, which take a seed and not a key, draw with
+  their default seed 0 whatever ``--seed`` says.
 * ``--watch`` re-renders when the scene file changes (mtime polled every
   0.5 s, main.cpp:235-249; a failed reload keeps the previous scene).
-* ``--boxes`` traces boxes (the slab test) in the ray tracers and the
-  kernel renderers.
+* ``--boxes`` traces boxes (the slab test) in ``mg_ray_tracer`` and
+  ``sm_ray_tracer`` only, as in the JAX CLI; the other renderers keep the
+  reference's box stub.
+* ``--interactive`` runs the terminal viewer (:mod:`rt_tpu_torch.viewer`)
+  on ``--device`` instead of writing an image; ``--preview`` prints an ANSI
+  preview of the frame after writing it.
 
-``--mesh``, ``--interactive`` and ``--preview`` are not ported yet and
-raise ``NotImplementedError``.
+``--mesh`` is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -56,13 +60,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--watch", action="store_true",
                     help="re-render whenever the scene file changes (0.5 s mtime poll)")
     ap.add_argument("-i", "--interactive", action="store_true",
-                    help="ANSI terminal viewer (not ported yet)")
+                    help="ANSI terminal viewer with FPS controls (the "
+                         "reference's SDL window, sans SDL)")
     ap.add_argument("--preview", action="store_true",
-                    help="ANSI preview of the render (not ported yet)")
+                    help="print an ANSI preview of the render to the terminal")
     ap.add_argument("--boxes", action="store_true",
-                    help="enable real box intersection (the reference's "
-                         "test_boxes is a stub that never hits, "
-                         "mg_ray_tracer.cpp:89-93 — parity default)")
+                    help="enable real box intersection in the path tracers "
+                         "(the reference's test_boxes is a stub that never "
+                         "hits, mg_ray_tracer.cpp:89-93 — parity default)")
     ap.add_argument("--true-colours", action="store_true",
                     help="interpret named colours as /255 instead of the "
                          "reference's clamp binarization")
@@ -84,16 +89,21 @@ def main(argv=None) -> int:
             log(d.name)
         return 0
 
-    for flag, on in (("--mesh", args.mesh), ("--interactive", args.interactive),
-                     ("--preview", args.preview)):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported yet")
+    if args.mesh:
+        raise NotImplementedError("--mesh is not ported yet")
 
     try:
         w, h = (int(v) for v in args.size.lower().split("x"))
     except ValueError:
         error(f"bad --size '{args.size}' (expected WxH)")
         return 2
+
+    if args.interactive:
+        from .viewer import interactive
+
+        interactive(args.scene.strip(), args.renderer.strip(), size=(w, h), spp=args.spp,
+                    seed=args.seed, device=args.device)
+        return 0
 
     desc = registry.find_by_name_fuzzy(args.renderer.strip())
     if desc is None:
@@ -121,24 +131,28 @@ def main(argv=None) -> int:
         opts["spp"] = args.spp
     if args.bounces is not None:
         opts["max_bounces"] = args.bounces
-    if args.boxes:
+    if args.boxes and desc.name in ("mg_ray_tracer", "sm_ray_tracer"):
         opts["include_boxes"] = True
 
     def do_render(scene):
         t0 = time.perf_counter()
         key = rt_tpu_torch.rng.make_key(args.seed)
-        img = render(scene, (w, h), key, seed=args.seed, **opts).cpu()  # .cpu() waits for the device
+        img = render(scene, (w, h), key, **opts).cpu()  # .cpu() waits for the device
         dt = time.perf_counter() - t0
         rt_tpu_torch.image.write_image(args.out, img)
         spp = opts.get("spp", scene.samples_per_pixel)
         log(f"rendered {w}x{h}@{spp}spp on {args.device} in {dt:.2f}s "
             f"({w * h * spp / dt / 1e6:.1f} Mrays/s, set-up included) -> {args.out}")
+        if args.preview:
+            from .viewer import print_preview
+
+            print_preview(img)
 
     do_render(scene)
 
     if args.watch and not args.procedural and os.path.exists(scene.path or ""):
+        last = os.path.getmtime(scene.path)  # before the log line: an edit after it is seen
         log("watching for changes (ctrl-c to stop)...")
-        last = os.path.getmtime(scene.path)
         try:
             while True:
                 time.sleep(0.5)  # the reference polls every 0.5 s (main.cpp:235-249)

@@ -5,7 +5,10 @@ uint32 RGBA8888 buffer, blitted to screen via SDL (back_buffer.cpp:40-50).
 The renderer produces float radiance on the device; this module adds what
 the reference lacks: RGBA8888 packing plus PNG / PPM / NPY writers.  Every
 writer takes a NumPy array or a torch tensor on any device (a tensor is
-moved to the host first).  PNG encoding is plain ``zlib``.
+moved to the host first).  PNG encoding goes to the native library
+(:mod:`rt_tpu_torch._native`: stored deflate blocks) when one loads, else
+to ``zlib`` at level 6, as the JAX package's does: in either state the
+bytes equal its writer's in the same state, and the pixels are the same.
 """
 
 from __future__ import annotations
@@ -42,7 +45,12 @@ def _rgba_bytes(img) -> tuple[np.ndarray, int, int]:
 
 def write_png(path: str, img) -> None:
     """Write a float (H, W, 3) or uint32 (H, W) image as RGBA PNG."""
+    from . import _native
+
     rgba, w, h = _rgba_bytes(img)
+    if _native.available():
+        _native.write_png(path, rgba, w, h)
+        return
     raw = b"".join(b"\x00" + rgba[y].tobytes() for y in range(h))
 
     def chunk(tag: bytes, data: bytes) -> bytes:

@@ -137,7 +137,7 @@ def _sort_state(state, ids, cell_bits: int):
 
 def wf_bounce_plain(spheres, planes, boxes, counts, cam, seeds, state, ids, limit=None, *, size,
                     bounce, max_bounces, center_sample=False, rng_mode="reference",
-                    record=False):
+                    record=False, rays=None):
     """Plain PyTorch version of the kernel, on the device of ``state``.
 
     Args:
@@ -152,6 +152,8 @@ def wf_bounce_plain(spheres, planes, boxes, counts, cam, seeds, state, ids, limi
         with ids 0..N-1; ``state`` and ``ids`` are written from nothing,
         ``center_sample`` puts sample 0 at the pixel centre) or b > 0 (one
         bounce of every live ray; a dead ray is left as it is).
+      rays: bounce 0 only, the (N,) ray ids the columns generate in place of
+        0..N-1: some columns of a wider launch, without the rest.
 
     Returns the rays' winner words, (N,) int32, with ``record`` (a ray
     that was not live: the miss word), else None.
@@ -164,7 +166,11 @@ def wf_bounce_plain(spheres, planes, boxes, counts, cam, seeds, state, ids, limi
     rows = (planes[:npl, :10].tolist(), spheres[:ns, :10].tolist(), boxes[:nb, :12].tolist())
     seed = int(seeds[0])
     per_sample = 2 + 4 * max_bounces
-    if bounce == 0:
+    if rays is not None:
+        if bounce != 0 or rays.shape != (n,):
+            raise ValueError("rays: the (N,) ids of a bounce-0 launch's columns")
+        ray = rays.to(device=dev, dtype=torch.int64)
+    elif bounce == 0:
         ray = torch.arange(n, device=dev, dtype=torch.int64)
     else:
         ray = ids.to(torch.int64)

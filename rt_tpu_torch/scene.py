@@ -152,6 +152,14 @@ class Camera(_Tables):
         rot = look_rotation(torch.as_tensor(np.asarray(direction, dtype=np.float32)))
         return Camera(position=pos, rotation=rot, vfov=vfov, near=near, far=far)
 
+    @property
+    def forward(self) -> torch.Tensor:
+        return -self.rotation[:, 2]
+
+    @property
+    def right(self) -> torch.Tensor:
+        return self.rotation[:, 0]
+
 
 @dataclasses.dataclass(frozen=True)
 class Materials(_Tables):

@@ -3,6 +3,8 @@ neither JAX nor the JAX package, so that the card-only tests
 (test_torch_cuda.py) run where JAX is not installed."""
 
 import pathlib
+import struct
+import zlib
 
 import numpy as np
 import torch
@@ -25,6 +27,27 @@ spheres = [ { material = 1, position = [0.0, 1.0, -3.0], radius = 0.5 } ]
 """
 BOX_TOML = ("\nboxes = [ { material = 2, position = [-1, 0.5, 0.3], "
             "extents = [0.3, 0.5, 0.3] } ]\n")
+
+
+def read_png(path):
+    """The (H, W, 4) uint8 pixels of an 8-bit RGBA PNG as the image
+    writers write it (filter 0 on every row; any deflate), every chunk's
+    CRC checked."""
+    data = pathlib.Path(path).read_bytes()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        assert struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] == zlib.crc32(tag + body)
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 4 * w)
+    assert (rows[:, 0] == 0).all()
+    return rows[:, 1:].reshape(h, w, 4)
 
 
 def assert_frames_close(got, want):

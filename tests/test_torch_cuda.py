@@ -800,3 +800,27 @@ def test_loss_and_grad_card_matches_cpu(cuda, grad_mode):
         g = grads[k].cpu()
         assert torch.isfinite(g).all(), k
         assert torch.allclose(g, w, rtol=3e-3, atol=3e-4 * max(w.abs().max().item(), 1e-12)), k
+
+
+def test_profiler_sessions_report_device_events(cuda, tmp_path):
+    """``trace`` counts its device events and warns when a trace holds
+    none; ``device_times`` raises on a session without device events."""
+    import warnings
+
+    from rt_tpu_torch import profiling
+
+    step = tr.make_render_step(_scene("basic.toml"), (64, 48), spp=1, max_bounces=2,
+                               device="cuda")
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", ".*no device event", RuntimeWarning)
+        with profiling.trace(str(tmp_path / "frame")):
+            step(seed=0)
+    assert profiling.counters["trace.device_events"] > 0
+    with pytest.warns(RuntimeWarning, match="no device event"):
+        with profiling.trace(str(tmp_path / "nothing")):
+            pass
+    assert profiling.counters["trace.device_events"] == 0
+    with pytest.raises(RuntimeError, match="no device event"):
+        profiling.device_times(lambda i: None, iters=2)
+    assert any("render_kernel" in k for k in profiling.device_times(lambda i: step(seed=i),
+                                                                      iters=2))

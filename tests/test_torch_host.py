@@ -3,10 +3,8 @@ for bit), camera, colour, materials, image writers, log, the renderer
 registry and the CLI.  None of these runs a JAX render."""
 
 import os
-import struct
 import subprocess
 import sys
-import zlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +19,8 @@ from rt_tpu_torch import camera as tcam
 from rt_tpu_torch import colour as tcol
 from rt_tpu_torch import renderer as treg
 from rt_tpu_torch.cli import main
-from test_torch_common import SCENES
+from rt_tpu.viewer import ansi_preview as j_ansi_preview
+from test_torch_common import BOX_TOML, SCENES, read_png
 from test_torch_ops import jax_scene
 
 REPO = SCENES.parent
@@ -177,28 +176,12 @@ def test_colour_and_classes_equal():
                                       np.asarray(rt_tpu.materials.personality_classes(p)))
 
 
-def _read_png(path):
-    data = open(path, "rb").read()
-    assert data[:8] == b"\x89PNG\r\n\x1a\n"
-    pos, idat = 8, b""
-    while pos < len(data):
-        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        if tag == b"IHDR":
-            w, h = struct.unpack(">II", body[:8])
-        elif tag == b"IDAT":
-            idat += body
-        pos += 12 + n
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 4 * w)
-    return rows[:, 1:].reshape(h, w, 4)
-
-
 def test_image_writers(tmp_path):
     img = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, size=(6, 9, 3)).astype(np.float32))
     words = rt_tpu.image.to_rgba8888(img.numpy())
     np.testing.assert_array_equal(rt_tpu_torch.image.to_rgba8888(img), words)
     rt_tpu_torch.image.write_png(str(tmp_path / "a.png"), img)
-    rgba = _read_png(tmp_path / "a.png")
+    rgba = read_png(tmp_path / "a.png")
     np.testing.assert_array_equal(rgba[..., 0], (words >> 24) & 0xFF)
     np.testing.assert_array_equal(rgba[..., 3], 255)
     rt_tpu_torch.image.write_image(str(tmp_path / "a.ppm"), img)
@@ -226,7 +209,10 @@ def test_import_needs_no_jax():
             "rt_tpu_torch.ops.blockwise_grad, rt_tpu_torch.ops.wavefront_grad, "
             "rt_tpu_torch.train, rt_tpu_torch.rng, rt_tpu_torch.integrator, "
             "rt_tpu_torch.replay, rt_tpu_torch.diff, rt_tpu_torch.ops.intersect, "
-            "rt_tpu_torch.renderer, rt_tpu_torch.camera; "
+            "rt_tpu_torch.renderer, rt_tpu_torch.camera, rt_tpu_torch._native, "
+            "rt_tpu_torch.viewer, rt_tpu_torch.render_4k, rt_tpu_torch.profiling, "
+            "rt_tpu_torch.examples.inverse_rendering, "
+            "rt_tpu_torch.examples.big_scene_training; "
             "assert 'jax' not in sys.modules and 'rt_tpu' not in sys.modules; "
             "assert 'triton' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120,
@@ -285,7 +271,7 @@ def test_cli(tmp_path, capsys):
     out = tmp_path / "img.png"
     rc = main(["--scene", str(SCENES / "dielectric.toml"), "--renderer", "sm", "--size", "12x8",
                "--spp", "1", "--bounces", "2", "--device", "cpu", "--out", str(out)])
-    assert rc == 0 and _read_png(out).shape == (8, 12, 4)
+    assert rc == 0 and read_png(out).shape == (8, 12, 4)
     assert "created renderer: sm_ray_tracer" in capsys.readouterr().out
     # the default renderer is mg_ray_tracer, keyed by --seed
     rc = main(["--scene", str(SCENES / "basic.toml"), "--size", "8x6", "--spp", "1",
@@ -301,9 +287,47 @@ def test_cli(tmp_path, capsys):
     assert main(["--renderer", "zzz"]) == 2
     assert main(["--size", "big"]) == 2
     assert main(["--scene", "missing.toml", "--device", "cpu"]) == 1
-    for flag in (["--mesh", "8"], ["--interactive"], ["--preview"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            main(flag)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        main(["--mesh", "8"])
+    # --preview prints the frame's half-blocks after writing it
+    rc = main(["--scene", str(SCENES / "basic.toml"), "-r", "mg_auto", "--size", "16x8", "--spp",
+               "1", "--bounces", "2", "--preview", "--device", "cpu", "--out",
+               str(tmp_path / "v.npy")])
+    text = capsys.readouterr().out
+    assert rc == 0 and text.count("▀") == 16 * 4
+    assert text.endswith(j_ansi_preview(np.load(tmp_path / "v.npy")) + "\n")
+    # --interactive runs the viewer before the renderer is resolved; without
+    # a terminal it draws its first frame and waits for keys, so it is
+    # driven through a pty in tests/test_torch_viewer.py
+    # as JAX's CLI: the kernel renderers draw with seed 0 whatever --seed says
+    rc = main(["--scene", str(SCENES / "basic.toml"), "-r", "mg_pallas", "--size", "8x6",
+               "--spp", "1", "--bounces", "2", "--seed", "3", "--device", "cpu", "--out",
+               str(tmp_path / "s.npy")])
+    want = rt_tpu_torch.ops.render.render_forward(rt_tpu_torch.load(str(SCENES / "basic.toml")),
+                                                  (8, 6), seed=0, spp=1, max_bounces=2,
+                                                  device="cpu")
+    assert rc == 0
+    np.testing.assert_array_equal(np.load(tmp_path / "s.npy"), want.numpy())
+    # --boxes reaches only the ray tracers: mg_auto renders the box scene
+    # without its box, mg_ray_tracer traces it
+    box_scene = tmp_path / "box.toml"
+    box_scene.write_text((SCENES / "basic.toml").read_text() + BOX_TOML)
+    scene = rt_tpu_torch.load(str(box_scene))
+    for renderer, boxes in (("mg_auto", False), ("mg_ray_tracer", True)):
+        out_b = tmp_path / f"{renderer}.npy"
+        assert main(["--scene", str(box_scene), "-r", renderer, "--size", "12x8", "--spp", "1",
+                     "--bounces", "2", "--boxes", "--device", "cpu", "--out", str(out_b)]) == 0
+        kw = dict(spp=1, max_bounces=2, device="cpu")
+        if renderer == "mg_auto":
+            with_boxes = treg.create(renderer)(scene, (12, 8), include_boxes=True, **kw)
+            without = treg.create(renderer)(scene, (12, 8), **kw)
+        else:
+            key = rt_tpu_torch.rng.make_key(0)
+            with_boxes = treg.create(renderer)(scene, (12, 8), key, include_boxes=True, **kw)
+            without = treg.create(renderer)(scene, (12, 8), key, **kw)
+        assert not torch.equal(with_boxes, without)
+        np.testing.assert_array_equal(np.load(out_b), (with_boxes if boxes else without).numpy())
+    capsys.readouterr()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(["--scene", str(SCENES / "basic.toml"), "--size", "8x6",

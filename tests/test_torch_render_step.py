@@ -48,5 +48,7 @@ def test_cli_frame_matches_jax(tmp_path, capsys):
                "--device", "cpu", "--out", str(out)])
     assert rc == 0
     assert "created renderer: mg_auto" in capsys.readouterr().out
-    want = jax_frame(jax_scene("basic.toml"), (16, 12), spp=2, max_bounces=2, seed=1)
+    # as JAX's CLI, which calls render(scene, size, key): a kernel renderer
+    # draws with its default seed 0 whatever --seed says
+    want = jax_frame(jax_scene("basic.toml"), (16, 12), spp=2, max_bounces=2, seed=0)
     assert_frames_close(np.load(out), want)

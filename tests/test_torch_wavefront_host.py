@@ -265,3 +265,33 @@ def test_split_scan_merge_is_the_serial_winner(g):
                 assert torch.equal(a[lane], b)
         kinds.update(want[1].tolist())
     assert kinds == {_NONE, _PLANE, _SPHERE, _BOX}
+
+
+def test_plain_bounce_on_some_columns():
+    """The plain bounce on some columns of a launch equals the whole
+    launch's on them: bounce 0 given the columns' ray ids (``rays``), a
+    later bounce given the columns' state and ids.  Card checks of a wide
+    launch compare it on such columns."""
+    scene = rt_tpu_torch.load(str(SCENES / "basic.toml"))
+    size, k = (16, 12), 2
+    n = size[0] * size[1] * k
+    sp, pl, bx, counts = twf._device_tables(scene, "mg", False, torch.device("cpu"))
+    cam = torch.from_numpy(tr._pack_camera(scene.camera, size))
+    seeds = torch.tensor([7], dtype=torch.int32)
+    kw = dict(size=size, max_bounces=4)
+    state, ids = torch.empty((13, n)), torch.empty(n, dtype=torch.int32)
+    twf.wf_bounce_plain(sp, pl, bx, counts, cam, seeds, state, ids, bounce=0,
+                        center_sample=True, **kw)
+    cols = torch.tensor([0, 5, 191, 192, 300, n - 1])
+    sub, sub_ids = torch.empty((13, len(cols))), torch.empty(len(cols), dtype=torch.int32)
+    twf.wf_bounce_plain(sp, pl, bx, counts, cam, seeds, sub, sub_ids, bounce=0,
+                        center_sample=True, rays=cols, **kw)
+    assert torch.equal(sub, state[:, cols]) and torch.equal(sub_ids, cols.to(torch.int32))
+    state, ids, _ = twf._sort_state(state, ids, 2)
+    sub, sub_ids = state[:, cols].clone(), ids[cols]
+    twf.wf_bounce_plain(sp, pl, bx, counts, cam, seeds, state, ids, bounce=1, **kw)
+    twf.wf_bounce_plain(sp, pl, bx, counts, cam, seeds, sub, sub_ids, bounce=1, **kw)
+    assert torch.equal(sub, state[:, cols])
+    with pytest.raises(ValueError, match="rays"):
+        twf.wf_bounce_plain(sp, pl, bx, counts, cam, seeds, sub, sub_ids, bounce=1, rays=cols,
+                            **kw)
