@@ -17,7 +17,10 @@ with the C interface that the wrappers of ``rt_tpu_torch.ops.render``,
 library lacks ``rt_blockwise_forward_words`` has the older interface of
 the blockwise gradient kernel (it scanned again instead of reading the
 forward launch's winner words), and one whose wavefront library lacks
-``rt_wf_split_lanes`` the older wavefront kernel (without the live count):
+``rt_wf_split_lanes`` the older wavefront kernel (without the live count),
+and one whose libraries lack ``rt_blockwise_offsets``, ``rt_bw_grad_offsets``,
+``rt_wf_offsets`` or ``rt_wf_rev_offsets`` the entry points without the
+sharded routes' pixel and ray offsets (``INTERFACE``):
 the cases that need the new interfaces skip such a tree, and
 ``--package`` compares those routes at the level of their steps and of
 each wavefront launch instead.  This tree's own
@@ -128,11 +131,14 @@ KERNELS = {"render_kernel": ("rt_render_forward", "rt_render_record"),
 # the sources whose SASS --sass writes out (the scan's kernels)
 SASS_SOURCES = ("render_kernel", "blockwise_kernel")
 # entry points whose C signature changed in this tree, with the (library,
-# symbol) that marks a tree built with the new one: the blockwise gradient
-# kernel takes the forward launch's winner words, the wavefront kernel the
-# live count
-INTERFACE = {"rt_bw_grad": ("blockwise_kernel", "rt_blockwise_forward_words"),
-             "rt_wf_bounce": ("wavefront_kernel", "rt_wf_split_lanes")}
+# symbol) that marks a tree built with the new one: rows 5, 7, 8 and 9 take
+# a global pixel or ray offset (the sharded routes), which a tree with the
+# blockwise words form and the wavefront live count may still lack
+INTERFACE = {"rt_blockwise_forward": ("blockwise_kernel", "rt_blockwise_offsets"),
+             "rt_blockwise_forward_words": ("blockwise_kernel", "rt_blockwise_offsets"),
+             "rt_bw_grad": ("bw_grad_kernel", "rt_bw_grad_offsets"),
+             "rt_wf_bounce": ("wavefront_kernel", "rt_wf_offsets"),
+             "rt_wf_rev": ("wf_grad_kernel", "rt_wf_rev_offsets")}
 SASS_OPS = ("STL", "LDL", "CALL", "ATOMS", "CAST.SPIN", "REDG", "SHFL", "MATCH", "MUFU", "LDG",
             "LDS", "BRA")
 GRAD_TOL = 1e-5

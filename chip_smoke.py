@@ -219,6 +219,35 @@ Phases (an exception in any phase exits non-zero before the result line):
    ``rt_tpu_torch.examples.inverse_rendering`` for 10 steps: the loss
    falls, no kernel launches.
 
+8. dist on torch.distributed (rows 5, 7, 8 and 9 take a global offset).
+   (c) Each of the four kernels with an offset against its plain version
+   at the same offset (proc500, 320x180, depth 8): a shard that starts
+   mid-warp and one whose tail is padding; rows 5 and 8 bit for bit (row 5
+   at 4 spp and in its words form, row 8's gen launch and bounce 1 of a
+   2-spp chunk), rows 7 and 9 within 1e-5 x L1.  (a) A 1-rank world in
+   this process (NCCL on cuda:0): ``render_forward_blockwise_sharded`` at
+   config 4 (500 spheres, 1920x1080, 4 spp, depth 8) and
+   ``render_forward_wavefront_sharded`` at the config-5 slice (5000
+   spheres, 960x540, 2 spp, depth 8) torch.equal to the unsharded routes;
+   ``train.make_kernel_train_step(mesh=)`` on both scenes (4 and 2 spp;
+   SGD at lr 0, the step's gradients read from .grad): the loss equal to
+   the unmeshed step's and the gradients within 1e-5 x L1 (the sum of the
+   unmeshed gradient's magnitudes); ``dist.render_image_sharded`` on
+   basic.toml at 800x600, 2 spp, depth 4 torch.equal to
+   ``integrator.render_image``, and its replay gradients.  (b) A 2-rank
+   Gloo world sharing cuda:0 (``dist.run_local``: spawned ranks, which
+   load the kernels phase 2 built): the same routes on a (2, 1) mesh, the
+   jnp frame on (2, 1) and (1, 2), the replay gradients through the
+   prims-sharded replay on (1, 2), rank 0 holding each against the
+   unsharded route; ``python -m rt_tpu_torch --mesh 2x1 -r mg_ray_tracer``
+   at 800x600 against the unsharded CLI's PNG; ``python -m
+   rt_tpu_torch.mp_check --procs 2``.  Every route's kernel counters are
+   set to 0 just before it and read just after (the kernels line adds them
+   as ``launches_phase8``).  Printed: each sharded route's ms beside the
+   unsharded route's in both worlds, and the collectives' ms on the card's
+   tensors with their backend (the all-gather of a config-4 frame slice,
+   the all-reduce of the config-4 step's float64 accumulators).
+
 ``python3 chip_smoke.py --profiler-probe`` runs only a probe of the
 profiler instead: in one process, device_times sessions of 10,000, 100,000
 and 300,000 small kernels, and a basic 800x600 1-spp frame traced before
@@ -3493,6 +3522,409 @@ def surface_phase(scenes, step_mse, card, report):
     return total, errs
 
 
+# ---- phase 8: dist on torch.distributed (rows 5, 7, 8 and 9 with offsets) ----
+
+# the kernels line's name of each wrapper on phase 8's paths
+P8_KERNELS = {"render_blockwise_tile": "blockwise_kernel", "bw_grad_tile": "bw_grad_kernel",
+              "wf_bounce": "wf_bounce", "wf_rev": "wf_rev"}
+# the phase's shapes: config 4 (500 spheres, 1920x1080, 4 spp, depth 8), the
+# config-5 slice (5000 spheres, 960x540, 2 spp, depth 8) and the jnp path's
+# frame (basic.toml, 800x600, 2 spp, depth 4)
+P8_C4 = dict(size=(1920, 1080), spp=4, max_bounces=8)
+P8_C5 = dict(size=(960, 540), spp=2, max_bounces=8)
+P8_JNP = dict(size=(800, 600), spp=2, max_bounces=4)
+
+
+def p8_wrappers():
+    from rt_tpu_torch.ops import blockwise as BW
+    from rt_tpu_torch.ops import blockwise_grad as BWG
+    from rt_tpu_torch.ops import wavefront as WF
+    from rt_tpu_torch.ops import wavefront_grad as WFG
+
+    return (BW.render_blockwise_tile, BWG.bw_grad_tile, WF.wf_bounce, WFG.wf_rev)
+
+
+def p8_scenes():
+    import rt_tpu_torch
+
+    return {"proc500": rt_tpu_torch.scene.make_procedural_scene(500),
+            "proc5000": rt_tpu_torch.scene.make_procedural_scene(5000),
+            "basic": rt_tpu_torch.load(str(ROOT / "scenes" / "basic.toml"))}
+
+
+def p8_grad_gap(got, want):
+    """max over keys of max|got - want| / sum|want| (the gradients held
+    within 1e-5 x L1, L1 the sum of the unsharded gradient's magnitudes)."""
+    return max(((got[k] - want[k]).abs().max() / want[k].abs().sum().clamp_min(1e-30)).item()
+               for k in want)
+
+
+def p8_drive(scenes, mesh, reference: bool, timed, timed_ref, tag: str):
+    """Drive the four sharded routes and the sharded jnp frame on ``mesh``
+    (each route's kernel counters set to 0 just before it and read just
+    after): ``render_forward_blockwise_sharded`` at config 4,
+    ``render_forward_wavefront_sharded`` at the config-5 slice,
+    ``train.make_kernel_train_step(mesh=)`` on both scenes (SGD at lr 0, so
+    the params stay and their .grad holds the step's gradients) and
+    ``dist.render_image_sharded`` on basic.toml (with replay gradients on
+    a (1, 2) mesh, the prims-sharded replay).  With ``reference`` the
+    unsharded route runs too and is compared: frames torch.equal, the
+    train steps' losses equal and gradients within 1e-5 x L1.  ``timed(fn)``
+    times a call of a sharded route (ms; every rank calls it), ``timed_ref``
+    one of an unsharded route (this rank alone).  Returns ``(results,
+    launches per kernel)``."""
+    import torch
+    import rt_tpu_torch
+    from rt_tpu_torch import diff, dist, train
+    from rt_tpu_torch.ops import blockwise as BW
+    from rt_tpu_torch.ops import wavefront as WF
+
+    wrappers = p8_wrappers()
+    total = {name: 0 for name in P8_KERNELS.values()}
+    res = {}
+
+    def reset():
+        torch.cuda.synchronize()
+        for fn in wrappers:
+            fn.launches = 0
+
+    def read(label, **want):
+        torch.cuda.synchronize()
+        got = {P8_KERNELS[fn.__name__]: fn.launches for fn in wrappers}
+        for k in total:
+            total[k] += got[k]
+        log(f"[8] {tag} {label}: kernel launches {got}")
+        check(got == dict(dict.fromkeys(total, 0), **want),
+              f"{tag} {label}: launches {got}, expected {want}")
+
+    frames = (("blockwise config 4", "proc500", P8_C4, BW.render_forward_blockwise_sharded,
+               BW.render_forward_blockwise, {"blockwise_kernel": 1}),
+              ("wavefront config-5 slice", "proc5000", P8_C5, WF.render_forward_wavefront_sharded,
+               WF.render_forward_wavefront, {"wf_bounce": 8}))
+    for label, key, shape, sharded, single, want in frames:
+        sc, c = scenes[key], dict(shape)
+        size = c.pop("size")
+        reset()
+        img = sharded(sc, size, mesh, 3, **c)
+        read(label, **want)
+        check(img.shape == (size[1], size[0], 3) and bool(torch.isfinite(img).all()),
+              f"{tag} {label}: frame not finite or of the wrong shape")
+        row = {"ms": timed(lambda: sharded(sc, size, mesh, 3, **c))}
+        if reference:
+            ref = single(sc, size, 3, **c)
+            row["equal"] = bool(torch.equal(img, ref))
+            check(row["equal"], f"{tag} {label}: the sharded frame differs from the unsharded")
+            row["unsharded_ms"] = timed_ref(lambda: single(sc, size, 3, **c))
+        res[label] = row
+        log(f"[8] {tag} {label}: {row}")
+
+    steps = (("blockwise step config 4", "proc500", P8_C4,
+              {"blockwise_kernel": 4, "bw_grad_kernel": 4}),
+             ("wavefront step config-5 slice", "proc5000", P8_C5,
+              {"wf_bounce": 8, "wf_rev": 8}))
+    for label, key, shape, want in steps:
+        sc, c = scenes[key], dict(shape)
+        size = c.pop("size")
+        target = torch.zeros((size[1], size[0], 3), device="cuda")
+
+        def make(m):
+            params = {k: v.to("cuda") for k, v in diff.extract_params(sc).items()}
+            opt = torch.optim.SGD(list(params.values()), lr=0.0)
+            return train.make_kernel_train_step(opt, sc, target, size, mesh=m, **c), params
+
+        step, params = make(mesh)
+        reset()
+        loss = step(params, 7)
+        read(label, **want)
+        grads = {k: p.grad.clone() for k, p in params.items()}
+        row = {"loss": float(loss), "ms": timed(lambda: step(params, 7))}
+        if reference:
+            step1, params1 = make(None)
+            loss1 = step1(params1, 7)
+            row["unsharded_loss"] = float(loss1)
+            row["grad_gap_l1"] = p8_grad_gap(grads, {k: p.grad for k, p in params1.items()})
+            check(row["loss"] == row["unsharded_loss"], f"{tag} {label}: loss {row['loss']} != "
+                  f"unsharded {row['unsharded_loss']}")
+            check(row["grad_gap_l1"] <= 1e-5, f"{tag} {label}: gradients {row['grad_gap_l1']} "
+                  "x L1 from the unsharded step's")
+            row["unsharded_ms"] = timed_ref(lambda: step1(params1, 7))
+        res[label] = row
+        log(f"[8] {tag} {label}: {row}")
+
+    sc, c = scenes["basic"], dict(P8_JNP)
+    size = c.pop("size")
+    key = rt_tpu_torch.rng.make_key(5)
+    meshes = {str(tuple(mesh.shape)): mesh} if mesh.size() == 1 else {
+        "(2, 1)": dist.make_mesh(2, 1), "(1, 2)": dist.make_mesh(1, 2)}
+    for mname, m in meshes.items():
+        label = f"render_image_sharded basic {mname}"
+        reset()
+        img = dist.render_image_sharded(sc, size, key, m, **c)
+        read(label)
+        row = {"ms": timed(lambda: dist.render_image_sharded(sc, size, key, m, **c))}
+        if reference:
+            ref = rt_tpu_torch.integrator.render_image(sc, size, key, **c)
+            row["equal"] = bool(torch.equal(img, ref))
+            check(row["equal"], f"{tag} {label}: the sharded frame differs from the unsharded")
+            row["unsharded_ms"] = timed_ref(
+                lambda: rt_tpu_torch.integrator.render_image(sc, size, key, **c))
+        res[label] = row
+        log(f"[8] {tag} {label}: {row}")
+    # replay gradients through the prims-sharded replay (the (1, 2) mesh in
+    # the 2-rank world, the 1-rank mesh otherwise)
+    m = meshes.get("(1, 2)", mesh)
+    target = torch.zeros((size[1], size[0], 3), device="cuda")
+    params = diff.extract_params(sc)
+    reset()
+    loss, g = diff.loss_and_grad(params, sc, target, size, key, grad_mode="replay",
+                                 render_fn=lambda s_, z, k, **o: dist.render_image_sharded(
+                                     s_, z, k, m, **o), **c)
+    read("replay gradients")
+    row = {"loss": float(loss)}
+    if reference:
+        loss1, g1 = diff.loss_and_grad(params, sc, target, size, key, grad_mode="replay", **c)
+        row.update(unsharded_loss=float(loss1), grad_gap_l1=p8_grad_gap(g, g1))
+        check(abs(row["loss"] - row["unsharded_loss"]) <= 1e-6 * abs(row["unsharded_loss"]),
+              f"{tag} replay gradients: loss {row['loss']} vs {row['unsharded_loss']}")
+        check(row["grad_gap_l1"] <= 1e-5, f"{tag} replay gradients: {row['grad_gap_l1']} x L1")
+    res["replay gradients"] = row
+    log(f"[8] {tag} replay gradients: {row}")
+    return res, total
+
+
+def p8_collectives(mesh, timed):
+    """ms of the collectives of the sharded routes on ``mesh``'s 'rays' axis:
+    the all-gather of a config-4 frame slice and the all-reduce of the
+    float64 accumulators of the config-4 step, each on tensors on the card."""
+    import torch
+    import torch.distributed as tdist
+    from rt_tpu_torch import dist
+
+    ax = dist.mesh_axis(mesh, "rays")
+    n = 1920 * 1080
+    part = torch.zeros((-(-n // ax.size), 3), device="cuda")
+    acc = torch.zeros(9 * 500 + 5 * 8 + 16, dtype=torch.float64, device="cuda")
+    return {"all_gather_frame_ms": timed(lambda: ax.all_gather(part)),
+            "all_reduce_grads_ms": timed(lambda: ax.all_sum(acc)),
+            "route": f"{tdist.get_backend(ax.group)} on {part.device.type} tensors"}
+
+
+def p8_rank():
+    """One rank of phase 8 (b)'s 2-rank Gloo world sharing cuda:0: the
+    routes on (2, 1) (and the jnp frame on (1, 2)), rank 0 with the
+    unsharded references; the times with both ranks in step."""
+    import torch
+    import torch.distributed as tdist
+    from rt_tpu_torch import dist
+
+    rank = tdist.get_rank()
+
+    def timed(fn, iters=3):
+        fn()
+        torch.cuda.synchronize()
+        tdist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        tdist.barrier()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    def timed_alone(fn, iters=3):  # the unsharded reference, on rank 0 alone
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    mesh = dist.make_mesh(2, 1)
+    scenes = p8_scenes()
+    res, launches = p8_drive(scenes, mesh, rank == 0, timed, timed_alone, f"(b) rank {rank}")
+    coll = p8_collectives(mesh, timed)
+    return {"rank": rank, "backend": tdist.get_backend(),
+            "device": str(torch.cuda.current_device()), "results": res, "launches": launches,
+            "collectives": coll}
+
+
+def dist_phase(scenes, card, report):
+    """Phase 8: (c) rows 5, 7, 8 and 9 with offsets against their plain
+    versions; (a) a 1-rank NCCL world in this process; (b) a 2-rank Gloo
+    world sharing cuda:0 (dist.run_local, the spawn start method; the
+    kernels were built in phase 2, so the ranks load them), the CLI's
+    --mesh 2x1 against the unsharded CLI's PNG, and mp_check.  Returns the
+    launches per kernel on the phase's paths and (c)'s errors per kernel."""
+    import os
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    import rt_tpu_torch
+    from rt_tpu_torch import dist, profiling
+    from rt_tpu_torch.cli import main as cli_main
+    from rt_tpu_torch.ops import blockwise as BW
+    from rt_tpu_torch.ops import blockwise_grad as BWG
+    from rt_tpu_torch.ops import wavefront as WF
+    from rt_tpu_torch.ops import wavefront_grad as WFG
+    from rt_tpu_torch.ops.render import WORD_MISS, _pack_camera, _upload
+
+    out = {}
+    errs = {name: 0.0 for name in P8_KERNELS.values()}
+
+    # ---- (c) each kernel with an offset against its plain version ----
+    dev = torch.device("cuda")
+    sc = scenes["proc500"]
+    size = (320, 180)
+    n = size[0] * size[1]
+    sp, pl, bx, counts = BW._device_tables(sc, "mg", False, dev)
+    cam = _upload(_pack_camera(sc.camera, size), dev)
+    seeds = torch.tensor([7], dtype=torch.int32, device=dev)
+    kw = dict(size=size, max_bounces=8, center_sample=False)
+
+    def l1_gap(got, want, l1):
+        return max(((g - w).abs() / l.clamp_min(1e-30)).max().item() if g.numel() else 0.0
+                   for g, w, l in zip(got, want, l1))
+
+    for pix0, count in ((45, 20000), (40000, 20000)):  # mid-warp; a padded tail
+        inside = min(n, pix0 + count) - pix0
+        got = BW.render_blockwise_tile(sp, pl, bx, counts, cam, seeds, spp=4, pix0=pix0,
+                                       count=count, **kw)
+        want = BW.render_blockwise_tile_plain(sp, pl, bx, counts, cam, seeds, spp=4,
+                                              pix0=pix0, count=count, **kw)
+        fr, wd = BW.render_blockwise_tile(sp, pl, bx, counts, cam, seeds, spp=1, words=True,
+                                          pix0=pix0, count=count, **kw)
+        fr_p, wd_p = BW.render_blockwise_tile_plain(sp, pl, bx, counts, cam, seeds, spp=1,
+                                                    words=True, pix0=pix0, count=count, **kw)
+        torch.cuda.synchronize()
+        ok5 = (torch.equal(got, want) and torch.equal(fr, fr_p) and torch.equal(wd, wd_p)
+               and not got[inside:].any() and bool((wd[:, inside:] == WORD_MISS).all()))
+        cot = torch.from_numpy(np.random.default_rng(3).normal(0, 1e-4, (count, 3))
+                               .astype(np.float32)).to(dev)
+        cot[inside:] = 0
+        g = BWG.bw_grad_tile(sp, pl, counts[:2], cam, seeds, cot, wd, pix0=pix0, count=count,
+                             **kw)
+        gp, l1 = BWG.bw_grad_tile_plain(sp, pl, counts[:2], cam, seeds, cot, wd, pix0=pix0,
+                                        count=count, with_l1=True, **kw)
+        torch.cuda.synchronize()
+        e7 = l1_gap(g, [x.double() for x in gp], [x.double() for x in l1])
+        errs["blockwise_kernel"] = max(errs["blockwise_kernel"], (got - want).abs().max().item())
+        errs["bw_grad_kernel"] = max(errs["bw_grad_kernel"], e7)
+        log(f"[8] (c) rows 5 and 7, pixels {pix0}..{pix0 + count - 1} of {n} (proc500 "
+            f"320x180 d8): row 5 bit for bit {ok5}; row 7 within {e7:.3g} x L1")
+        check(ok5, f"row 5 with offset {pix0} differs from its plain version")
+        check(e7 <= 1e-5, f"row 7 with offset {pix0}: {e7} x L1")
+    total = 2 * n
+    for ray0, rays in ((45, 40000), (80000, 40000)):  # mid-warp; a padded tail
+        st = torch.empty((13, rays), device=dev)
+        ids = torch.empty(rays, dtype=torch.int32, device=dev)
+        st_p, ids_p = st.clone(), ids.clone()
+        wk = dict(size=size, max_bounces=8)
+        w0 = WF.wf_bounce(sp, pl, bx, counts, cam, seeds, st, ids, bounce=0, center_sample=True,
+                          record=True, ray0=ray0, total=total, **wk)
+        w0_p = WF.wf_bounce_plain(sp, pl, bx, counts, cam, seeds, st_p, ids_p, bounce=0,
+                                  center_sample=True, record=True, ray0=ray0, total=total, **wk)
+        entering = st.clone()
+        w1 = WF.wf_bounce(sp, pl, bx, counts, cam, seeds, st, ids, bounce=1, record=True, **wk)
+        w1_p = WF.wf_bounce_plain(sp, pl, bx, counts, cam, seeds, st_p, ids_p, bounce=1,
+                                  record=True, **wk)
+        torch.cuda.synchronize()
+        ok8 = (torch.equal(st, st_p) and torch.equal(ids, ids_p) and torch.equal(w0, w0_p)
+               and torch.equal(w1, w1_p))
+        cot_pix = torch.from_numpy(np.random.default_rng(6).uniform(-1e-4, 1e-4, (n, 3))
+                                   .astype(np.float32)).to(dev)
+        cot = torch.from_numpy(np.random.default_rng(7).uniform(-1e-4, 1e-4, (9, rays))
+                               .astype(np.float32)).to(dev)
+        e9 = 0.0
+        for b, state, words in ((1, entering, w1), (0, None, w0)):
+            cot_p = cot.clone()
+            rk = dict(bounce=b, center_sample=True, ray0=ray0, total=total, **wk)
+            g = WFG.wf_rev(sp, pl, counts[:2], cam, seeds, state, ids, words, None, cot, cot_pix,
+                           **rk)
+            gp, l1 = WFG.wf_rev_plain(sp, pl, counts[:2], cam, seeds, state, ids, words, None,
+                                      cot_p, cot_pix, with_l1=True, **rk)
+            torch.cuda.synchronize()
+            e9 = max(e9, l1_gap(g, gp, l1),
+                     (cot - cot_p).abs().max().item() / cot_p.abs().max().clamp_min(1e-30).item())
+            cot = cot_p
+        errs["wf_rev"] = max(errs["wf_rev"], e9)
+        log(f"[8] (c) rows 8 and 9, rays {ray0}..{ray0 + rays - 1} of a {total}-ray chunk "
+            f"(proc500 320x180 2 spp d8): row 8 bit for bit {ok8}; row 9 within {e9:.3g} x L1")
+        check(ok8, f"row 8 with offset {ray0} differs from its plain version")
+        check(e9 <= 1e-5, f"row 9 with offset {ray0}: {e9} x L1")
+
+    launches = {name: 0 for name in P8_KERNELS.values()}
+
+    # ---- (a) a 1-rank world in this process: NCCL on cuda:0 ----
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    dist.initialize(init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        check(tdist.get_backend() == "nccl", f"1-rank world on {tdist.get_backend()}")
+        mesh = dist.make_mesh(1, 1)
+        p8 = p8_scenes()
+
+        def timed(fn):
+            return profiling.sustained(lambda i: fn(), iters=3, windows=3)["median"] * 1e3
+
+        res_a, got = p8_drive(p8, mesh, True, timed, timed, "(a) 1-rank NCCL")
+        for k in launches:
+            launches[k] += got[k]
+        out["a"] = {"results": res_a, "collectives": p8_collectives(mesh, timed)}
+        log(f"[8] (a) collectives (1-rank NCCL): {out['a']['collectives']}")
+    finally:
+        tdist.destroy_process_group()
+    out["a_s"] = time.perf_counter() - t0
+
+    # ---- (b) a 2-rank Gloo world sharing cuda:0 ----
+    t0 = time.perf_counter()
+    ranks = dist.run_local(p8_rank, 2, device="cuda", timeout=600, collective_timeout=300)
+    out["b_s"] = time.perf_counter() - t0
+    for r in ranks:
+        check(r["backend"] == "gloo" and r["device"] == "0",
+              f"rank {r['rank']} on {r['backend']} / cuda:{r['device']}")
+        for k in launches:
+            launches[k] += r["launches"][k]
+    out["b"] = {f"rank {r['rank']}": {"results": r["results"], "collectives": r["collectives"]}
+                for r in ranks}
+    log(f"[8] (b) 2-rank Gloo world on cuda:0 in {out['b_s']:.1f} s: rank 0 {ranks[0]['results']}")
+    log(f"[8] (b) collectives (Gloo, CUDA tensors): "
+        f"{[r['collectives'] for r in ranks]}")
+
+    # the CLI's --mesh 2x1 (it starts its own 2 local ranks) and mp_check
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    cli_args = ["--scene", str(ROOT / "scenes" / "basic.toml"), "-r", "mg_ray_tracer",
+                "--size", "800x600", "--spp", "2", "--bounces", "4"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "rt_tpu_torch", *cli_args, "--mesh", "2x1",
+                               "--out", f"{tmp}/mesh.png"], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"--mesh 2x1 CLI rc {proc.returncode}: {proc.stderr[-2000:]}")
+        check(cli_main(cli_args + ["--out", f"{tmp}/single.png"]) == 0, "unsharded CLI failed")
+        same = bool(np.array_equal(png_rgba(Path(tmp) / "mesh.png"),
+                                   png_rgba(Path(tmp) / "single.png")))
+        log(f"[8] (b) CLI --mesh 2x1 -r mg_ray_tracer 800x600 2 spp d4: rc 0 in {cli_s:.1f} s, "
+            f"PNG equal to the unsharded CLI's: {same}")
+        check(same, "--mesh 2x1 PNG differs from the unsharded CLI's")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "rt_tpu_torch.mp_check", "--procs", "2"],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    mp_s = time.perf_counter() - t0
+    log(f"[8] (b) mp_check --procs 2 (cuda): rc {proc.returncode} in {mp_s:.1f} s: "
+        f"{proc.stdout.strip().splitlines()[-1:]}")
+    check(proc.returncode == 0 and "mp_check OK" in proc.stdout,
+          f"mp_check failed: {proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+    out.update(cli_mesh_s=cli_s, mp_check_s=mp_s, launches=launches, errs=errs)
+    report["dist"] = out
+    log(f"[8] phase 8 launches {launches} | {card}")
+    return launches, errs
+
+
 def profiler_probe():
     """Whether earlier profiler sessions leave later ones without device
     events: one process traces a frame, then runs ``device_times``
@@ -3783,6 +4215,12 @@ def main() -> int:
     report["surface_phase_s"] = time.perf_counter() - t7
     log(f"[7] the measurement and surface phase: {report['surface_phase_s']:.1f} s")
 
+    # ---- 8. dist on torch.distributed ----
+    t8 = time.perf_counter()
+    p8, p8_errs = dist_phase(scenes, card, report)
+    report["dist_phase_s"] = time.perf_counter() - t8
+    log(f"[8] the dist phase: {report['dist_phase_s']:.1f} s")
+
     check("jax" not in sys.modules and "rt_tpu" not in sys.modules, "JAX was imported")
     log("[report] " + json.dumps(report))
 
@@ -3819,8 +4257,9 @@ def main() -> int:
         row = bw_rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"rt_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": bw_launches[name] + p7[name],
-            "launches_phase7": p7[name], "max_abs_err": max(bw_errs[name], p7_errs[name]),
+            "replaces": replaces, "launches": bw_launches[name] + p7[name] + p8[name],
+            "launches_phase7": p7[name], "launches_phase8": p8[name],
+            "max_abs_err": max(bw_errs[name], p7_errs[name], p8_errs[name]),
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
@@ -3832,9 +4271,10 @@ def main() -> int:
         row = wf_rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"rt_tpu_torch/csrc/{source}.cu",
-            "replaces": replaces, "launches": wf_launches[name] + p7.get(name, 0),
-            "launches_phase7": p7.get(name, 0),
-            "max_abs_err": max(wf_errs[name], p7_errs.get(name, 0.0)), "ms": row["ms"],
+            "replaces": replaces, "launches": wf_launches[name] + p7.get(name, 0) + p8[name],
+            "launches_phase7": p7.get(name, 0), "launches_phase8": p8[name],
+            "max_abs_err": max(wf_errs[name], p7_errs.get(name, 0.0), p8_errs[name]),
+            "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
             **{k: row[k] for k in ("bounce0_ms", "bounces_1_7_ms") if k in row},

@@ -22,13 +22,15 @@ the integrator, its gradients and the training loop):
   and ops.wavefront_grad (the bounce-major forward kernel, its scan-free
   reverse, and the optimizer step), roofline (the FMA peak probe; run as
   ``python -m rt_tpu_torch.roofline``, so not imported here), profiling,
-  renderer, cli.
+  renderer, cli, and dist (the ('rays', 'prims') mesh on torch.distributed,
+  the sharded frame and the sharded kernel routes; ``python -m
+  rt_tpu_torch.mp_check`` checks it across processes).
 
 Importing this package needs neither CUDA nor JAX.
 """
 
-from . import (camera, colour, diff, image, integrator, log, materials, ops, profiling, renderer,
-               replay, rng, scene, train)
+from . import (camera, colour, diff, dist, image, integrator, log, materials, ops, profiling,
+               renderer, replay, rng, scene, train)
 from .scene import Scene, from_jax_scene, load, load_first_available, loads
 
 __version__ = "0.1.0"
@@ -37,6 +39,7 @@ __all__ = [
     "camera",
     "colour",
     "diff",
+    "dist",
     "image",
     "integrator",
     "log",

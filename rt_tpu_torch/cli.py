@@ -21,13 +21,24 @@ Same flags as ``python -m rt_tpu.cli`` plus ``--device`` (default
   on ``--device`` instead of writing an image; ``--preview`` prints an ANSI
   preview of the frame after writing it.
 
-``--mesh`` is not ported yet and raises ``NotImplementedError``.
+``--mesh R`` or ``--mesh RxP`` renders with the path tracers only
+(``mg_ray_tracer``, ``sm_ray_tracer``; any other renderer is rc 2) over a
+('rays', 'prims') mesh of R x P ranks (:mod:`rt_tpu_torch.dist`): the
+unsharded frame bit for bit wherever the sharded render's ray chunk (JAX's
+rule: at most a rank's share of the pixels, at least 1024) is the
+unsharded one's, as at 800x600 on 2 ranks.  In a process that is not already a rank of
+a world (no ``WORLD_SIZE``, as ``torchrun`` sets) the CLI starts the R x P
+local ranks itself (``dist.run_local``: processes of their own, Gloo on
+the CPU and where they share a card, NCCL where each has one); under
+``torchrun --nproc-per-node N`` it renders in the world it is in.  Rank 0
+logs and writes the image.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
 __all__ = ["main", "build_parser"]
@@ -53,7 +64,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="max bounces (default: scene's)")
     ap.add_argument("--seed", type=int, default=0, help="RNG seed")
     ap.add_argument("--mesh", default="",
-                    help="shard over devices (not ported yet)")
+                    help="shard over ranks, e.g. '4' (rays) or '2x2' (rays x prims); starts "
+                         "the local ranks unless run by torchrun")
     ap.add_argument("--procedural", type=int, default=0, metavar="N",
                     help="render the procedural N-sphere benchmark scene "
                          "(BASELINE configs 4/5) instead of a TOML file")
@@ -77,6 +89,49 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _parse_mesh(text: str) -> tuple[int, int]:
+    """'R' or 'RxP' -> (R, P)."""
+    parts = [int(v) for v in text.lower().split("x")]
+    if not 1 <= len(parts) <= 2 or min(parts) < 1:
+        raise ValueError(text)
+    return parts[0], parts[1] if len(parts) > 1 else 1
+
+
+def _meshed_renderer(args, name: str, argv):
+    """``--mesh``: ``(render, quiet)`` for this rank of the world, or an rc
+    (2 for a bad mesh or a renderer the mesh does not take; the rank 0 rc
+    of the local ranks that this call started and ran)."""
+    import torch.distributed as tdist
+
+    from . import dist
+    from .log import error
+
+    try:
+        n_rays, n_prims = _parse_mesh(args.mesh)
+    except ValueError:
+        error(f"bad --mesh '{args.mesh}' (expected R or RxP)")
+        return 2
+    personality = {"mg_ray_tracer": "mg", "sm_ray_tracer": "sm"}.get(name)
+    if personality is None:
+        error(f"--mesh is only supported for the path tracers, not {name}")
+        return 2
+    if not tdist.is_initialized() and "WORLD_SIZE" not in os.environ:
+        # no world yet: start the R x P local ranks, each running this CLI
+        # in the world it joins; a render's length is unknown, so the ranks'
+        # launch has no deadline
+        rcs = dist.run_local(main, n_rays * n_prims, sys.argv[1:] if argv is None
+                             else list(argv), device=args.device, timeout=None,
+                             collective_timeout=1800.0)
+        return rcs[0]
+    dist.initialize(device=args.device)
+    mesh = dist.make_mesh(n_rays, n_prims)
+
+    def render(scene, size, key, **o):
+        return dist.render_image_sharded(scene, size, key, mesh, personality=personality, **o)
+
+    return render, tdist.get_rank() != 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
@@ -89,13 +144,14 @@ def main(argv=None) -> int:
             log(d.name)
         return 0
 
-    if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet")
-
     try:
         w, h = (int(v) for v in args.size.lower().split("x"))
     except ValueError:
         error(f"bad --size '{args.size}' (expected WxH)")
+        return 2
+
+    if args.mesh and (args.watch or args.interactive):
+        error("--mesh renders one frame: it takes neither --watch nor --interactive")
         return 2
 
     if args.interactive:
@@ -110,6 +166,15 @@ def main(argv=None) -> int:
         error(f"no known renderer with name '{args.renderer}'")
         return 2
     render = desc.create()
+    quiet = False  # a rank other than 0 of a --mesh world logs and writes nothing
+    if args.mesh:
+        meshed = _meshed_renderer(args, desc.name, argv)
+        if isinstance(meshed, int):  # an error's rc, or the rc of the local ranks' run
+            return meshed
+        render, quiet = meshed
+        if quiet:
+            def log(*_args):
+                pass
     log(f"created renderer: {desc.name}")
 
     def load_scene():
@@ -139,11 +204,12 @@ def main(argv=None) -> int:
         key = rt_tpu_torch.rng.make_key(args.seed)
         img = render(scene, (w, h), key, **opts).cpu()  # .cpu() waits for the device
         dt = time.perf_counter() - t0
-        rt_tpu_torch.image.write_image(args.out, img)
+        if not quiet:
+            rt_tpu_torch.image.write_image(args.out, img)
         spp = opts.get("spp", scene.samples_per_pixel)
         log(f"rendered {w}x{h}@{spp}spp on {args.device} in {dt:.2f}s "
             f"({w * h * spp / dt / 1e6:.1f} Mrays/s, set-up included) -> {args.out}")
-        if args.preview:
+        if args.preview and not quiet:
             from .viewer import print_preview
 
             print_preview(img)

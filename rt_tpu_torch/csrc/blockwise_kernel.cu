@@ -67,6 +67,15 @@
 // g, b, refl, rough, cls, original index, 0...]; the index column is the
 // JAX package's Morton-order tie-break and is not read here (the scan runs
 // in index order).  Only the first n_* rows of each table are scanned.
+//
+// A launch covers the pixels pix0 .. pix0 + count - 1 of the frame (the
+// whole frame: pix0 = 0, count = width * height).  A pixel's draws, jitter
+// and position come from its global index, so a shard of the frame
+// (rt_tpu_torch/ops/blockwise.py render_forward_blockwise_sharded, the
+// counterpart of the TPU kernel's tile offset meta[3]) traces exactly the
+// pixels of the whole-frame launch; out and words are the launch's own
+// columns.  A column at or past width * height (the last shard's padding)
+// writes zero radiance and the miss word.
 
 #include "trace.cuh"
 
@@ -100,26 +109,31 @@ __device__ __forceinline__ const float4* scan_rows(const float* __restrict__ sph
 // kWords: the words form (trace_pixel's), one sample per launch.  kGeo:
 // kGeoCompact stages the n_spheres compact rows in dynamic shared memory
 // (n_spheres <= kStageRows), kGeoHead16 reads the rows' heads from device
-// memory.
+// memory.  Column gid traces pixel pix0 + gid.
 template <bool kWords, int kGeo>
 __global__ void __launch_bounds__(kThreads) blockwise_kernel(
     const float* __restrict__ spheres, int n_spheres,
     const float* __restrict__ planes, int n_planes,
     const float* __restrict__ boxes, int n_boxes,
     const float* __restrict__ cam, const int32_t* __restrict__ seeds,
-    float* __restrict__ out, int width, int height, float inv_w, float inv_h, int spp,
-    int max_bounces, int center_sample, int rng_sphere, int32_t* __restrict__ words) {
+    float* __restrict__ out, int width, int height, int pix0, int count, float inv_w,
+    float inv_h, int spp, int max_bounces, int center_sample, int rng_sphere,
+    int32_t* __restrict__ words) {
   extern __shared__ float4 s_geo[];
   const float4* geo = scan_rows<kGeo>(spheres, n_spheres, s_geo);
-  const int n = width * height;
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= n) return;
-  const Tables T{spheres, n_spheres, planes, n_planes, boxes, n_boxes};
-  float acc[3];
-  trace_pixel<kCols, kCols, kGeo, kWords>(
-      T, geo, cam, static_cast<uint32_t>(gid), static_cast<float>(gid % width),
-      static_cast<float>(gid / width), static_cast<uint32_t>(seeds[0]), inv_w, inv_h, spp,
-      max_bounces, center_sample, rng_sphere, acc, words, n);
+  if (gid >= count) return;
+  const int pix = pix0 + gid;
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  if (pix < width * height) {
+    const Tables T{spheres, n_spheres, planes, n_planes, boxes, n_boxes};
+    trace_pixel<kCols, kCols, kGeo, kWords>(
+        T, geo, cam, static_cast<uint32_t>(pix), static_cast<float>(pix % width),
+        static_cast<float>(pix / width), static_cast<uint32_t>(seeds[0]), inv_w, inv_h, spp,
+        max_bounces, center_sample, rng_sphere, acc, words, count, gid);
+  } else if constexpr (kWords) {  // padding past the frame
+    for (int b = 0; b < max_bounces; ++b) words[static_cast<int64_t>(b) * count + gid] = kWordMiss;
+  }
   float* o = out + static_cast<int64_t>(gid) * 3;
   o[0] = acc[0];
   o[1] = acc[1];
@@ -151,19 +165,19 @@ __global__ void __launch_bounds__(kThreads) blockwise_record_kernel(
 template <bool kWords>
 void launch_blockwise(const float* spheres, int n_spheres, const float* planes, int n_planes,
                       const float* boxes, int n_boxes, const float* cam, const int32_t* seeds,
-                      float* out, int width, int height, float inv_w, float inv_h, int spp,
-                      int max_bounces, int center_sample, int rng_sphere, int32_t* words,
-                      cudaStream_t stream) {
-  const int blocks = (width * height + kThreads - 1) / kThreads;
+                      float* out, int width, int height, int pix0, int count, float inv_w,
+                      float inv_h, int spp, int max_bounces, int center_sample, int rng_sphere,
+                      int32_t* words, cudaStream_t stream) {
+  const int blocks = (count + kThreads - 1) / kThreads;
   if (staged(n_spheres)) {
     const size_t smem = sizeof(float4) * static_cast<size_t>(n_spheres);
     blockwise_kernel<kWords, kGeoCompact><<<blocks, kThreads, smem, stream>>>(
         spheres, n_spheres, planes, n_planes, boxes, n_boxes, cam, seeds, out, width, height,
-        inv_w, inv_h, spp, max_bounces, center_sample, rng_sphere, words);
+        pix0, count, inv_w, inv_h, spp, max_bounces, center_sample, rng_sphere, words);
   } else {
     blockwise_kernel<kWords, kGeoHead16><<<blocks, kThreads, 0, stream>>>(
         spheres, n_spheres, planes, n_planes, boxes, n_boxes, cam, seeds, out, width, height,
-        inv_w, inv_h, spp, max_bounces, center_sample, rng_sphere, words);
+        pix0, count, inv_w, inv_h, spp, max_bounces, center_sample, rng_sphere, words);
   }
 }
 
@@ -171,31 +185,32 @@ void launch_blockwise(const float* spheres, int n_spheres, const float* planes, 
 
 // Launches one call on `stream`; returns cudaGetLastError() as an int.
 // Tables are row-major float32 (rows, 16), of which the first n_* rows are
-// used, the spheres' 16-byte aligned; seeds: (1,) int32; out: (height,
-// width, 3) float32.
+// used, the spheres' 16-byte aligned; seeds: (1,) int32; out: (count, 3)
+// float32, the pixels pix0 .. pix0 + count - 1 of the width x height frame
+// ((height, width, 3) for the whole frame).
 extern "C" int rt_blockwise_forward(
     const float* spheres, int n_spheres, const float* planes, int n_planes,
     const float* boxes, int n_boxes, const float* cam, const int32_t* seeds, float* out,
-    int width, int height, float inv_w, float inv_h, int spp, int max_bounces,
-    int center_sample, int rng_sphere, void* stream) {
+    int width, int height, int pix0, int count, float inv_w, float inv_h, int spp,
+    int max_bounces, int center_sample, int rng_sphere, void* stream) {
   launch_blockwise<false>(spheres, n_spheres, planes, n_planes, boxes, n_boxes, cam, seeds, out,
-                          width, height, inv_w, inv_h, spp, max_bounces, center_sample,
-                          rng_sphere, nullptr, static_cast<cudaStream_t>(stream));
+                          width, height, pix0, count, inv_w, inv_h, spp, max_bounces,
+                          center_sample, rng_sphere, nullptr, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launches one call of the words form on `stream` (one sample); returns
 // cudaGetLastError() as an int.  Arguments as rt_blockwise_forward with
-// spp = 1, and words: (max_bounces, height*width) int32, every entry
-// written (trace_pixel's words form).
+// spp = 1, and words: (max_bounces, count) int32, every entry written
+// (trace_pixel's words form).
 extern "C" int rt_blockwise_forward_words(
     const float* spheres, int n_spheres, const float* planes, int n_planes,
     const float* boxes, int n_boxes, const float* cam, const int32_t* seeds, float* out,
-    int32_t* words, int width, int height, float inv_w, float inv_h, int max_bounces,
-    int center_sample, int rng_sphere, void* stream) {
+    int32_t* words, int width, int height, int pix0, int count, float inv_w, float inv_h,
+    int max_bounces, int center_sample, int rng_sphere, void* stream) {
   launch_blockwise<true>(spheres, n_spheres, planes, n_planes, boxes, n_boxes, cam, seeds, out,
-                         width, height, inv_w, inv_h, 1, max_bounces, center_sample, rng_sphere,
-                         words, static_cast<cudaStream_t>(stream));
+                         width, height, pix0, count, inv_w, inv_h, 1, max_bounces,
+                         center_sample, rng_sphere, words, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -223,3 +238,8 @@ extern "C" int rt_blockwise_record(
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// Marks a library whose rt_blockwise_forward and rt_blockwise_forward_words
+// take the launch's first pixel and count (the sharded routes' interface):
+// tools that load libraries built from other trees check for it.
+extern "C" int rt_blockwise_offsets() { return 1; }

@@ -35,6 +35,14 @@
 // same tensors to every sample's launch, so a step sums its samples with
 // no reduction between launches.
 //
+// A launch covers the pixels pix0 .. pix0 + count - 1 of the frame (the
+// whole frame: pix0 = 0, count = width * height), as the blockwise forward
+// kernel's launch does: the draws, jitter and position come from the
+// global pixel index, the cotangent, the words and the stash are the
+// launch's own columns, and a column at or past width * height (the last
+// shard's padding) adds nothing.  The counterpart of the TPU kernel's tile
+// offset (meta[3]) for the sharded step (make_bw_train_step(mesh=)).
+//
 // What bounds it on this card.  FP32 issue: per live bounce one winner
 // test (~20-30 operations), ~100 for the rest of the forward bounce and
 // ~200-350 for its adjoint; before the words form the scan of every row
@@ -87,13 +95,13 @@ struct Args {
   const float* spheres; int n_spheres;
   const float* planes; int n_planes;
   const float* cam; const int32_t* seeds;
-  const float* cot;     // (n, 3) pixel cotangent
-  const int32_t* words; // (max_bounces, n) the forward launch's winner words
+  const float* cot;     // (count, 3) pixel cotangent
+  const int32_t* words; // (max_bounces, count) the forward launch's winner words
   double* sg;           // (9, n_spheres), added to
   double* pg;           // (5, n_planes), added to
   double* cg;           // (16,), added to
   Stash stash;
-  int width, height, center0, rng_sphere;
+  int width, height, pix0, count, center0, rng_sphere;
   float inv_w, inv_h;
 };
 
@@ -102,17 +110,17 @@ struct Args {
 // the scan-free form takes 96 registers either way.
 __global__ void __launch_bounds__(kThreads, 4) bw_grad_kernel(Args A) {
   __shared__ float red[kThreads / 32 * kCam];
-  const int n = A.width * A.height;
-  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;  // the launch's column
+  const int pix_g = A.pix0 + gid;                          // the frame's pixel
   float cam_acc[kCam];
   for (int i = 0; i < kCam; ++i) cam_acc[i] = 0.0f;
 
   // no early return: every lane of a warp reaches the warp sums below
-  const bool in_frame = gid < n;
+  const bool in_frame = gid < A.count && pix_g < A.width * A.height;
   const Cam cam = load_cam(A.cam);
-  const float px = static_cast<float>(gid % A.width);
-  const float py = static_cast<float>(gid / A.width);
-  const uint32_t pix = static_cast<uint32_t>(gid);
+  const float px = static_cast<float>(pix_g % A.width);
+  const float py = static_cast<float>(pix_g / A.width);
+  const uint32_t pix = static_cast<uint32_t>(pix_g);
   const uint32_t seed = static_cast<uint32_t>(A.seeds[0]);
   float jx = hash_u01(pix, seed, 1u), jy = hash_u01(pix, seed, 2u);
   if (A.center0) { jx = 0.5f; jy = 0.5f; }
@@ -159,27 +167,34 @@ __global__ void __launch_bounds__(kThreads, 4) bw_grad_kernel(Args A) {
 // ---- host entry point ----
 // Launches one call on `stream`; returns cudaGetLastError() as an int.
 // Tables are row-major float32 (rows, 16), of which the first n_* rows are
-// used; seeds (1,) int32; cot (height*width, 3); words (max_bounces,
-// height*width) int32, the sample's forward launch's winner words
-// (rt_blockwise_forward_words); the stash buffers hold max_bounces*9*n
-// floats, max_bounces*n and n int32.  sg (9, n_spheres), pg (5, n_planes)
-// and cg (16,), float64, are added to.
+// used; seeds (1,) int32; the launch covers pixels pix0 .. pix0 + count -
+// 1 of the width x height frame; cot (count, 3); words (max_bounces, count)
+// int32, the sample's forward launch's winner words
+// (rt_blockwise_forward_words); the stash buffers hold max_bounces*9*count
+// floats, max_bounces*count and count int32.  sg (9, n_spheres), pg (5,
+// n_planes) and cg (16,), float64, are added to.
 extern "C" int rt_bw_grad(
     const float* spheres, int n_spheres, const float* planes, int n_planes, const float* cam,
     const int32_t* seeds, const float* cot, const int32_t* words, double* sg, double* pg,
     double* cg, float* stash_f,
-    int32_t* stash_word, int32_t* stash_nb, int width, int height, int max_bounces,
-    int center0, int rng_sphere, float inv_w, float inv_h, void* stream) {
+    int32_t* stash_word, int32_t* stash_nb, int width, int height, int pix0, int count,
+    int max_bounces, int center0, int rng_sphere, float inv_w, float inv_h, void* stream) {
   Args a;
   a.spheres = spheres; a.n_spheres = n_spheres;
   a.planes = planes; a.n_planes = n_planes;
   a.cam = cam; a.seeds = seeds; a.cot = cot; a.words = words;
   a.sg = sg; a.pg = pg; a.cg = cg;
   a.stash.f = stash_f; a.stash.word = stash_word; a.stash.nb = stash_nb;
-  a.stash.n = width * height; a.stash.max_bounces = max_bounces;
-  a.width = width; a.height = height; a.center0 = center0; a.rng_sphere = rng_sphere;
+  a.stash.n = count; a.stash.max_bounces = max_bounces;
+  a.width = width; a.height = height; a.pix0 = pix0; a.count = count;
+  a.center0 = center0; a.rng_sphere = rng_sphere;
   a.inv_w = inv_w; a.inv_h = inv_h;
-  const int blocks = (width * height + kThreads - 1) / kThreads;
+  const int blocks = (count + kThreads - 1) / kThreads;
   bw_grad_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Marks a library whose rt_bw_grad takes the launch's first pixel and count
+// (the sharded routes' interface): tools that load libraries built from other
+// trees check for it.
+extern "C" int rt_bw_grad_offsets() { return 1; }

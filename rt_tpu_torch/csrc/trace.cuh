@@ -558,15 +558,16 @@ __device__ __forceinline__ bool bounce_once(const Tables& T, uint32_t pix, uint3
 // index `pix`, into acc[0..2], the spheres scanned by
 // scan_spheres_rejecting over `geo` (kGeo).  The words form (kWords, with
 // spp = 1: the blockwise training step's forward launches) also writes
-// the sample's winner word of bounce b at words[b * n + pix], and the miss
-// word for every bounce after the path has ended; the blockwise gradient
-// kernel replays these winners instead of scanning again.
+// the sample's winner word of bounce b at words[b * n + col] (col: the
+// pixel's column of the launch, pix less the launch's first pixel), and
+// the miss word for every bounce after the path has ended; the blockwise
+// gradient kernel replays these winners instead of scanning again.
 template <int kPrimStride, int kBoxStride, int kGeo, bool kWords = false>
 __device__ __forceinline__ void trace_pixel(
     const Tables& T, const float4* __restrict__ geo, const float* __restrict__ cam,
     uint32_t pix, float px, float py, uint32_t seed, float inv_w, float inv_h, int spp,
     int max_bounces, int center_sample, int rng_sphere, float acc[3],
-    int32_t* __restrict__ words = nullptr, int n = 0) {
+    int32_t* __restrict__ words = nullptr, int n = 0, int col = 0) {
   const uint32_t per_sample = 2u + 4u * static_cast<uint32_t>(max_bounces);
   acc[0] = 0.0f;
   acc[1] = 0.0f;
@@ -584,11 +585,11 @@ __device__ __forceinline__ void trace_pixel(
       const uint32_t c = base + 2u + 4u * static_cast<uint32_t>(b);
       const bool alive = bounce_once<kPrimStride, kBoxStride, kRecNone, kGeo>(
           T, pix, seed, c, rng_sphere, r, acc, word, nullptr, true, geo);
-      if constexpr (kWords) words[static_cast<int64_t>(b) * n + pix] = word;
+      if constexpr (kWords) words[static_cast<int64_t>(b) * n + col] = word;
       if (!alive) {
         if constexpr (kWords) {
           for (int e = b + 1; e < max_bounces; ++e)
-            words[static_cast<int64_t>(e) * n + pix] = kWordMiss;
+            words[static_cast<int64_t>(e) * n + col] = kWordMiss;
         }
         break;
       }

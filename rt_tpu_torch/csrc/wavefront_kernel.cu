@@ -21,7 +21,13 @@
 // State, float32 (13, n) row-major (row k at k * n): origin 0-2, direction
 // 3-5, throughput 6-8, radiance 9-11, live 12 (1 or 0).  ids, int32 (n):
 // the ray id, sample * n_pix + pixel, chunk-local; a ray's draws come from
-// its id, so a ray traces the same path wherever the sorts put it.  The
+// its id, so a ray traces the same path wherever the sorts put it.  A
+// bounce-0 launch makes the rays ray0 .. ray0 + n - 1 of a chunk of
+// `total` rays (the whole chunk: ray0 = 0, n = total): a shard of the
+// chunk (ops/wavefront.py render_forward_wavefront_sharded, the
+// counterpart of the TPU kernel's ray_offset meta[5]) traces exactly the
+// rays of the whole-chunk launch, and a column whose id is at or past
+// `total` (the last shard's padding) is a dead ray of zeros.  The
 // TPU kernel's (14, N) state bitcast its ids into a float row with a bit-30
 // tag against the TPU's flush of subnormals; here they are int32.
 //
@@ -73,6 +79,7 @@ struct Args {
   const int32_t* limit;   // (1,) live-prefix length, or null for all n
   const int32_t* live;    // (1,) live rays of the table (b > 0: picks G), or null
   int n, n_pix, width;
+  int ray0, total;        // gen: the first ray id of the launch, the chunk's rays
   float inv_w, inv_h;
   int bounce, max_bounces, center_sample, rng_sphere;
 };
@@ -88,13 +95,22 @@ __device__ __forceinline__ void store(const Args& A, int j, const Ray& r, const 
   s[12 * n] = alive ? 1.0f : 0.0f;
 }
 
-// raygen + bounce 0 of ray j (= its id): ids and the whole table are
-// written.
+// raygen + bounce 0 of column j, ray id ray0 + j: ids and the whole table
+// are written.
 __global__ void __launch_bounds__(kThreads) wf_gen_kernel(Args A) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= A.n) return;
-  const uint32_t pix = static_cast<uint32_t>(j % A.n_pix);
-  const uint32_t smp = static_cast<uint32_t>(j / A.n_pix);
+  const int id = A.ray0 + j;
+  A.ids[j] = id;
+  if (id >= A.total) {  // padding past the chunk: a dead ray
+    const Ray dead{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    const float zero[3] = {0.0f, 0.0f, 0.0f};
+    store(A, j, dead, zero, false);
+    if (A.words != nullptr) A.words[j] = kWordMiss;
+    return;
+  }
+  const uint32_t pix = static_cast<uint32_t>(id % A.n_pix);
+  const uint32_t smp = static_cast<uint32_t>(id / A.n_pix);
   const uint32_t seed = static_cast<uint32_t>(A.seed[0]);
   const uint32_t base = smp * (2u + 4u * static_cast<uint32_t>(A.max_bounces));
   float jx = 0.5f, jy = 0.5f;  // sample 0 of the first chunk at the pixel centre
@@ -109,7 +125,6 @@ __global__ void __launch_bounds__(kThreads) wf_gen_kernel(Args A) {
   const bool alive = bounce_once<kCols, kCols>(A.T, pix, seed, base + 2u, A.rng_sphere, r, rad,
                                                word);
   store(A, j, r, rad, alive);
-  A.ids[j] = j;
   if (A.words != nullptr) A.words[j] = word;
 }
 
@@ -227,12 +242,14 @@ int resident_blocks() {
 // used; cam (16,) float32 and seed (1,) int32; state (13, n) float32, ids
 // (n,) int32, words (n,) int32 or null, limit (1,) int32 or null, live (1,)
 // int32 or null: the count of live rays in the table (bounce > 0; it only
-// picks the lanes per ray).  bounce 0 writes state and ids from nothing (n
-// = n_pix * samples of the chunk).
+// picks the lanes per ray).  bounce 0 writes state and ids from nothing:
+// the rays ray0 .. ray0 + n - 1 of a chunk of `total` rays (n_pix * the
+// chunk's samples; ids at or past it are dead); later bounces ignore ray0
+// and total.
 extern "C" int rt_wf_bounce(const float* spheres, int n_spheres, const float* planes, int n_planes,
                             const float* boxes, int n_boxes, const float* cam, const int32_t* seed,
                             float* state, int32_t* ids, int32_t* words, const int32_t* limit,
-                            const int32_t* live, int n,
+                            const int32_t* live, int n, int ray0, int total,
                             int n_pix, int width, float inv_w, float inv_h, int bounce,
                             int max_bounces, int center_sample, int rng_sphere, void* stream) {
   Args a;
@@ -240,6 +257,7 @@ extern "C" int rt_wf_bounce(const float* spheres, int n_spheres, const float* pl
   a.cam = cam; a.seed = seed;
   a.state = state; a.ids = ids; a.words = words; a.limit = limit; a.live = live;
   a.n = n; a.n_pix = n_pix; a.width = width; a.inv_w = inv_w; a.inv_h = inv_h;
+  a.ray0 = ray0; a.total = total;
   a.bounce = bounce; a.max_bounces = max_bounces; a.center_sample = center_sample;
   a.rng_sphere = rng_sphere;
   const int blocks = (n + kThreads - 1) / kThreads;
@@ -257,3 +275,8 @@ extern "C" int rt_wf_bounce(const float* spheres, int n_spheres, const float* pl
 extern "C" int rt_wf_split_lanes(int live) {
   return split_lanes(live, resident_blocks() * kThreads);
 }
+
+// Marks a library whose rt_wf_bounce takes the launch's first ray id and the
+// chunk's rays (the sharded routes' interface): tools that load libraries
+// built from other trees check for it.
+extern "C" int rt_wf_offsets() { return 1; }

@@ -27,6 +27,14 @@
 // permutation is recorded or applied.  The pixel cotangent is read by the
 // ray's pixel, cot_pix[id % n_pix], at every bounce.
 //
+// A shard of the chunk (the sharded step, make_wf_train_step(mesh=); the
+// counterpart of the TPU kernel's ray_offset meta[5]) holds the rays ray0
+// .. ray0 + n_rays - 1 of a chunk of `total` rays: its cotangent table is
+// its own, indexed by id - ray0, the gen launch regenerates the rays ray0
+// + j (ids at or past `total`, the last shard's padding, add nothing),
+// and cot_pix stays the whole frame's (the gathered frame's cotangent).
+// The whole chunk is ray0 = 0, total = n_rays.
+//
 // What bounds it on this card.  Per live ray and bounce: ~200-350 FP32
 // operations of the adjoint, 56 bytes of saved state and word, 36 bytes
 // of cotangent read and written, and the winner's 9 (sphere) or 5 (plane)
@@ -67,12 +75,13 @@ struct Args {
   const int32_t* ids;     // (n,) (b > 0)
   const int32_t* words;   // (n,) winner words of the bounce
   const int32_t* limit;   // (1,) live-prefix length, or null (b > 0)
-  float* cot;             // (9, n_rays): o, d, thr cotangents by ray id
+  float* cot;             // (9, n_rays): o, d, thr cotangents by ray id - ray0
   const float* cot_pix;   // (n_pix, 3)
   double* sg;             // (9, n_spheres), added to
   double* pg;             // (5, n_planes), added to
   double* cg;             // (16,), added to (gen)
   int n, n_rays, n_pix, width;
+  int ray0, total;        // the table's first ray id, the chunk's rays
   float inv_w, inv_h;
   int bounce, max_bounces, center_sample, rng_sphere;
 };
@@ -133,7 +142,7 @@ __global__ void __launch_bounds__(kThreads) wf_rev_kernel(Args A) {
                        4u * static_cast<uint32_t>(A.bounce);
     float v[kStashF];
     for (int k = 0; k < kStashF; ++k) v[k] = s[k * n];
-    float* cot = A.cot + id;
+    float* cot = A.cot + (id - static_cast<uint32_t>(A.ray0));
     const int64_t m = A.n_rays;
     float co[3] = {cot[0 * m], cot[1 * m], cot[2 * m]};
     float cd[3] = {cot[3 * m], cot[4 * m], cot[5 * m]};
@@ -156,9 +165,10 @@ __global__ void __launch_bounds__(kThreads) wf_rev_gen_kernel(Args A) {
   PrimGrad g;
   g.key = -1;
 
-  if (j < A.n) {  // no early return: every lane reaches the sums below
-    const uint32_t pix = static_cast<uint32_t>(j % A.n_pix);
-    const uint32_t smp = static_cast<uint32_t>(j / A.n_pix);
+  const int id = A.ray0 + j;
+  if (j < A.n && id < A.total) {  // no early return: every lane reaches the sums below
+    const uint32_t pix = static_cast<uint32_t>(id % A.n_pix);
+    const uint32_t smp = static_cast<uint32_t>(id / A.n_pix);
     const uint32_t seed = static_cast<uint32_t>(A.seed[0]);
     const uint32_t base = smp * (2u + 4u * static_cast<uint32_t>(A.max_bounces));
     float jx = hash_u01(pix, seed, base + 1u), jy = hash_u01(pix, seed, base + 2u);
@@ -188,15 +198,18 @@ __global__ void __launch_bounds__(kThreads) wf_rev_gen_kernel(Args A) {
 // Tables are row-major float32 (rows, 16), of which the first n_* rows are
 // used; cam (16,) float32, seed (1,) int32; state (13, n) float32, ids (n,)
 // int32 and limit (1,) int32 or null (unused when bounce == 0); words (n,)
-// int32; cot (9, n_rays) float32 by ray id, updated in place (bounce > 0);
-// cot_pix (n_pix, 3) float32.  sg (9, n_spheres), pg (5, n_planes) and cg
-// (16,), float64, are added to (cg by bounce 0 only).
+// int32; cot (9, n_rays) float32 by ray id - ray0, updated in place (bounce
+// > 0); cot_pix (n_pix, 3) float32; the table holds rays of ids ray0 ..
+// ray0 + n_rays - 1 of a chunk of `total` rays (bounce 0 regenerates ray0
+// + j).  sg (9, n_spheres), pg (5, n_planes) and cg (16,), float64, are
+// added to (cg by bounce 0 only).
 extern "C" int rt_wf_rev(const float* spheres, int n_spheres, const float* planes, int n_planes,
                          const float* cam, const int32_t* seed, const float* state,
                          const int32_t* ids, const int32_t* words, const int32_t* limit, float* cot,
                          const float* cot_pix, double* sg, double* pg, double* cg, int n,
-                         int n_rays, int n_pix, int width, float inv_w, float inv_h, int bounce,
-                         int max_bounces, int center_sample, int rng_sphere, void* stream) {
+                         int n_rays, int ray0, int total, int n_pix, int width, float inv_w,
+                         float inv_h, int bounce, int max_bounces, int center_sample,
+                         int rng_sphere, void* stream) {
   Args a;
   a.spheres = spheres; a.n_spheres = n_spheres;
   a.planes = planes; a.n_planes = n_planes;
@@ -205,6 +218,7 @@ extern "C" int rt_wf_rev(const float* spheres, int n_spheres, const float* plane
   a.cot = cot; a.cot_pix = cot_pix;
   a.sg = sg; a.pg = pg; a.cg = cg;
   a.n = n; a.n_rays = n_rays; a.n_pix = n_pix; a.width = width;
+  a.ray0 = ray0; a.total = total;
   a.inv_w = inv_w; a.inv_h = inv_h;
   a.bounce = bounce; a.max_bounces = max_bounces; a.center_sample = center_sample;
   a.rng_sphere = rng_sphere;
@@ -217,3 +231,8 @@ extern "C" int rt_wf_rev(const float* spheres, int n_spheres, const float* plane
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// Marks a library whose rt_wf_rev takes the table's first ray id and the
+// chunk's rays (the sharded routes' interface): tools that load libraries
+// built from other trees check for it.
+extern "C" int rt_wf_rev_offsets() { return 1; }

@@ -207,19 +207,21 @@ def render_pixels(
     trace while autograd records.  ``grad_mode``: "autodiff" differentiates
     the trace, "replay" (:mod:`rt_tpu_torch.replay`) pins the path
     structure and differentiates a replay of it: the same value, the same
-    detached-sampling gradient, a cheaper backward.  The replay of a custom
-    ``hit_fn`` (``replay_prims_axis``, the primitive-sharded replay of
-    ``rt_tpu.dist``) is not ported."""
+    detached-sampling gradient, a cheaper backward.  With a custom
+    (primitive-sharded) ``hit_fn``, the replay needs ``replay_prims_axis``,
+    the mesh axis of the sphere table (:class:`rt_tpu_torch.dist.MeshAxis`):
+    the global-winner replay (:func:`rt_tpu_torch.replay.replay_radiance`)."""
     if max_bounces is None:
         max_bounces = scene.max_bounces
-    if replay_prims_axis is not None:
-        raise NotImplementedError("replay_prims_axis (the primitive-sharded replay) waits for "
-                                  "the port of dist (ROADMAP queue 1 item 8)")
     if grad_mode == "replay":
-        if hit_fn is not None:
+        if hit_fn is not None and replay_prims_axis is None:
             raise ValueError("grad_mode='replay' with a custom hit_fn needs replay_prims_axis "
-                             "(the global-winner replay of dist, not ported)")
-        from .replay import trace_batch_replay as trace
+                             "(the global-winner replay; rt_tpu_torch.dist)")
+        import functools
+
+        from .replay import trace_batch_replay
+
+        trace = functools.partial(trace_batch_replay, prims_axis=replay_prims_axis)
     elif grad_mode == "autodiff":
         trace = trace_batch
     else:

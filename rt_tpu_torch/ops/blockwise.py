@@ -23,7 +23,9 @@ comment says what bounds it and where the rows live.  Beside it:
   their bucket (:func:`_bucket`, :func:`_padded_table`), samples chunked in
   calls of 4 with the LCG chunk-seed chain (the JAX ``_meta_rows`` chain,
   which is :func:`rt_tpu_torch.ops.render._chunk_seeds`), the mean and
-  gamma.
+  gamma.  :func:`render_forward_blockwise_sharded` is its sharded twin
+  over a mesh axis of ranks: each rank's launches take its first pixel and
+  count (``pix0``, ``count``), so pixel ids and draws stay the frame's.
 
 Not ported: the TPU scan variants and knobs of the JAX entry point
 (``mxu``, ``scan``, ``block``, ``cull`` with ``_block_bounds`` and
@@ -49,6 +51,7 @@ from .render import (_chunked_frame, _device, _flatten_boxes, _flatten_primitive
 
 __all__ = ["MAX_BLOCKWISE_PRIMS", "blockwise_supported", "render_blockwise_tile",
            "render_blockwise_tile_plain", "render_forward_blockwise",
+           "render_forward_blockwise_sharded",
            "render_record_blockwise_tile", "render_record_blockwise_tile_plain",
            "render_record_blockwise"]
 
@@ -103,7 +106,8 @@ def _box_inputs(scene, personality: str, include_boxes: bool):
 
 
 def render_blockwise_tile_plain(spheres, planes, boxes, counts, cam, seeds, *, size, spp,
-                                max_bounces, center_sample, rng_mode="reference", words=False):
+                                max_bounces, center_sample, rng_mode="reference", words=False,
+                                pix0=0, count=None):
     """Plain PyTorch version of the kernel, on the device of ``cam``.
 
     Args:
@@ -123,11 +127,17 @@ def render_blockwise_tile_plain(spheres, planes, boxes, counts, cam, seeds, *, s
     int32: the row, bit 24 for a plane, bit 26 for a box, or the miss word
     (bit 25) once the path has ended (``render.WORD_*``).  The blockwise
     gradient kernel replays these winners.
+
+    ``count`` traces the frame's pixels ``pix0 .. pix0 + count - 1`` only
+    (a shard of the frame; pixel ids, draws and jitter stay the frame's):
+    the sum is then (count, 3) and the words (max_bounces, count), and a
+    pixel at or past ``width * height`` gives zeros and the miss word.
     """
     ns, npl, nb = counts
     out = render_tile_plain(spheres[:ns, :10], planes[:npl, :10], boxes[:nb, :12], cam, seeds,
                             size=size, spp=spp, max_bounces=max_bounces,
-                            center_sample=center_sample, rng_mode=rng_mode, words=words)
+                            center_sample=center_sample, rng_mode=rng_mode, words=words,
+                            pix0=pix0, count=count)
     return (out[0][0], out[1]) if words else out[0]
 
 
@@ -137,7 +147,7 @@ def _kernel():
 
     fn = load_library("blockwise_kernel").rt_blockwise_forward
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, i, p, i, p, i, p, p, p, i, i, f, f, i, i, i, i, p]
+    fn.argtypes = [p, i, p, i, p, i, p, p, p, i, i, i, i, f, f, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -148,7 +158,7 @@ def _words_kernel():
 
     fn = load_library("blockwise_kernel").rt_blockwise_forward_words
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, i, p, i, p, i, p, p, p, p, i, i, f, f, i, i, i, p]
+    fn.argtypes = [p, i, p, i, p, i, p, p, p, p, i, i, i, i, f, f, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -165,11 +175,12 @@ def _check_tables(fn, tables, counts, dev):
 
 
 def render_blockwise_tile(spheres, planes, boxes, counts, cam, seeds, *, size, spp, max_bounces,
-                          center_sample, rng_mode="reference", words=False):
+                          center_sample, rng_mode="reference", words=False, pix0=0, count=None):
     """One call of the blockwise kernel; arguments and result as
     :func:`render_blockwise_tile_plain` (``words=True``: the kernel's words
-    form).  CPU tensors run the plain version; CUDA tensors launch the
-    kernel on the current stream (without synchronizing) or raise."""
+    form; ``count``: the pixels ``pix0 .. pix0 + count - 1`` only).  CPU
+    tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream (without synchronizing) or raise."""
     fn = "render_blockwise_tile"
     dev = cam.device
     for name, t in (("spheres", spheres), ("planes", planes), ("boxes", boxes), ("seeds", seeds)):
@@ -181,10 +192,11 @@ def render_blockwise_tile(spheres, planes, boxes, counts, cam, seeds, *, size, s
         return render_blockwise_tile_plain(spheres, planes, boxes, counts, cam, seeds, size=size,
                                            spp=spp, max_bounces=max_bounces,
                                            center_sample=center_sample, rng_mode=rng_mode,
-                                           words=words)
+                                           words=words, pix0=pix0, count=count)
     if dev.type != "cuda":
         raise ValueError(f"{fn}: no kernel for device {dev}")
     w, h = size
+    cols = w * h if count is None else count
     ns, npl, nb = counts
     _check_tables(fn, (spheres, planes, boxes), counts, dev)
     if spheres.data_ptr() % 16:
@@ -193,26 +205,29 @@ def render_blockwise_tile(spheres, planes, boxes, counts, cam, seeds, *, size, s
     _check(fn, "seeds", seeds, torch.int32, (1,), dev)
     if w < 1 or h < 1 or w * h * 3 >= 2**31:
         raise ValueError(f"{fn}: bad size {w}x{h}")
+    if cols < 1 or pix0 < 0 or (pix0 + cols) * 3 >= 2**31:
+        raise ValueError(f"{fn}: bad pixels {pix0}..{pix0 + cols - 1}")
     if spp < 1 or max_bounces < 0 or (words and spp != 1):
         raise ValueError(f"{fn}: bad spp={spp} / max_bounces={max_bounces}"
                          + (" (words=True takes one sample)" if words else ""))
-    if words and w * h * max(max_bounces, 1) >= 2**31:
-        raise ValueError(f"{fn}: {w}x{h} x {max_bounces} winner words overflow int32 indexing")
-    out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+    if words and cols * max(max_bounces, 1) >= 2**31:
+        raise ValueError(f"{fn}: {cols} x {max_bounces} winner words overflow int32 indexing")
+    out = torch.empty((h, w, 3) if count is None else (cols, 3), dtype=torch.float32, device=dev)
     inv_w, inv_h = _inv_size(w, h)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if words:
-            wd = torch.empty((max_bounces, w * h), dtype=torch.int32, device=dev)
+            wd = torch.empty((max_bounces, cols), dtype=torch.int32, device=dev)
             err = _words_kernel()(
                 spheres.data_ptr(), ns, planes.data_ptr(), npl, boxes.data_ptr(), nb,
-                cam.data_ptr(), seeds.data_ptr(), out.data_ptr(), wd.data_ptr(), w, h, inv_w,
-                inv_h, max_bounces, int(bool(center_sample)), int(rng_mode == "sphere"), stream)
+                cam.data_ptr(), seeds.data_ptr(), out.data_ptr(), wd.data_ptr(), w, h, pix0,
+                cols, inv_w, inv_h, max_bounces, int(bool(center_sample)),
+                int(rng_mode == "sphere"), stream)
         else:
             err = _kernel()(
                 spheres.data_ptr(), ns, planes.data_ptr(), npl, boxes.data_ptr(), nb,
-                cam.data_ptr(), seeds.data_ptr(), out.data_ptr(), w, h, inv_w, inv_h, spp,
-                max_bounces, int(bool(center_sample)), int(rng_mode == "sphere"), stream)
+                cam.data_ptr(), seeds.data_ptr(), out.data_ptr(), w, h, pix0, cols, inv_w, inv_h,
+                spp, max_bounces, int(bool(center_sample)), int(rng_mode == "sphere"), stream)
     if err != 0:
         raise RuntimeError(f"blockwise kernel launch failed: CUDA error {err}")
     render_blockwise_tile.launches += 1
@@ -247,28 +262,53 @@ def render_forward_blockwise(
     rng_mode: str = "reference",
     include_boxes: bool = False,
     device="cuda",
+    mesh=None,
+    axis: str = "rays",
 ) -> torch.Tensor:
     """Render a full frame with the blockwise kernel.  Returns (H, W, 3)
     float32 on ``device``.
 
     ``include_boxes`` traces the box slab test too (the ``--boxes``
     extension).  With ``device="cpu"`` the plain PyTorch version renders.
+    With ``mesh`` (a :func:`rt_tpu_torch.dist.make_mesh` mesh) the pixels
+    are sharded over ``mesh[axis]``: :func:`render_forward_blockwise_sharded`.
     """
+    from ..dist import mesh_axis, shard_range
+
     if not blockwise_supported(scene, include_boxes):
         raise ValueError("scene exceeds the blockwise kernel's limits "
                          f"({MAX_BLOCKWISE_PRIMS} primitives)")
     dev = _device(device)
+    w, h = size
     spp = scene.samples_per_pixel if spp is None else spp
     max_bounces = scene.max_bounces if max_bounces is None else max_bounces
+    ax = None if mesh is None else mesh_axis(mesh, axis)
+    pixels = {} if ax is None else dict(zip(("pix0", "count"), shard_range(w * h, ax, 128)))
     spheres, planes, boxes, counts = _device_tables(scene, personality, include_boxes, dev)
 
     def launch(cam, seeds, k, center):
         return render_blockwise_tile(spheres, planes, boxes, counts, cam, seeds, size=size,
                                      spp=k, max_bounces=max_bounces, center_sample=center,
-                                     rng_mode=rng_mode)
+                                     rng_mode=rng_mode, **pixels)
 
     cam = _upload(_pack_camera(scene.camera, size), dev)
-    return _chunked_frame(launch, cam, seed, spp, 1, gamma, dev)
+    frame = _chunked_frame(launch, cam, seed, spp, 1, gamma, dev)
+    return frame if ax is None else ax.all_gather(frame)[:w * h].reshape(h, w, 3)
+
+
+def render_forward_blockwise_sharded(scene, size: tuple[int, int], mesh, seed: int = 0, *,
+                                     axis: str = "rays", **opts) -> torch.Tensor:
+    """:func:`render_forward_blockwise` (its ``opts``) sharded over
+    ``mesh[axis]`` (a :func:`rt_tpu_torch.dist.make_mesh` mesh): the whole
+    (H, W, 3) frame on every rank, equal bit for bit to the unsharded frame.
+
+    Rank r covers the pixels ``[r * L, (r + 1) * L)``, L the pixel count
+    over the axis rounded up to JAX's 128-pixel tiles (the last shard is
+    padded); its kernel launches take that first pixel and count, so pixel
+    ids, jitter and draws stay global (the TPU kernel's tile offset).  The
+    tables and the camera are replicated; each rank's frame slice is
+    gathered over ``axis`` and cut to the frame."""
+    return render_forward_blockwise(scene, size, seed, mesh=mesh, axis=axis, **opts)
 
 
 # ---------------------------------------------------------------------------

@@ -41,8 +41,9 @@ Beside it:
 
 Per-sample seeds are ``seed0 * 100003 + s`` in wrapping int32, unlike the
 forward entry point's LCG chunk chain: both as in JAX.  The TPU knobs
-(``block``, ``rng_impl="hw"``, ``interpret``) are not ported; the sharded
-pipeline waits for ``dist``.
+(``block``, ``rng_impl="hw"``, ``interpret``) are not ported.  With
+``mesh=`` the pipeline is the sharded one (``_bw_grad_pipeline_sharded``):
+each rank's launches cover a contiguous pixel range of the frame.
 """
 
 from __future__ import annotations
@@ -72,7 +73,7 @@ def bw_grad_supported(scene) -> bool:
 
 
 def bw_grad_tile_plain(spheres, planes, counts, cam, seeds, cot, words, *, size, max_bounces,
-                       center_sample, rng_mode="reference", with_l1=False):
+                       center_sample, rng_mode="reference", with_l1=False, pix0=0, count=None):
     """Plain PyTorch version of the kernel, on the device of ``cam``: the
     reverse of one sample along the path that the forward launch recorded.
 
@@ -93,11 +94,16 @@ def bw_grad_tile_plain(spheres, planes, counts, cam, seeds, cot, words, *, size,
     whose sweep and adjoint this is, with each bounce's winner taken from
     ``words`` (``_grad_math.replay_winner``) in place of the scan: the same
     winners wherever the two sweeps trace the same path (the module note).
+
+    ``count`` runs the frame's pixels ``pix0 .. pix0 + count - 1`` only (a
+    shard of the frame, as the forward launch's ``count``): ``cot`` is then
+    (count, 3) and ``words`` (max_bounces, count), and a pixel at or past
+    ``width * height`` adds nothing.
     """
     ns, npl = counts
     return _fused_plain(spheres[:ns, :10], planes[:npl, :10], cam, seeds, cot, size=size,
                         max_bounces=max_bounces, center0=center_sample, rng_mode=rng_mode,
-                        mono=False, with_l1=with_l1, words=words)
+                        mono=False, with_l1=with_l1, words=words, pix0=pix0, count=count)
 
 
 @functools.cache
@@ -106,13 +112,13 @@ def _kernel():
 
     fn = load_library("bw_grad_kernel").rt_bw_grad
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, i, p, i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, f, p]
+    fn.argtypes = [p, i, p, i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, f, p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def bw_grad_tile(spheres, planes, counts, cam, seeds, cot, words, *, size, max_bounces,
-                 center_sample, rng_mode="reference", out=None):
+                 center_sample, rng_mode="reference", out=None, pix0=0, count=None):
     """One launch of the blockwise gradient kernel; arguments and result as
     :func:`bw_grad_tile_plain`, but float64: the kernel adds each ray's
     contribution to the gradient tables with atomics, in float64 so that
@@ -138,7 +144,7 @@ def bw_grad_tile(spheres, planes, counts, cam, seeds, cot, words, *, size, max_b
     if dev.type == "cpu":
         got = bw_grad_tile_plain(spheres, planes, counts, cam, seeds, cot, words, size=size,
                                  max_bounces=max_bounces, center_sample=center_sample,
-                                 rng_mode=rng_mode)
+                                 rng_mode=rng_mode, pix0=pix0, count=count)
         if out is None:
             return tuple(g.double() for g in got)
         for o, g in zip(out, got):
@@ -149,11 +155,13 @@ def bw_grad_tile(spheres, planes, counts, cam, seeds, cot, words, *, size, max_b
     _check_tables(fn, (spheres, planes), counts, dev)
     _check(fn, "cam", cam, torch.float32, (16,), dev)
     _check(fn, "seeds", seeds, torch.int32, (1,), dev)
-    _check(fn, "cot", cot, torch.float32, (h, w, 3), dev)
-    n = w * h
+    n = w * h if count is None else count
+    _check(fn, "cot", cot, torch.float32, (h, w, 3) if count is None else (n, 3), dev)
     _check(fn, "words", words, torch.int32, (max_bounces, n), dev)
-    if w < 1 or h < 1 or n * 3 >= 2**31 or max_bounces < 0:
+    if w < 1 or h < 1 or w * h * 3 >= 2**31 or max_bounces < 0:
         raise ValueError(f"{fn}: bad size {w}x{h} or max_bounces={max_bounces}")
+    if n < 1 or pix0 < 0 or (pix0 + n) * 3 >= 2**31:
+        raise ValueError(f"{fn}: bad pixels {pix0}..{pix0 + n - 1}")
     if out is None:
         out = tuple(torch.zeros(s, dtype=torch.float64, device=dev) for s in shapes)
     sg, pg, cg = out
@@ -168,7 +176,8 @@ def bw_grad_tile(spheres, planes, counts, cam, seeds, cot, words, *, size, max_b
             spheres.data_ptr(), ns, planes.data_ptr(), npl, cam.data_ptr(), seeds.data_ptr(),
             cot.data_ptr(), words.data_ptr(), sg.data_ptr(), pg.data_ptr(), cg.data_ptr(),
             st_f.data_ptr(),
-            st_w.data_ptr(), st_nb.data_ptr(), w, h, max_bounces, int(bool(center_sample)),
+            st_w.data_ptr(), st_nb.data_ptr(), w, h, pix0, n, max_bounces,
+            int(bool(center_sample)),
             int(rng_mode == "sphere"), inv_w, inv_h, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"blockwise grad kernel launch failed: CUDA error {err}")
@@ -238,9 +247,30 @@ def _table_builder(scene, personality: str, size, dev):
                          _bucket(scene.planes.count), size, dev)
 
 
-def _bw_pipeline(scene, target, size, *, spp, max_bounces, rng_mode, dev):
+def _sum_over(axis, acc):
+    """The float64 accumulators summed over the mesh axis (one flat
+    all-reduce), or as they are without one."""
+    if axis is None:
+        return acc
+    flat = axis.all_sum(torch.cat([a.reshape(-1) for a in acc]))
+    return tuple(t.reshape(a.shape) for t, a in zip(flat.split([a.numel() for a in acc]), acc))
+
+
+def _bw_pipeline(scene, target, size, *, spp, max_bounces, rng_mode, dev, mesh=None,
+                 axis="rays"):
     """``_bw_grad_pipeline``'s body: ``run(s_tab, p_tab, cam, seed) ->
-    (loss, grads)`` for tables of ``scene``'s shape."""
+    (loss, grads)`` for tables of ``scene``'s shape.
+
+    With ``mesh`` (``_bw_grad_pipeline_sharded``) each rank of
+    ``mesh[axis]`` runs the forward launches and the gradient kernel over
+    its contiguous pixel range (JAX's 128-pixel tiles, the last shard
+    padded) against its slice of the cotangent, and the float64 gradient
+    accumulators are summed over the axis before ``_assemble_grads``.  The
+    ranks' frames are gathered and the loss and cotangent computed from
+    the whole frame as without a mesh, so the loss is the unsharded
+    step's bit for bit (JAX sums the ranks' squared errors instead)."""
+    from ..dist import mesh_axis, shard_range
+
     w, h = size
     n = w * h
     f32 = torch.float32
@@ -252,6 +282,10 @@ def _bw_pipeline(scene, target, size, *, spp, max_bounces, rng_mode, dev):
     no_boxes = torch.zeros((0, _COLS), dtype=f32, device=dev)
     scale = float(np.float32(1.0 / spp))
     kw = dict(size=size, max_bounces=max_bounces, rng_mode=rng_mode)
+    ax = None if mesh is None else mesh_axis(mesh, axis)
+    if ax is not None:
+        pix0, count = shard_range(n, ax, 128)
+        kw.update(pix0=pix0, count=count)
 
     def run(s_tab, p_tab, cam, seed):
         seeds = _upload(_sample_seeds(seed, spp), dev)
@@ -263,14 +297,20 @@ def _bw_pipeline(scene, target, size, *, spp, max_bounces, rng_mode, dev):
                                             words=True, **kw)
             words.append(wd)
             total = out if total is None else total + out
+        if ax is not None:
+            total = ax.all_gather(total)[:n].reshape(h, w, 3)
         diff = total * scale - tgt
         loss = torch.mean(diff ** 2)
         cot = 2.0 * diff / (3.0 * n * spp)
+        if ax is not None:  # this rank's columns of the cotangent, zero past the frame
+            cot = torch.cat([cot.reshape(n, 3), cot.new_zeros((count * ax.size - n, 3))])
+            cot = cot[pix0:pix0 + count]
         acc = tuple(torch.zeros(s, dtype=torch.float64, device=dev)
                     for s in ((9, counts[0]), (5, counts[1]), (16,)))
         for s in range(spp):
             bw_grad_tile(s_tab, p_tab, counts, cam, seeds[s:s + 1], cot, words[s],
                          center_sample=(s == 0), out=acc, **kw)
+        acc = _sum_over(ax, acc)
         return loss, _assemble_grads(*(a.float() for a in acc), s_mat, p_mat, *tables)
 
     return run
@@ -287,6 +327,8 @@ def make_bw_mse_step(
     personality: str = "mg",
     rng_mode: str = "reference",
     device="cuda",
+    mesh=None,
+    axis: str = "rays",
 ):
     """Prebuilt fwd+bwd step at fixed ``params``: ``step(seed) -> (loss,
     grads)``.
@@ -298,14 +340,16 @@ def make_bw_mse_step(
     once, and each call ships the per-sample seeds.  The loss is the MSE of
     the spp-mean frame against the target; ``grads`` holds the
     detached-sampling gradients of the scene's seven differentiable keys,
-    as the JAX step returns them.
+    as the JAX step returns them.  With ``mesh`` the pixels are sharded
+    over ``mesh[axis]`` (:func:`_bw_pipeline`) and every rank returns the
+    whole step's loss and gradients.
     """
     dev = _device(device)
     max_bounces = scene.max_bounces if max_bounces is None else max_bounces
     build = _table_builder(scene, personality, size, dev)
     tables = build({k: torch.as_tensor(v).to(dev) for k, v in params.items()})
     run = _bw_pipeline(scene, target, size, spp=spp, max_bounces=max_bounces,
-                       rng_mode=rng_mode, dev=dev)
+                       rng_mode=rng_mode, dev=dev, mesh=mesh, axis=axis)
 
     def step(seed: int = 0):
         return run(*tables, seed)
@@ -330,6 +374,8 @@ def make_bw_train_step(
     personality: str = "mg",
     rng_mode: str = "reference",
     device="cuda",
+    mesh=None,
+    axis: str = "rays",
 ):
     """One optimizer step per call: ``step(params, seed) -> loss``.
 
@@ -341,12 +387,16 @@ def make_bw_train_step(
     Nothing but the per-sample seeds goes to the device per call.
 
     ``target`` must be PRE-gamma radiance, as in every gradient pipeline.
+    With ``mesh`` (a :func:`rt_tpu_torch.dist.make_mesh` mesh) the pixels
+    are sharded over ``mesh[axis]`` and the gradients summed over it
+    (``_bw_grad_pipeline_sharded``): every rank holds the same params and
+    takes the same optimizer step, bit for bit.
     """
     dev = _device(device)
     max_bounces = scene.max_bounces if max_bounces is None else max_bounces
     build = _table_builder(scene, personality, size, dev)
     run = _bw_pipeline(scene, target, size, spp=spp, max_bounces=max_bounces,
-                       rng_mode=rng_mode, dev=dev)
+                       rng_mode=rng_mode, dev=dev, mesh=mesh, axis=axis)
 
     def step(params, seed: int):
         loss, grads = run(*build(params), seed)

@@ -99,7 +99,7 @@ def _sample_seeds(seed0: int, spp: int) -> np.ndarray:
 
 
 def _fused_plain(spheres, planes, cam, seeds, pix_in, *, size, max_bounces, center0, rng_mode,
-                 mono, with_l1, words=None):
+                 mono, with_l1, words=None, pix0=0, count=None):
     """The kernels' function, dense over pixels.  ``pix_in`` is the target
     (``mono``) or the pixel cotangent, (H, W, 3).  Returns the loss sum
     (``mono``), the sphere slots (9, S), the plane material slots (5, P)
@@ -107,13 +107,21 @@ def _fused_plain(spheres, planes, cam, seeds, pix_in, *, size, max_bounces, cent
     sum of the absolute per-(pixel, sample) contributions.  ``words``
     ((max_bounces, H*W) int32, one sample: the blockwise gradient kernel's
     form) takes each bounce's winner from the forward kernel's winner words
-    (``_grad_math.replay_winner``) in place of the scan."""
+    (``_grad_math.replay_winner``) in place of the scan.  ``count`` (with
+    ``words``: a shard of the frame) runs the pixels ``pix0 .. pix0 + count
+    - 1`` only, ``pix_in`` and ``words`` being theirs; a pixel at or past
+    ``width * height`` adds nothing."""
     w, h = size
     dev = cam.device
     f32 = torch.float32
-    n = w * h
     S, P = spheres.shape[0], planes.shape[0]
-    idx = torch.arange(n, device=dev, dtype=torch.int64)
+    if count is None:
+        n = w * h
+        idx = torch.arange(n, device=dev, dtype=torch.int64)
+    else:
+        n = count
+        idx = torch.arange(pix0, pix0 + count, device=dev, dtype=torch.int64)
+    inside = idx < w * h
     px = (idx % w).to(f32)
     py = (idx // w).to(f32)
     inv_w, inv_h = _inv_size(w, h)
@@ -131,7 +139,7 @@ def _fused_plain(spheres, planes, cam, seeds, pix_in, *, size, max_bounces, cent
             jx = jy = 0.5
         o3, d3 = gm.raygen(c, px, py, jx, jy, inv_w, inv_h)
         thr3 = (zero + 1.0,) * 3
-        live = torch.ones(n, dtype=torch.bool, device=dev)
+        live = inside
         stash = []
         for b in range(max_bounces):
             u3 = gm.unit_draws(idx, seed, 3 + 4 * b, rng_sphere)
@@ -158,7 +166,7 @@ def _fused_plain(spheres, planes, cam, seeds, pix_in, *, size, max_bounces, cent
         loss = loss_l1 = per_px.sum()
         crad = tuple(d * cot_scale for d in diff)
     else:
-        crad = (pix[:, 0], pix[:, 1], pix[:, 2])
+        crad = tuple(torch.where(inside, pix[:, k], 0.0) for k in range(3))
 
     sg = torch.zeros((9, S), dtype=f32, device=dev)
     pg = torch.zeros((5, P), dtype=f32, device=dev)
@@ -179,7 +187,8 @@ def _fused_plain(spheres, planes, cam, seeds, pix_in, *, size, max_bounces, cent
                     sel = bidx == i
                     acc[:, i] += torch.where(sel, vals, 0.0).sum(dim=1)
                     acc_l1[:, i] += torch.where(sel, vals.abs(), 0.0).sum(dim=1)
-        cam_cot = torch.stack(gm.raygen_adjoint(c, px, py, jx, jy, inv_w, inv_h, co, cd))
+        cam_cot = torch.where(inside, torch.stack(gm.raygen_adjoint(c, px, py, jx, jy, inv_w,
+                                                                     inv_h, co, cd)), 0.0)
         cg[:15] += cam_cot.sum(dim=1)
         cg_l1[:15] += cam_cot.abs().sum(dim=1)
 

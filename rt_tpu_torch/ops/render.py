@@ -430,7 +430,8 @@ def _raygen_plain(c, px, py, jx, jy, inv_w, inv_h):
 
 
 def render_tile_plain(spheres, planes, boxes, cam, seeds, *, size, spp,
-                      max_bounces, center_sample, rng_mode="reference", words=False):
+                      max_bounces, center_sample, rng_mode="reference", words=False, pix0=0,
+                      count=None):
     """Plain PyTorch version of the kernel, on the device of ``cam``.
 
     Args:
@@ -451,6 +452,11 @@ def render_tile_plain(spheres, planes, boxes, cam, seeds, *, size, spp,
     (one frame, one sample) returns ``(sum, words)`` with the winner word
     of every bounce, (max_bounces, height * width) int32 (the miss word
     once the path has ended): the blockwise kernel's words form.
+
+    ``count`` (one frame; the blockwise kernel's shard of a frame) traces
+    the pixels ``pix0 .. pix0 + count - 1`` only and returns (1, count, 3)
+    and (max_bounces, count) words; a pixel at or past ``width * height``
+    (a shard's padding) gives zeros and the miss word.
     """
     if words and (spp != 1 or seeds.shape[0] != 1):
         raise ValueError("render_tile_plain: words=True takes one frame of one sample")
@@ -458,8 +464,13 @@ def render_tile_plain(spheres, planes, boxes, cam, seeds, *, size, spp,
     dev = cam.device
     frames = seeds.shape[0]
     n = w * h
-    idx = torch.arange(n, device=dev, dtype=torch.int64).repeat(frames)
-    seed = seeds.to(torch.int64).repeat_interleave(n)
+    if count is None:
+        idx = torch.arange(n, device=dev, dtype=torch.int64).repeat(frames)
+    elif frames != 1:
+        raise ValueError("render_tile_plain: count takes one frame")
+    else:
+        idx = torch.arange(pix0, pix0 + count, device=dev, dtype=torch.int64)
+    seed = seeds.to(torch.int64).repeat_interleave(idx.shape[0] // frames)
     px = (idx % w).to(torch.float32)
     py = (idx // w).to(torch.float32)
     inv_w, inv_h = _inv_size(w, h)
@@ -493,11 +504,16 @@ def render_tile_plain(spheres, planes, boxes, cam, seeds, *, size, spp,
             if words:
                 bounce_words.append(word.to(torch.int32))
 
-    out = torch.stack([acc0, acc1, acc2], dim=-1).reshape(frames, h, w, 3)
-    if words:
-        return out, torch.stack(bounce_words) if bounce_words else torch.zeros(
-            (0, n), dtype=torch.int32, device=dev)
-    return out
+    out = torch.stack([acc0, acc1, acc2], dim=-1)
+    wd = (torch.stack(bounce_words) if bounce_words
+          else torch.zeros((0, idx.shape[0]), dtype=torch.int32, device=dev))
+    if count is None:
+        out = out.reshape(frames, h, w, 3)
+    else:
+        inside = idx < n
+        out = torch.where(inside[:, None], out, 0.0).reshape(1, count, 3)
+        wd = torch.where(inside, wd, WORD_MISS)
+    return (out, wd) if words else out
 
 
 @functools.cache

@@ -42,8 +42,9 @@ Not ported (TPU tuning knobs, each leaving the frame as it is; passing one
 is a ``TypeError``): ``block``, ``cull``, ``cull_group``, ``cull_gen``,
 ``order`` (Morton), ``sort_mode``, ``pipeline``, ``wf_rows``,
 ``extract_window``, ``dbg``, ``interpret``.  ``rng_impl`` other than
-"hash" is a ``ValueError``, as in JAX.  The sharded twin waits for
-``dist``.
+"hash" is a ``ValueError``, as in JAX.
+:func:`render_forward_wavefront_sharded` is the sharded twin: each rank
+of a mesh axis runs the wavefront over its range of every chunk's rays.
 """
 
 from __future__ import annotations
@@ -57,11 +58,11 @@ import torch
 from . import _grad_math as gm
 from .blockwise import _check_tables, _device_tables, blockwise_supported
 from .grad import _check
-from .render import (_bounce_plain, _chunked_frame, _device, _inv_size, _pack_camera, _upload,
-                     hash_u01)
+from .render import (WORD_MISS, _bounce_plain, _chunked_frame, _device, _inv_size, _pack_camera,
+                     _upload, hash_u01)
 
 __all__ = ["STATE_ROWS", "wavefront_supported", "wf_bounce", "wf_bounce_plain",
-           "render_forward_wavefront"]
+           "render_forward_wavefront", "render_forward_wavefront_sharded"]
 
 STATE_ROWS = 13
 # Chunk caps of the JAX package, kept as they are: ray ids stay exact below
@@ -137,7 +138,7 @@ def _sort_state(state, ids, cell_bits: int):
 
 def wf_bounce_plain(spheres, planes, boxes, counts, cam, seeds, state, ids, limit=None, *, size,
                     bounce, max_bounces, center_sample=False, rng_mode="reference",
-                    record=False, rays=None):
+                    record=False, rays=None, ray0=0, total=None):
     """Plain PyTorch version of the kernel, on the device of ``state``.
 
     Args:
@@ -154,6 +155,10 @@ def wf_bounce_plain(spheres, planes, boxes, counts, cam, seeds, state, ids, limi
         bounce of every live ray; a dead ray is left as it is).
       rays: bounce 0 only, the (N,) ray ids the columns generate in place of
         0..N-1: some columns of a wider launch, without the rest.
+      ray0, total: bounce 0 only, a shard of a chunk of ``total`` rays:
+        the columns generate the rays ``ray0 .. ray0 + N - 1`` (``rays``
+        plus ``ray0``, if given), and a column whose id is at or past
+        ``total`` (a shard's padding) is a dead ray of zeros.
 
     Returns the rays' winner words, (N,) int32, with ``record`` (a ray
     that was not live: the miss word), else None.
@@ -169,9 +174,9 @@ def wf_bounce_plain(spheres, planes, boxes, counts, cam, seeds, state, ids, limi
     if rays is not None:
         if bounce != 0 or rays.shape != (n,):
             raise ValueError("rays: the (N,) ids of a bounce-0 launch's columns")
-        ray = rays.to(device=dev, dtype=torch.int64)
+        ray = rays.to(device=dev, dtype=torch.int64) + ray0
     elif bounce == 0:
-        ray = torch.arange(n, device=dev, dtype=torch.int64)
+        ray = torch.arange(ray0, ray0 + n, device=dev, dtype=torch.int64)
     else:
         ray = ids.to(torch.int64)
     pix, smp = ray % n_pix, ray // n_pix
@@ -198,6 +203,10 @@ def wf_bounce_plain(spheres, planes, boxes, counts, cam, seeds, state, ids, limi
                                                    rng_mode == "sphere", record)
     new = torch.stack([*o_n, *d_n, *thr_n, *(r0 + r for r0, r in zip(rad0, rad)), af])
     if bounce == 0:
+        if total is not None:
+            inside = ray < total
+            new = torch.where(inside, new, 0.0)
+            word = torch.where(inside, word, WORD_MISS) if record else None
         state.copy_(new)
         ids.copy_(ray)
     else:
@@ -215,7 +224,7 @@ def _library():
 def _kernel():
     fn = _library().rt_wf_bounce
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, i, p, i, p, i, p, p, p, p, p, p, p, i, i, i, f, f, i, i, i, i, p]
+    fn.argtypes = [p, i, p, i, p, i, p, p, p, p, p, p, p, i, i, i, i, i, f, f, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -232,11 +241,12 @@ def _split_lanes(live: int) -> int:
 
 
 def wf_bounce(spheres, planes, boxes, counts, cam, seeds, state, ids, limit=None, *, size,
-              bounce, max_bounces, center_sample=False, rng_mode="reference", record=False):
+              bounce, max_bounces, center_sample=False, rng_mode="reference", record=False,
+              ray0=0, total=None):
     """One launch of the wavefront kernel; arguments and result as
-    :func:`wf_bounce_plain`.  CPU tensors run the plain version; CUDA
-    tensors launch the kernel on the current stream (without
-    synchronizing) or raise."""
+    :func:`wf_bounce_plain` (``ray0``/``total``: a bounce-0 launch's shard
+    of a chunk).  CPU tensors run the plain version; CUDA tensors launch
+    the kernel on the current stream (without synchronizing) or raise."""
     fn = "wf_bounce"
     dev = state.device
     for name, t in (("spheres", spheres), ("planes", planes), ("boxes", boxes), ("cam", cam),
@@ -252,10 +262,14 @@ def wf_bounce(spheres, planes, boxes, counts, cam, seeds, state, ids, limit=None
         raise ValueError(f"{fn}: bounce {bounce} outside 0..{max_bounces - 1}")
     if w < 1 or h < 1 or w * h * 3 >= 2**31 or not 1 <= n < 2**31:
         raise ValueError(f"{fn}: bad size {w}x{h} or {n} rays")
+    total = n if total is None else total
+    if ray0 < 0 or ray0 + n >= 2**31 or not 1 <= total <= _ID_MASK + 1:
+        raise ValueError(f"{fn}: bad rays {ray0}..{ray0 + n - 1} of {total}")
     if dev.type == "cpu":
         return wf_bounce_plain(spheres, planes, boxes, counts, cam, seeds, state, ids, limit,
                                size=size, bounce=bounce, max_bounces=max_bounces,
-                               center_sample=center_sample, rng_mode=rng_mode, record=record)
+                               center_sample=center_sample, rng_mode=rng_mode, record=record,
+                               ray0=ray0, total=total)
     if dev.type != "cuda":
         raise ValueError(f"{fn}: no kernel for device {dev}")
     _check_tables(fn, (spheres, planes, boxes), counts, dev)
@@ -275,7 +289,8 @@ def wf_bounce(spheres, planes, boxes, counts, cam, seeds, state, ids, limit=None
             spheres.data_ptr(), counts[0], planes.data_ptr(), counts[1], boxes.data_ptr(),
             counts[2], cam.data_ptr(), seeds.data_ptr(), state.data_ptr(), ids.data_ptr(),
             words.data_ptr() if record else None, limit.data_ptr() if limit is not None else None,
-            live.data_ptr() if bounce else None, n, w * h, w, inv_w, inv_h, bounce, max_bounces,
+            live.data_ptr() if bounce else None, n, ray0, total, w * h, w, inv_w, inv_h, bounce,
+            max_bounces,
             int(bool(center_sample)),
             int(rng_mode == "sphere"), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -315,16 +330,27 @@ def _forward_chunk(launch, n_rays: int, dev, *, max_bounces: int, sched, shrink_
     return state, ids, saved
 
 
-def _assemble(state, ids, n_pix: int, k: int):
-    """The chunk's (n_pix, 3) radiance sums, contiguous: per-ray radiance
-    back in ray-id order, summed over the k samples in sample order (the
-    JAX addition order, so the frame equals the blockwise kernel's)."""
+def _radiance_by_id(state, ids, ray0: int = 0) -> torch.Tensor:
+    """The table's per-ray radiance back in ray-id order: (3, N), column j
+    the ray of id ``ray0 + j``."""
     rad = torch.empty((3, state.shape[1]), dtype=torch.float32, device=state.device)
-    rad.index_copy_(1, ids.to(torch.int64), state[9:12])
+    rad.index_copy_(1, ids.to(torch.int64) - ray0, state[9:12])
+    return rad
+
+
+def _sum_samples(rad, n_pix: int, k: int) -> torch.Tensor:
+    """(n_pix, 3) contiguous sums over the k samples of a chunk's (3, >=
+    n_pix * k) radiance by ray id, in sample order (the JAX addition order,
+    so the frame equals the blockwise kernel's)."""
     acc = rad[:, :n_pix]
     for s in range(1, k):
         acc = acc + rad[:, s * n_pix:(s + 1) * n_pix]
     return acc.T.contiguous()
+
+
+def _assemble(state, ids, n_pix: int, k: int):
+    """The chunk's (n_pix, 3) radiance sums from its final table."""
+    return _sum_samples(_radiance_by_id(state, ids), n_pix, k)
 
 
 def render_forward_wavefront(
@@ -345,6 +371,8 @@ def render_forward_wavefront(
     shrink_at: Optional[int] = -1,
     include_boxes: bool = False,
     device="cuda",
+    mesh=None,
+    axis: str = "rays",
 ) -> torch.Tensor:
     """Render a full frame with the wavefront pipeline.  Returns (H, W, 3)
     float32 on ``device``.
@@ -353,8 +381,12 @@ def render_forward_wavefront(
     schedule knobs (``sort_schedule``, ``cell_bits``, ``shrink_at``) change
     the order rays run in, never the frame.  ``spp_chunk`` samples share a
     chunk (and its seed), capped as in JAX.  With ``device="cpu"`` the
-    plain PyTorch version renders.
+    plain PyTorch version renders.  With ``mesh`` (a
+    :func:`rt_tpu_torch.dist.make_mesh` mesh) the rays are sharded over
+    ``mesh[axis]``: :func:`render_forward_wavefront_sharded`.
     """
+    from ..dist import mesh_axis, shard_range
+
     if rng_impl != "hash":
         raise ValueError("wavefront kernel is hash-RNG only (reordering would change the "
                          "hw-PRNG stream); pass rng_impl='hash'")
@@ -362,22 +394,50 @@ def render_forward_wavefront(
         raise ValueError("scene exceeds the wavefront kernel limits")
     dev = _device(device)
     w, h = size
+    n_pix = w * h
     spp = scene.samples_per_pixel if spp is None else spp
     max_bounces = scene.max_bounces if max_bounces is None else max_bounces
     chunk = _resolve_chunk(size, spp, spp_chunk)
     sched, shrink_at = _schedule(max_bounces, sort_schedule, shrink_at)
     center_first = True if center_sample is None else center_sample
+    ax = None if mesh is None else mesh_axis(mesh, axis)
     spheres, planes, boxes, counts = _device_tables(scene, personality, include_boxes, dev)
 
     def launch(cam, seeds, k, first):
+        total = n_pix * k
+        ray0, rays = (0, total) if ax is None else shard_range(total, ax, 512)
+
         def bounce(b, state, ids, limit):
             return wf_bounce(spheres, planes, boxes, counts, cam, seeds, state, ids, limit,
                              size=size, bounce=b, max_bounces=max_bounces,
-                             center_sample=first and center_first, rng_mode=rng_mode)
+                             center_sample=first and center_first, rng_mode=rng_mode,
+                             ray0=ray0, total=total)
 
-        state, ids, _ = _forward_chunk(bounce, w * h * k, dev, max_bounces=max_bounces,
+        state, ids, _ = _forward_chunk(bounce, rays, dev, max_bounces=max_bounces,
                                        sched=sched, shrink_at=shrink_at, cell_bits=cell_bits)
-        return _assemble(state, ids, w * h, k).reshape(h, w, 3)
+        rad = _radiance_by_id(state, ids, ray0)
+        if ax is not None:
+            rad = ax.all_gather(rad.T).T
+        return _sum_samples(rad, n_pix, k).reshape(h, w, 3)
 
     cam = _upload(_pack_camera(scene.camera, size), dev)
     return _chunked_frame(launch, cam, seed, spp, 1, gamma, dev, chunk=chunk)
+
+
+def render_forward_wavefront_sharded(scene, size: tuple[int, int], mesh, seed: int = 0, *,
+                                     axis: str = "rays", **opts) -> torch.Tensor:
+    """:func:`render_forward_wavefront` (its ``opts``) sharded over
+    ``mesh[axis]`` (a :func:`rt_tpu_torch.dist.make_mesh` mesh): the whole
+    (H, W, 3) frame on every rank, equal bit for bit to the unsharded frame.
+
+    Each rank owns a contiguous global ray range of every sample chunk
+    (JAX's 512-ray spans; the last shard padded with dead rays) and runs
+    its own wavefront over it: its bounce-0 launch takes the range's first
+    ray id and the chunk's ray count, so ray ids and draws stay global (the
+    TPU kernel's ray_offset), and its compaction sorts and live-prefix
+    shrink are its own.  The chunk's per-ray radiance is gathered over
+    ``axis`` by ray id and summed over its samples in sample order.  The
+    chunk cap is the unsharded route's, against the global ray count (as
+    JAX's): the chunking fixes the chunk seeds, so a cap per rank would
+    render another frame wherever it binds."""
+    return render_forward_wavefront(scene, size, seed, mesh=mesh, axis=axis, **opts)

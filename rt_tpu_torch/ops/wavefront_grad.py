@@ -40,7 +40,10 @@ Morton table order (``_morton_static``, ``_apply_perm_traced``) and the
 windowed one-hot fetch and scatter, which the TPU needed and which leave
 the gradients as they are; the TPU knobs of the forward; the sort knobs
 (``sort_schedule``, ``cell_bits``, ``shrink_at``), which reorder rays only:
-the steps run JAX's defaults; the sharded twin (waits for ``dist``).
+the steps run JAX's defaults.  With ``mesh=`` the steps run the sharded
+pipeline (``_wf_grad_pipeline_sharded``): each rank's table holds a
+contiguous range of each chunk's rays, its cotangent table indexed by
+ray id less the range's first id.
 """
 
 from __future__ import annotations
@@ -58,7 +61,8 @@ from .blockwise_grad import _table_builder, bw_grad_supported
 from .grad import _assemble_grads, _check
 from .render import (_BIG, _MIN_HIT, WORD_MISS, WORD_PLANE, WORD_ROW, _chunk_seeds, _device,
                      _inv_size, _upload, hash_u01)
-from .wavefront import (_ID_MASK, STATE_ROWS, _assemble, _forward_chunk, _schedule, wf_bounce)
+from .wavefront import (_ID_MASK, STATE_ROWS, _forward_chunk, _radiance_by_id, _schedule,
+                        _sum_samples, wf_bounce)
 
 __all__ = ["wf_grad_supported", "wf_rev", "wf_rev_plain", "make_wf_mse_step",
            "wf_mse_loss_and_grad", "make_wf_train_step"]
@@ -122,7 +126,7 @@ def _recompute_t(pay, ispl, hit, o3, d3):
 
 def wf_rev_plain(spheres, planes, counts, cam, seeds, state, ids, words, limit, cot, cot_pix, *,
                  size, bounce, max_bounces, center_sample=False, rng_mode="reference",
-                 with_l1=False):
+                 with_l1=False, ray0=0, total=None):
     """Plain PyTorch version of the reverse kernel, on the device of ``cot``.
 
     Args:
@@ -138,6 +142,11 @@ def wf_rev_plain(spheres, planes, counts, cam, seeds, state, ids, words, limit, 
         direction and throughput, by ray id; bounce b > 0 replaces a live
         ray's with those of its incoming values.
       cot_pix: (n_pix, 3) float32 pixel cotangent.
+      ray0, total: a shard of a chunk of ``total`` rays (default n_rays): the
+        table holds the rays ``ray0 ..``, ``cot`` is indexed by id - ray0,
+        bounce 0 regenerates the rays ``ray0 + j``, and an id at or past
+        ``total`` (a shard's padding) adds nothing.  ``cot_pix`` stays the
+        whole frame's.
 
     Returns ``(sg, pg, cg)``, float64: the sphere gradient slots (9,
     n_spheres), the plane material slots (5, n_planes) and the camera
@@ -158,7 +167,8 @@ def wf_rev_plain(spheres, planes, counts, cam, seeds, state, ids, words, limit, 
     c = cam.tolist()
     inv_w, inv_h = _inv_size(w, h)
     if bounce == 0:
-        ray = torch.arange(n, device=dev, dtype=torch.int64)
+        ray = torch.arange(ray0, ray0 + n, device=dev, dtype=torch.int64)
+        inside = ray < (cot.shape[1] if total is None else total)
         pix, smp = ray % n_pix, ray // n_pix
         base = smp * per_sample
         jx, jy = hash_u01(pix, seed, base + 1), hash_u01(pix, seed, base + 2)
@@ -167,7 +177,7 @@ def wf_rev_plain(spheres, planes, counts, cam, seeds, state, ids, words, limit, 
         px, py = (pix % w).to(f32), (pix // w).to(f32)
         o3, d3 = gm.raygen(c, px, py, jx, jy, inv_w, inv_h)
         one = torch.ones(n, dtype=f32, device=dev)
-        thr3, lv = (one, one, one), one > 0.0
+        thr3, lv = (one, one, one), inside
         ctr = base + 2
     else:
         ray = ids.to(torch.int64)
@@ -185,12 +195,13 @@ def wf_rev_plain(spheres, planes, counts, cam, seeds, state, ids, words, limit, 
     best_t, root = _recompute_t(pay, ispl, hit, o3, d3)
     u3 = gm.unit_draws(pix, seed, ctr + 1, rng_sphere)
     bits = gm.decisions(o3, d3, lv, best_t, pay, cls, ispl, root, u3, hash_u01(pix, seed, ctr + 4))
-    cin = cot[:, ray]
+    col = ray - ray0
+    cin = cot[:, col]
     crad = tuple(cot_pix[pix, k] for k in range(3))
     co, cd, ct, slots = gm.bounce_adjoint(o3, d3, thr3, pay, u3, bits, tuple(cin[0:3]),
                                           tuple(cin[3:6]), tuple(cin[6:9]), crad)
     if bounce > 0:
-        cot[:, ray[lv]] = torch.stack([*co, *cd, *ct])[:, lv]
+        cot[:, col[lv]] = torch.stack([*co, *cd, *ct])[:, lv]
 
     sg = torch.zeros((9, ns), dtype=f64, device=dev)
     pg = torch.zeros((5, npl), dtype=f64, device=dev)
@@ -203,7 +214,8 @@ def wf_rev_plain(spheres, planes, counts, cam, seeds, state, ids, words, limit, 
         acc.index_add_(1, row[m], v[:, m])
         acc_l1.index_add_(1, row[m], v[:, m].abs())
     if bounce == 0:
-        cam_cot = torch.stack(gm.raygen_adjoint(c, px, py, jx, jy, inv_w, inv_h, co, cd)).to(f64)
+        cam_cot = torch.where(inside, torch.stack(gm.raygen_adjoint(c, px, py, jx, jy, inv_w, inv_h,
+                                                                     co, cd)), 0.0).to(f64)
         cg[:15] = cam_cot.sum(dim=1)
         cg_l1[:15] = cam_cot.abs().sum(dim=1)
     return ((sg, pg, cg), (sg_l1, pg_l1, cg_l1)) if with_l1 else (sg, pg, cg)
@@ -215,13 +227,15 @@ def _kernel():
 
     fn = load_library("wf_grad_kernel").rt_wf_rev
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, i, p, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, i, i, i, p]
+    fn.argtypes = [p, i, p, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, f, i, i, i, i,
+                   p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def wf_rev(spheres, planes, counts, cam, seeds, state, ids, words, limit, cot, cot_pix, *, size,
-           bounce, max_bounces, center_sample=False, rng_mode="reference", out=None):
+           bounce, max_bounces, center_sample=False, rng_mode="reference", out=None, ray0=0,
+           total=None):
     """One launch of the reverse kernel; arguments and result as
     :func:`wf_rev_plain`.  With ``out=(sg, pg, cg)`` (float64) the
     gradients are added to those tensors, which are returned.  CPU tensors
@@ -245,6 +259,9 @@ def wf_rev(spheres, planes, counts, cam, seeds, state, ids, words, limit, cot, c
         raise ValueError(f"{fn}: bounce {bounce} outside 0..{max_bounces - 1}")
     if w < 1 or h < 1 or w * h * 3 >= 2**31 or not 1 <= n <= n_rays < 2**31:
         raise ValueError(f"{fn}: bad size {w}x{h}, {n} rays or a cotangent table of {n_rays}")
+    total = n_rays if total is None else total
+    if ray0 < 0 or ray0 + n_rays >= 2**31 or not 1 <= total <= _ID_MASK + 1:
+        raise ValueError(f"{fn}: bad rays {ray0}..{ray0 + n_rays - 1} of {total}")
     ns, npl = counts
     shapes = ((9, ns), (5, npl), (16,))
     if out is not None:
@@ -253,7 +270,8 @@ def wf_rev(spheres, planes, counts, cam, seeds, state, ids, words, limit, cot, c
     if dev.type == "cpu":
         got = wf_rev_plain(spheres, planes, counts, cam, seeds, state, ids, words, limit, cot,
                            cot_pix, size=size, bounce=bounce, max_bounces=max_bounces,
-                           center_sample=center_sample, rng_mode=rng_mode)
+                           center_sample=center_sample, rng_mode=rng_mode, ray0=ray0,
+                           total=total)
         if out is None:
             return got
         for o, g in zip(out, got):
@@ -281,8 +299,8 @@ def wf_rev(spheres, planes, counts, cam, seeds, state, ids, words, limit, cot, c
         err = _kernel()(
             spheres.data_ptr(), ns, planes.data_ptr(), npl, cam.data_ptr(), seeds.data_ptr(),
             ptr(state), ptr(ids), words.data_ptr(), ptr(limit), cot.data_ptr(),
-            cot_pix.data_ptr(), sg.data_ptr(), pg.data_ptr(), cg.data_ptr(), n, n_rays, w * h, w,
-            inv_w, inv_h, bounce, max_bounces, int(bool(center_sample)),
+            cot_pix.data_ptr(), sg.data_ptr(), pg.data_ptr(), cg.data_ptr(), n, n_rays, ray0,
+            total, w * h, w, inv_w, inv_h, bounce, max_bounces, int(bool(center_sample)),
             int(rng_mode == "sphere"), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wavefront reverse kernel launch failed: CUDA error {err}")
@@ -298,10 +316,22 @@ wf_rev.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _wf_pipeline(scene, target, size, *, spp, spp_chunk, max_bounces, rng_mode, dev):
+def _wf_pipeline(scene, target, size, *, spp, spp_chunk, max_bounces, rng_mode, dev, mesh=None,
+                 axis="rays"):
     """``_wf_grad_pipeline``'s body: ``(run, n_chunks)``, ``run(s_tab, p_tab,
     cam, seeds, center_first) -> (loss, grads)`` for tables of ``scene``'s
-    shape, ``seeds`` the (n_chunks, 1) int32 chunk seeds on the device."""
+    shape, ``seeds`` the (n_chunks, 1) int32 chunk seeds on the device.
+
+    With ``mesh`` (``_wf_grad_pipeline_sharded``) each rank of
+    ``mesh[axis]`` owns a contiguous range of every chunk's rays (JAX's
+    512-ray spans, the last shard padded) and runs the record forward and
+    the reverse over it; each chunk's radiance is gathered, the loss and
+    the pixel cotangent are computed from the whole frame on every rank
+    (so the loss is the unsharded step's bit for bit), and the float64
+    accumulators are summed over the axis."""
+    from ..dist import mesh_axis, shard_range
+    from .blockwise_grad import _sum_over
+
     w, h = size
     n_pix = w * h
     chunk, _, _ = _wf_grad_static(scene, size, spp, spp_chunk)
@@ -314,21 +344,31 @@ def _wf_pipeline(scene, target, size, *, spp, spp_chunk, max_bounces, rng_mode, 
     tgt = torch.as_tensor(target, dtype=torch.float32).reshape(h, w, 3).to(dev).contiguous()
     no_boxes = torch.zeros((0, _COLS), dtype=torch.float32, device=dev)
     kw = dict(size=size, max_bounces=max_bounces, rng_mode=rng_mode)
+    ax = None if mesh is None else mesh_axis(mesh, axis)
+
+    def rays_of(k):
+        """``(ray0, rays)``: this rank's range of a chunk of k samples."""
+        return (0, n_pix * k) if ax is None else shard_range(n_pix * k, ax, 512)
 
     def run(s_tab, p_tab, cam, seeds, center_first):
         # ---- record forward: the frame, and per chunk the saved bounces ----
         total, chunks = None, []
         for ci, k in enumerate(ks):
             center = ci == 0 and center_first
+            ray0, rays = rays_of(k)
 
-            def bounce(b, state, ids, limit, seed=seeds[ci], center=center):
+            def bounce(b, state, ids, limit, seed=seeds[ci], center=center, ray0=ray0, k=k):
                 return wf_bounce(s_tab, p_tab, no_boxes, (*counts, 0), cam, seed, state, ids,
-                                 limit, bounce=b, center_sample=center, record=True, **kw)
+                                 limit, bounce=b, center_sample=center, record=True, ray0=ray0,
+                                 total=n_pix * k, **kw)
 
-            state, ids, saved = _forward_chunk(bounce, n_pix * k, dev, max_bounces=max_bounces,
+            state, ids, saved = _forward_chunk(bounce, rays, dev, max_bounces=max_bounces,
                                                sched=sched, shrink_at=shrink_at,
                                                cell_bits=2, record=True)
-            img = _assemble(state, ids, n_pix, k)
+            rad = _radiance_by_id(state, ids, ray0)
+            if ax is not None:
+                rad = ax.all_gather(rad.T).T
+            img = _sum_samples(rad, n_pix, k)
             total = img if total is None else total + img
             chunks.append((k, center, saved))
         # ---- loss and pixel cotangent (pre-gamma), as the blockwise step ----
@@ -339,11 +379,14 @@ def _wf_pipeline(scene, target, size, *, spp, spp_chunk, max_bounces, rng_mode, 
         acc = tuple(torch.zeros(s, dtype=torch.float64, device=dev)
                     for s in ((9, counts[0]), (5, counts[1]), (16,)))
         for ci, (k, center, saved) in enumerate(chunks):
-            cot = torch.zeros((9, n_pix * k), dtype=torch.float32, device=dev)
+            ray0, rays = rays_of(k)
+            cot = torch.zeros((9, rays), dtype=torch.float32, device=dev)
             for b in reversed(range(max_bounces)):
                 state, ids, words, limit = saved[b]
                 wf_rev(s_tab, p_tab, counts, cam, seeds[ci], state, ids, words, limit, cot,
-                       cot_pix, bounce=b, center_sample=center, out=acc, **kw)
+                       cot_pix, bounce=b, center_sample=center, out=acc, ray0=ray0,
+                       total=n_pix * k, **kw)
+        acc = _sum_over(ax, acc)
         return loss, _assemble_grads(*(a.float() for a in acc), s_mat, p_mat, *tables)
 
     return run, len(ks)
@@ -362,6 +405,8 @@ def make_wf_mse_step(
     spp_chunk: int = 4,
     center_sample: Optional[bool] = None,
     device="cuda",
+    mesh=None,
+    axis: str = "rays",
 ):
     """Prebuilt wavefront fwd+bwd step at fixed ``params``: ``step(seed) ->
     (loss, grads)``.
@@ -374,13 +419,17 @@ def make_wf_mse_step(
     step is ``render_forward_wavefront(..., gamma=False)``'s at the same
     seed; the loss is its MSE against the target, and ``grads`` holds the
     detached-sampling gradients of the scene's seven differentiable keys.
+    With ``mesh`` the rays are sharded over ``mesh[axis]``
+    (:func:`_wf_pipeline`) and every rank returns the whole step's loss and
+    gradients.
     """
     dev = _device(device)
     max_bounces = scene.max_bounces if max_bounces is None else max_bounces
     tables = _table_builder(scene, personality, size, dev)(
         {k: torch.as_tensor(v).to(dev) for k, v in params.items()})
     run, n_chunks = _wf_pipeline(scene, target, size, spp=spp, spp_chunk=spp_chunk,
-                                 max_bounces=max_bounces, rng_mode=rng_mode, dev=dev)
+                                 max_bounces=max_bounces, rng_mode=rng_mode, dev=dev, mesh=mesh,
+                                 axis=axis)
     center_first = True if center_sample is None else center_sample
 
     def step(seed: int = 0):
@@ -408,9 +457,12 @@ def make_wf_train_step(
     rng_mode: str = "reference",
     spp_chunk: int = 4,
     device="cuda",
+    mesh=None,
+    axis: str = "rays",
 ):
     """One optimizer step per call on the wavefront pipeline: ``step(params,
-    seed) -> loss``, as :func:`rt_tpu_torch.ops.blockwise_grad.make_bw_train_step`:
+    seed) -> loss``, as :func:`rt_tpu_torch.ops.blockwise_grad.make_bw_train_step`
+    (``mesh``: the rays sharded over ``mesh[axis]``, the sharded pipeline):
     the tables rebuilt on the device from ``params``, the fused step,
     ``.grad`` set for every tensor of ``params``, ``optimizer.step()``.
     Nothing but the chunk seeds (JAX's wrapping int32 chain of ``seed``)
@@ -419,7 +471,8 @@ def make_wf_train_step(
     max_bounces = scene.max_bounces if max_bounces is None else max_bounces
     build = _table_builder(scene, personality, size, dev)
     run, n_chunks = _wf_pipeline(scene, target, size, spp=spp, spp_chunk=spp_chunk,
-                                 max_bounces=max_bounces, rng_mode=rng_mode, dev=dev)
+                                 max_bounces=max_bounces, rng_mode=rng_mode, dev=dev, mesh=mesh,
+                                 axis=axis)
 
     def step(params, seed: int):
         seeds = _upload(_train_seeds(seed, n_chunks).reshape(-1, 1), dev)

@@ -28,9 +28,10 @@ With ``draws=None`` the replay regenerates the threefry draws from
 ``key`` with the folds of :func:`rt_tpu_torch.integrator.trace_batch`.
 :func:`trace_batch_recorded` is that trace with its records, and
 :func:`trace_batch_replay` records without a graph and returns the replay:
-the integrator's ``grad_mode="replay"``.  Not ported: ``prims_axis`` (the
-primitive-sharded replay; ROADMAP queue 1 item 8), which raises
-``NotImplementedError``.
+the integrator's ``grad_mode="replay"``.  ``prims_axis`` is the
+primitive-sharded replay of :mod:`rt_tpu_torch.dist`: the records carry
+global sphere indices, each rank fetches the winners of its slice of the
+table and the payloads are summed over the axis.
 """
 
 from __future__ import annotations
@@ -96,10 +97,17 @@ def replay_radiance(scene, origins, dirs, key, records: PathRecords, *, personal
     :mod:`rt_tpu_torch.rng` key) in ``rng_mode``, as
     :func:`rt_tpu_torch.integrator.trace_batch` draws them.
     ``origins``/``dirs`` are the (N, 3) camera rays and every table of
-    ``scene`` lies on their device."""
-    if prims_axis is not None:
-        raise NotImplementedError("the primitive-sharded replay waits for dist "
-                                  "(ROADMAP queue 1 item 8)")
+    ``scene`` lies on their device.
+
+    ``prims_axis`` (a :class:`rt_tpu_torch.dist.MeshAxis`): the global-winner
+    replay on a mesh that shards the sphere table along that axis.
+    ``records.idx`` carries GLOBAL sphere indices
+    (:func:`rt_tpu_torch.dist.sharded_hit_fn`); each rank fetches the
+    winners that live in its slice (offset ``rank * S``, S the slice's
+    rows) and the payloads (centre and radius in one sum, the material id in
+    another) are summed over the axis: exactly one rank contributes per
+    lane, so the values are the replicated fetch's, and the sum's backward
+    routes the parameter cotangents back to the owning rank's slice."""
     if max_bounces is None:
         max_bounces = scene.max_bounces
     dev = origins.device
@@ -122,8 +130,18 @@ def replay_radiance(scene, origins, dirs, key, records: PathRecords, *, personal
         hit = kind > 0
 
         # differentiable hit for the recorded primitive
-        c = _fetch(sph.center, idx, is_sphere)                  # (N, 3)
-        radius = _fetch(sph.radius, idx, is_sphere)             # (N,)
+        if prims_axis is None:
+            sel, sid = is_sphere, idx
+            c = _fetch(sph.center, idx, is_sphere)              # (N, 3)
+            radius = _fetch(sph.radius, idx, is_sphere)         # (N,)
+        else:
+            # the winners that live in this rank's slice of the table
+            rows = sph.center.shape[0]
+            sid = idx - prims_axis.rank * rows
+            sel = is_sphere & (sid >= 0) & (sid < rows)
+            cr = prims_axis.psum(torch.cat([_fetch(sph.center, sid, sel),
+                                            _fetch(sph.radius, sid, sel)[:, None]], dim=1))
+            c, radius = cr[:, :3], cr[:, 3]
         oc = o - c
         bq = dot3(oc, d)
         c0 = dot3(oc, oc) - radius * radius
@@ -164,7 +182,9 @@ def replay_radiance(scene, origins, dirs, key, records: PathRecords, *, personal
             normal = torch.where(is_box[:, None], bn, normal)
 
         # material id: integer gathers, indices clamped into their table
-        s_mat = sph.material[torch.where(is_sphere, idx, 0).long()]
+        s_mat = sph.material[torch.where(sel, sid, 0).long()]
+        if prims_axis is not None:
+            s_mat = prims_axis.all_sum(torch.where(sel, s_mat, 0))
         p_mat = pln.material[torch.where(is_plane, idx, 0).long()]
         mat = torch.where(is_sphere, s_mat, p_mat)
         if use_boxes:

@@ -79,6 +79,7 @@ def make_kernel_train_step(
     *,
     spp: int = 4,
     max_bounces=None,
+    mesh=None,
     **opts,
 ):
     """The fused-kernel optimizer step for ``scene``: ``step(params, seed)
@@ -88,15 +89,18 @@ def make_kernel_train_step(
     1024 rows or more (and that the wavefront pipeline takes) go to the
     wavefront record/reverse step
     (:func:`rt_tpu_torch.ops.wavefront_grad.make_wf_train_step`), every
-    other scene to the blockwise fused step.  ``opts`` (``personality``,
-    ``rng_mode``, ``device``) go to the step."""
+    other scene to the blockwise fused step.  ``mesh`` (a
+    :func:`rt_tpu_torch.dist.make_mesh` mesh) shards either step's rays over
+    its 'rays' axis.  ``opts`` (``personality``, ``rng_mode``, ``device``,
+    ``axis``) go to the step."""
     from .ops.blockwise import _bucket
     from .ops.blockwise_grad import make_bw_train_step
     from .ops.wavefront_grad import make_wf_train_step, wf_grad_supported
 
     route = (make_wf_train_step if wf_grad_supported(scene)
              and _bucket(scene.spheres.count) >= _WAVEFRONT_MIN_BUCKET else make_bw_train_step)
-    return route(optimizer, scene, target, size, spp=spp, max_bounces=max_bounces, **opts)
+    return route(optimizer, scene, target, size, spp=spp, max_bounces=max_bounces, mesh=mesh,
+                 **opts)
 
 
 def fit(scene, target, size: tuple[int, int], *, steps: int = 100, learning_rate: float = 1e-2,

@@ -11,6 +11,14 @@ import torch
 
 SCENES = pathlib.Path(__file__).resolve().parent.parent / "scenes"
 
+# One torch thread in every test process that imports this module (every
+# xdist worker does: each collects all the port's files).  The suite runs 6
+# workers on 8 cores, and with torch's default of a thread a core their
+# OpenMP threads wait on each other: a case of test_torch_scan_reject.py
+# that takes 0.48 s alone took 97.6 s in the suite, and the CPU they burn
+# slows the JAX files beside them.  The results do not depend on it.
+torch.set_num_threads(1)
+
 # rt_tpu's own tolerance between two of its kernels (pallas_wavefront.py:37-39)
 ATOL = 2e-5
 # Share of pixels allowed beyond ATOL.  XLA's CPU backend contracts a*b+c

@@ -1,4 +1,5 @@
-"""The CUDA kernels (forward render, fused gradient) against their plain
+"""The CUDA kernels (forward render, fused gradient; rows 5, 7, 8 and 9
+also with the sharded routes' global offsets) against their plain
 PyTorch versions, both on the card, at small sizes.  Needs an NVIDIA GPU with nvcc (marker ``cuda``);
 without one every test skips.  On the card:
 
@@ -824,3 +825,124 @@ def test_profiler_sessions_report_device_events(cuda, tmp_path):
         profiling.device_times(lambda i: None, iters=2)
     assert any("render_kernel" in k for k in profiling.device_times(lambda i: step(seed=i),
                                                                       iters=2))
+
+
+# ---- rows 5, 7, 8 and 9 with a global offset (the sharded routes) ----
+
+
+def _offset_inputs(cuda, size):
+    from rt_tpu_torch.ops import blockwise as tbw
+
+    scene = rt_tpu_torch.scene.make_procedural_scene(500)
+    sp, pl, bx, counts = tbw._device_tables(scene, "mg", False, cuda)
+    cam = tr._upload(tr._pack_camera(scene.camera, size), cuda)
+    return sp, pl, bx, counts, cam, torch.tensor([7], dtype=torch.int32, device=cuda)
+
+
+# 101 x 37 = 3737 pixels: a shard that starts mid-warp, one whose tail is padding
+@pytest.mark.parametrize("pix0,count", [(45, 1000), (3000, 1000)])
+def test_blockwise_kernels_with_offset_match_plain(cuda, pix0, count):
+    """Rows 5 and 7 on a shard of the frame: the forward (4 samples, and the
+    words form) bit for bit with its plain version at the same offset and
+    with the whole frame's pixels, the padding zero and the miss word; the
+    gradient within 1e-5 x L1."""
+    from rt_tpu_torch.ops import blockwise as tbw
+    from rt_tpu_torch.ops import blockwise_grad as tbg
+
+    size = (101, 37)
+    n = size[0] * size[1]
+    inside = min(n, pix0 + count) - pix0
+    sp, pl, bx, counts, cam, seeds = _offset_inputs(cuda, size)
+    kw = dict(size=size, max_bounces=8, center_sample=False)
+    got = tbw.render_blockwise_tile(sp, pl, bx, counts, cam, seeds, spp=4, pix0=pix0,
+                                    count=count, **kw)
+    want = tbw.render_blockwise_tile_plain(sp, pl, bx, counts, cam, seeds, spp=4, pix0=pix0,
+                                           count=count, **kw)
+    whole = tbw.render_blockwise_tile(sp, pl, bx, counts, cam, seeds, spp=4, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got[:inside], whole.reshape(n, 3)[pix0:pix0 + inside])
+    assert not got[inside:].any()
+    frame, words = tbw.render_blockwise_tile(sp, pl, bx, counts, cam, seeds, spp=1, words=True,
+                                             pix0=pix0, count=count, **kw)
+    p_frame, p_words = tbw.render_blockwise_tile_plain(sp, pl, bx, counts, cam, seeds, spp=1,
+                                                       words=True, pix0=pix0, count=count, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(frame, p_frame) and torch.equal(words, p_words)
+    assert (words[:, inside:] == tr.WORD_MISS).all()
+    cot = torch.from_numpy(np.random.default_rng(3).normal(0, 1e-3, (count, 3))
+                           .astype(np.float32)).to(cuda)
+    cot[inside:] = 0
+    got = tbg.bw_grad_tile(sp, pl, counts[:2], cam, seeds, cot, words, pix0=pix0, count=count,
+                           **kw)
+    want, l1 = tbg.bw_grad_tile_plain(sp, pl, counts[:2], cam, seeds, cot, words, pix0=pix0,
+                                      count=count, with_l1=True, **kw)
+    torch.cuda.synchronize()
+    _assert_within_l1(got, want, l1)
+
+
+@pytest.mark.parametrize("ray0,rays", [(45, 3000), (5000, 3000)])
+def test_wavefront_kernels_with_offset_match_plain(cuda, ray0, rays):
+    """Rows 8 and 9 on a shard of a 2-sample chunk of 7474 rays (a start
+    mid-warp; a padded tail): the gen launch and bounce 1 bit for bit with
+    their plain versions at the same offset, the reverse of both within
+    1e-5 x L1 and its cotangent table (by id - ray0) close."""
+    from rt_tpu_torch.ops import wavefront as twf
+    from rt_tpu_torch.ops import wavefront_grad as twg
+
+    size = (101, 37)
+    total = 2 * size[0] * size[1]
+    sp, pl, bx, counts, cam, seeds = _offset_inputs(cuda, size)
+    kw = dict(size=size, max_bounces=8)
+    st = torch.empty((13, rays), device=cuda)
+    ids = torch.empty(rays, dtype=torch.int32, device=cuda)
+    st_p, ids_p = st.clone(), ids.clone()
+    w0 = twf.wf_bounce(sp, pl, bx, counts, cam, seeds, st, ids, bounce=0, center_sample=True,
+                       record=True, ray0=ray0, total=total, **kw)
+    w0_p = twf.wf_bounce_plain(sp, pl, bx, counts, cam, seeds, st_p, ids_p, bounce=0,
+                               center_sample=True, record=True, ray0=ray0, total=total, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(st, st_p) and torch.equal(ids, ids_p) and torch.equal(w0, w0_p)
+    entering = st.clone()
+    w1 = twf.wf_bounce(sp, pl, bx, counts, cam, seeds, st, ids, bounce=1, record=True, **kw)
+    w1_p = twf.wf_bounce_plain(sp, pl, bx, counts, cam, seeds, st_p, ids_p, bounce=1,
+                               record=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(st, st_p) and torch.equal(w1, w1_p)
+    cot_pix = torch.from_numpy(np.random.default_rng(6).uniform(-1e-4, 1e-4, (total // 2, 3))
+                               .astype(np.float32)).to(cuda)
+    cot = torch.from_numpy(np.random.default_rng(7).uniform(-1e-4, 1e-4, (9, rays))
+                           .astype(np.float32)).to(cuda)
+    for b, state, words in ((1, entering, w1), (0, None, w0)):
+        cot_plain = cot.clone()
+        rk = dict(bounce=b, center_sample=True, ray0=ray0, total=total, **kw)
+        got = twg.wf_rev(sp, pl, counts[:2], cam, seeds, state, ids, words, None, cot, cot_pix,
+                         **rk)
+        want, l1 = twg.wf_rev_plain(sp, pl, counts[:2], cam, seeds, state, ids, words, None,
+                                    cot_plain, cot_pix, with_l1=True, **rk)
+        torch.cuda.synchronize()
+        _assert_within_l1(got, want, l1)
+        assert (cot - cot_plain).abs().max() <= 1e-5 * cot_plain.abs().max().clamp_min(1e-30)
+        cot = cot_plain
+
+
+def test_sharded_blockwise_in_a_one_rank_world(cuda):
+    """A 1-rank NCCL world on the card: the sharded blockwise frame is the
+    unsharded one, bit for bit."""
+    import torch.distributed as tdist
+
+    from rt_tpu_torch import dist
+    from rt_tpu_torch.ops import blockwise as tbw
+
+    scene = rt_tpu_torch.scene.make_procedural_scene(300)
+    dist.initialize(init_method=f"tcp://127.0.0.1:{dist._free_port()}", world_size=1, rank=0)
+    try:
+        mesh = dist.make_mesh(1, 1)
+        got = tbw.render_forward_blockwise_sharded(scene, (97, 41), mesh, 3, spp=4,
+                                                   max_bounces=6)
+        want = tbw.render_forward_blockwise(scene, (97, 41), 3, spp=4, max_bounces=6)
+        torch.cuda.synchronize()
+        assert tdist.get_backend() == "nccl"
+        assert torch.equal(got, want)
+    finally:
+        tdist.destroy_process_group()

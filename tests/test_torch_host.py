@@ -212,7 +212,8 @@ def test_import_needs_no_jax():
             "rt_tpu_torch.renderer, rt_tpu_torch.camera, rt_tpu_torch._native, "
             "rt_tpu_torch.viewer, rt_tpu_torch.render_4k, rt_tpu_torch.profiling, "
             "rt_tpu_torch.examples.inverse_rendering, "
-            "rt_tpu_torch.examples.big_scene_training; "
+            "rt_tpu_torch.examples.big_scene_training, rt_tpu_torch.dist, "
+            "rt_tpu_torch.mp_check, rt_tpu_torch.examples.sharded_render; "
             "assert 'jax' not in sys.modules and 'rt_tpu' not in sys.modules; "
             "assert 'triton' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120,
@@ -287,8 +288,8 @@ def test_cli(tmp_path, capsys):
     assert main(["--renderer", "zzz"]) == 2
     assert main(["--size", "big"]) == 2
     assert main(["--scene", "missing.toml", "--device", "cpu"]) == 1
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        main(["--mesh", "8"])
+    # --mesh takes the path tracers only (the sharded render: test_torch_dist.py)
+    assert main(["--mesh", "8", "--renderer", "rasterizer", "--device", "cpu"]) == 2
     # --preview prints the frame's half-blocks after writing it
     rc = main(["--scene", str(SCENES / "basic.toml"), "-r", "mg_auto", "--size", "16x8", "--spp",
                "1", "--bounces", "2", "--preview", "--device", "cpu", "--out",

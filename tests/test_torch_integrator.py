@@ -122,6 +122,7 @@ def test_sky_only_frame_and_default_chunk():
                                                                    .make_procedural_scene(n))
     with pytest.raises(ValueError, match="grad_mode"):
         tint.render_image(ts, (4, 4), trng.make_key(0), spp=1, grad_mode="fd", device="cpu")
-    with pytest.raises(NotImplementedError, match="dist"):
+    # a custom hit_fn replays only as dist's global-winner replay
+    with pytest.raises(ValueError, match="replay_prims_axis"):
         tint.render_pixels(ts, (4, 4), tint._pixel_grid((4, 4)), trng.make_key(0), spp=1,
-                           replay_prims_axis="prims")
+                           grad_mode="replay", hit_fn=lambda o, d: None)

@@ -164,9 +164,11 @@ def test_replay_matches_jax(cid):
 
 
 def test_replay_unported_options_raise():
-    """``prims_axis`` (dist) still raises; ``draws=None``, which raised
-    before the threefry rng was ported, regenerates the draws from the key
-    (the same radiance as the draws passed in)."""
+    """``draws=None``, which raised before the threefry rng was ported,
+    regenerates the draws from the key (the same radiance as the draws
+    passed in); ``prims_axis``, which raised before dist was ported, on an
+    axis of one rank is the unsharded replay (tests/test_torch_dist.py
+    holds the sharded one)."""
     from rt_tpu_torch import rng as trng
 
     ts = rt_tpu_torch.loads(REPLAY_BOX_TOML)
@@ -178,9 +180,17 @@ def test_replay_unported_options_raise():
     want = trep.replay_radiance(ts, o, o, None, recs, max_bounces=1,
                                 draws=tint._draws(key, 1, 4, "reference", "cpu"))
     assert got.shape == (4, 3) and torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match=r"dist \(ROADMAP queue 1 item 8\)"):
-        trep.replay_radiance(ts, o, o, None, recs, max_bounces=1, prims_axis="prims",
-                             draws=(torch.zeros((1, 4, 3)), torch.zeros((1, 4))))
+
+    class OneRank:  # a mesh axis of one rank (dist.MeshAxis's collectives)
+        rank, size = 0, 1
+
+        def psum(self, x):
+            return x
+
+        all_sum = psum
+
+    assert torch.equal(trep.replay_radiance(ts, o, o, key, recs, max_bounces=1,
+                                            prims_axis=OneRank()), got)
 
 
 @pytest.mark.parametrize("name,personality,boxes", [("basic.toml", "mg", False),
