@@ -248,6 +248,21 @@ Phases (an exception in any phase exits non-zero before the result line):
    tensors with their backend (the all-gather of a config-4 frame slice,
    the all-reduce of the config-4 step's float64 accumulators).
 
+9. The bench table (``rt_tpu_torch.bench_table``, the port of
+   tools/bench_table.py).  (a) ``bench_table.main(["--fast", "--out",
+   TMP])`` in this process, every kernel counter set to 0 just before it
+   and read just after (the kernels line adds them to ``launches`` and
+   gives them as ``launches_phase9``): 15 rows, every rate finite and > 0,
+   ``grad_ok=True``, the file's header the card line.  (b) The launch
+   shapes only the table reaches, against their plain versions: the render
+   kernel at 16 frames a launch (config 1's batched dispatch, basic
+   200x150, 1 spp, depth 4), every frame bit for bit; the per-sample
+   gradient kernel on 200 spheres at 400x300, 2 spp, depth 6, within 1e-5
+   x L1; the blockwise kernels at the window's train step (200 spheres,
+   400x300, 4 spp, depth 8): the 4-spp launch and each sample's words form
+   bit for bit, each gradient launch within 1e-5 x L1.  The phase's
+   seconds are printed.
+
 ``python3 chip_smoke.py --profiler-probe`` runs only a probe of the
 profiler instead: in one process, device_times sessions of 10,000, 100,000
 and 300,000 small kernels, and a basic 800x600 1-spp frame traced before
@@ -262,6 +277,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import struct
 import subprocess
 import sys
@@ -3148,11 +3164,12 @@ def wf_wide_chunk(scene, size, k, label, subset):
     return row
 
 
-def bw_example_checks(scene, size, spp, depth):
-    """The blockwise kernels at big_scene_training's shape against their
-    plain versions: the target's forward (``spp`` samples in one launch),
-    each sample's words form and its gradient launch, with the train
-    step's seeds and cotangent scale.  Returns (row, max |d| per kernel)."""
+def bw_example_checks(scene, size, spp, depth, tag="[7] (g)"):
+    """The blockwise kernels at a train step's shape (big_scene_training's
+    in phase 7, the bench table's in phase 9) against their plain
+    versions: the target's forward (``spp`` samples in one launch), each
+    sample's words form and its gradient launch, with the train step's
+    seeds and cotangent scale.  Returns (row, max |d| per kernel)."""
     import torch
     from rt_tpu_torch.ops import blockwise as BW
     from rt_tpu_torch.ops import blockwise_grad as BG
@@ -3203,7 +3220,7 @@ def bw_example_checks(scene, size, spp, depth):
     torch.cuda.synchronize()
     row = {"size": size, "spp": spp, "depth": depth, "counts": counts,
            "bw_grad_max_abs": g_err, "bw_grad_max_ratio_l1": g_ratio}
-    log(f"[7] (g) blockwise kernels at {w}x{h} {spp}spp d{depth} ({counts} rows): the target's "
+    log(f"{tag} blockwise kernels at {w}x{h} {spp}spp d{depth} ({counts} rows): the target's "
         f"launch and {spp} words-form launches bit for bit with their plain versions; bw_grad "
         f"max|d| {g_err:.3g}, max |d|/L1 {g_ratio:.3g} (tolerance {GRAD_TOL})")
     return row, {"blockwise_kernel": 0.0, "bw_grad_kernel": g_err}
@@ -3925,6 +3942,115 @@ def dist_phase(scenes, card, report):
     return launches, errs
 
 
+# ---- phase 9: the bench table on the card ----
+
+# the kernels line's name of each wrapper on the table's paths
+P9_KERNELS = {"render_tile": "render_kernel", "mse_step_tile": "mse_step_kernel",
+              "grad_tile": "grad_kernel", "render_blockwise_tile": "blockwise_kernel",
+              "bw_grad_tile": "bw_grad_kernel", "wf_bounce": "wf_bounce", "wf_rev": "wf_rev",
+              "render_record_tile": "render_record_kernel",
+              "render_record_blockwise_tile": "blockwise_record_kernel",
+              "fma_peak": "fma_peak_kernel"}
+# a rate the table prints, in Mrays/s or Gray-bounces/s
+P9_RATE = r"([-+0-9.eE]+|nan|inf) (?:Mrays/s|Gray-bounces/s)"
+
+
+def bench_phase(scenes, card, report):
+    """Phase 9: (a) ``rt_tpu_torch.bench_table.main(["--fast", ...])`` in this
+    process, every kernel counter set to 0 just before it and read just
+    after; (b) the launch shapes only the table reaches, against their
+    plain versions.  Returns the launches per kernel in (a) and (b)'s max
+    |kernel - plain| per kernel."""
+    import re
+
+    import torch
+    from rt_tpu_torch import bench_table
+    from rt_tpu_torch.ops import grad as G
+    from rt_tpu_torch.ops import render as R
+
+    wrappers = kernel_wrappers()
+    out = {}
+
+    # ---- (a) the --fast table, in process ----
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "BENCH_TABLE_torch.md"
+        torch.cuda.synchronize()
+        for fn in wrappers:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = bench_table.main(["--fast", "--out", str(path)])
+        torch.cuda.synchronize()
+        table_s = time.perf_counter() - t0
+        launches = {P9_KERNELS.get(fn.__name__, fn.__name__): fn.launches for fn in wrappers}
+        head = path.read_text().splitlines()[0]
+    rows = res["rows"]
+    rates = [(label, v) for label, text in rows for v in re.findall(P9_RATE, text)]
+    bad = [(label, v) for label, v in rates
+           if not (math.isfinite(float(v)) and float(v) > 0)]
+    log(f"[9] (a) bench_table --fast: {len(rows)} rows in {table_s:.1f} s, grad_ok="
+        f"{res['grad_ok']}, {len(rates)} rates; kernel launches "
+        f"{ {k: v for k, v in launches.items() if v} } | {card}")
+    check(len(rows) == 15, f"bench_table --fast printed {len(rows)} rows, not 15")
+    check(all(re.search(P9_RATE, text) for _, text in rows), "a bench_table row has no rate")
+    check(not bad, f"bench_table rates not finite and > 0: {bad}")
+    check(res["grad_ok"] is True and any("grad_ok=True" in text for _, text in rows),
+          "bench_table: grad_ok is not True")
+    check(head == f"# BENCH_TABLE — measured on {card}", f"bench_table header {head!r}")
+    for name in ("render_kernel", "mse_step_kernel", "grad_kernel", "blockwise_kernel",
+                 "bw_grad_kernel", "wf_bounce"):
+        check(launches[name] >= 1, f"bench_table --fast launched no {name}")
+    out["table"] = {"seconds": table_s, "rows": rows, "grad_ok": res["grad_ok"],
+                    "launches": launches}
+
+    # ---- (b) the table's new launch shapes against the plain versions ----
+    dev = torch.device("cuda")
+    errs = {}
+    # row 1 at 16 frames a launch (config 1's batched dispatch: basic 200x150, 1 spp, d4)
+    size = (200, 150)
+    sp, pl, bx, cam = card_tables(scenes["basic"], "mg", size)
+    seeds = R._upload(R._chunk_seeds(5, 1, 16), dev)[0]
+    kw = dict(size=size, spp=1, max_bounces=4, center_sample=True)
+    got = R.render_tile(sp, pl, bx, cam, seeds, **kw)
+    want = R.render_tile_plain(sp, pl, bx, cam, seeds, **kw)
+    torch.cuda.synchronize()
+    same = [torch.equal(got[f], want[f]) for f in range(16)]
+    errs["render_kernel"] = (got - want).abs().max().item()
+    log(f"[9] (b) render_kernel basic 200x150 1spp d4, 16 frames a launch: {sum(same)} of 16 "
+        "frames bit for bit with the plain version")
+    check(got.shape == (16, 150, 200, 3) and all(same),
+          "render_kernel at 16 frames a launch differs from its plain version")
+    # row 4 on 200 spheres at 400x300, 2 spp, d6 (the window's per-sample step)
+    size, spp = (400, 300), 2
+    sp, pl, cam, pix = grad_inputs(scenes["proc200"], "mg", size)
+    seeds = torch.from_numpy(G._sample_seeds(11, spp)).to(dev)
+    cot = pix * 1e-6  # the scale of 2 (img - target) / (3 W H spp)
+    g_err, g_ratio = 0.0, 0.0
+    for s in range(spp):
+        kw = dict(size=size, max_bounces=6, center_sample=(s == 0))
+        g = G.grad_tile(sp, pl, cam, seeds[s:s + 1], cot, **kw)
+        want, l1 = G.grad_tile_plain(sp, pl, cam, seeds[s:s + 1], cot, with_l1=True, **kw)
+        torch.cuda.synchronize()
+        for a, b, l in zip(g, want, l1):
+            if not a.numel():
+                continue
+            check(torch.isfinite(a).all().item(), "grad_kernel: output not finite")
+            check(((a - b).abs() <= GRAD_TOL * l).all().item(),
+                  f"grad_kernel proc200 400x300 d6 sample {s}: differs from its plain version "
+                  f"beyond {GRAD_TOL} x L1")
+            g_err = max(g_err, (a - b).abs().max().item())
+            g_ratio = max(g_ratio, ((a - b).abs() / l.clamp_min(1e-30)).max().item())
+    errs["grad_kernel"] = g_err
+    log(f"[9] (b) grad_kernel proc200 400x300 2spp d6: max|d| {g_err:.3g}, max |d|/L1 "
+        f"{g_ratio:.3g} (tolerance {GRAD_TOL})")
+    # rows 5 (words form) and 7 at the window's train step (200 spheres, 400x300, 4 spp, d8)
+    out["bw_window"], bw_errs = bw_example_checks(scenes["proc200"], (400, 300), 4, 8,
+                                                  tag="[9] (b)")
+    errs.update(bw_errs)
+    out["errs"] = errs
+    report["bench"] = out
+    return launches, errs
+
+
 def profiler_probe():
     """Whether earlier profiler sessions leave later ones without device
     events: one process traces a frame, then runs ``device_times``
@@ -4037,6 +4163,7 @@ def main() -> int:
         "grazing": rt_tpu_torch.loads(grazing_scene_toml()),
         "sky": rt_tpu_torch.loads(SKY_TOML),
         "proc2100": rt_tpu_torch.scene.make_procedural_scene(2100),
+        "proc200": rt_tpu_torch.scene.make_procedural_scene(200),
     }
 
     def tile_args(scene, personality, size, include_boxes=False, seed=11):
@@ -4221,6 +4348,12 @@ def main() -> int:
     report["dist_phase_s"] = time.perf_counter() - t8
     log(f"[8] the dist phase: {report['dist_phase_s']:.1f} s")
 
+    # ---- 9. the bench table on the card ----
+    t9 = time.perf_counter()
+    p9, p9_errs = bench_phase(scenes, card, report)
+    report["bench_phase_s"] = time.perf_counter() - t9
+    log(f"[9] the bench table phase: {report['bench_phase_s']:.1f} s")
+
     check("jax" not in sys.modules and "rt_tpu" not in sys.modules, "JAX was imported")
     log("[report] " + json.dumps(report))
 
@@ -4229,9 +4362,10 @@ def main() -> int:
         "route": "cuda",
         "source": "rt_tpu_torch/csrc/render_kernel.cu",
         "replaces": "rt_tpu/ops/pallas_render.py:171",
-        "launches": launches + grad_launches["render_kernel"] + p7["render_kernel"],
-        "launches_phase7": p7["render_kernel"],
-        "max_abs_err": max_err,
+        "launches": launches + grad_launches["render_kernel"] + p7["render_kernel"]
+        + p9["render_kernel"],
+        "launches_phase7": p7["render_kernel"], "launches_phase9": p9["render_kernel"],
+        "max_abs_err": max(max_err, p9_errs["render_kernel"]),
         "ms": b["config4_launch_ms"],
         "plain_ms": b["plain_ms"],
         "bound_ms": b["config4_launch_bound_ms"],
@@ -4246,8 +4380,9 @@ def main() -> int:
         row = g_rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": "rt_tpu_torch/csrc/grad_kernel.cu",
-            "replaces": replaces, "launches": grad_launches[name] + p7.get(name, 0),
-            "launches_phase7": p7.get(name, 0), "max_abs_err": grad_errs[name], "ms": row["ms"],
+            "replaces": replaces, "launches": grad_launches[name] + p7.get(name, 0) + p9[name],
+            "launches_phase7": p7.get(name, 0), "launches_phase9": p9[name],
+            "max_abs_err": max(grad_errs[name], p9_errs.get(name, 0.0)), "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
             "device_ms": row["device_ms"],
@@ -4257,9 +4392,9 @@ def main() -> int:
         row = bw_rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"rt_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": bw_launches[name] + p7[name] + p8[name],
-            "launches_phase7": p7[name], "launches_phase8": p8[name],
-            "max_abs_err": max(bw_errs[name], p7_errs[name], p8_errs[name]),
+            "replaces": replaces, "launches": bw_launches[name] + p7[name] + p8[name] + p9[name],
+            "launches_phase7": p7[name], "launches_phase8": p8[name], "launches_phase9": p9[name],
+            "max_abs_err": max(bw_errs[name], p7_errs[name], p8_errs[name], p9_errs[name]),
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
@@ -4271,8 +4406,10 @@ def main() -> int:
         row = wf_rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"rt_tpu_torch/csrc/{source}.cu",
-            "replaces": replaces, "launches": wf_launches[name] + p7.get(name, 0) + p8[name],
+            "replaces": replaces,
+            "launches": wf_launches[name] + p7.get(name, 0) + p8[name] + p9[name],
             "launches_phase7": p7.get(name, 0), "launches_phase8": p8[name],
+            "launches_phase9": p9[name],
             "max_abs_err": max(wf_errs[name], p7_errs.get(name, 0.0), p8_errs[name]),
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -4286,8 +4423,9 @@ def main() -> int:
         row = rec_rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"rt_tpu_torch/csrc/{source}.cu",
-            "replaces": replaces, "launches": rec_launches[name],
-            "max_abs_err": rec_errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "replaces": replaces, "launches": rec_launches[name] + p9[name],
+            "launches_phase9": p9[name], "max_abs_err": rec_errs[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
         })
     log(json.dumps({"kernels": kernels}))

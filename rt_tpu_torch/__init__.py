@@ -24,7 +24,9 @@ the integrator, its gradients and the training loop):
   ``python -m rt_tpu_torch.roofline``, so not imported here), profiling,
   renderer, cli, and dist (the ('rays', 'prims') mesh on torch.distributed,
   the sharded frame and the sharded kernel routes; ``python -m
-  rt_tpu_torch.mp_check`` checks it across processes).
+  rt_tpu_torch.mp_check`` checks it across processes), and bench_table
+  (the bench table on the card; run as ``python -m
+  rt_tpu_torch.bench_table``, so not imported here).
 
 Importing this package needs neither CUDA nor JAX.
 """
