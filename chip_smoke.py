@@ -263,6 +263,21 @@ Phases (an exception in any phase exits non-zero before the result line):
    bit for bit, each gradient launch within 1e-5 x L1.  The phase's
    seconds are printed.
 
+10. The headline (``rt_tpu_torch.bench``, the port of bench.py).  (a)
+   ``python -m rt_tpu_torch.bench`` in a fresh process: its last line is
+   bench.py's JSON object with bench.py's keys in its order, ``grad_ok=True``
+   in the metric, ``value``, ``fwd_ref``, ``vs_baseline`` and the ratio
+   finite and > 0, the card line on an earlier line.  (b) ``bench.main([])``
+   in this process, every kernel counter set to 0 just before it and read
+   just after (the kernels line adds them to ``launches`` and gives them as
+   ``launches_phase10``): the same checks, and exactly the launches of its
+   windows, the mono kernel's and the render kernel's, no other.  (c)
+   ``python -m rt_tpu_torch.bench --scaling --spp 1`` in a fresh process
+   (bench.py's ladder at 1 of its 4 spp, for the script's time): one row
+   with bench.py's keys and ``vs_baseline`` 1.0.  (d) The gradient check's
+   launch (basic 200x150, 2 spp, depth 4, seed 17) against the plain
+   version, within 1e-5 x L1.  The phase's seconds are printed.
+
 ``python3 chip_smoke.py --profiler-probe`` runs only a probe of the
 profiler instead: in one process, device_times sessions of 10,000, 100,000
 and 300,000 small kernels, and a basic 800x600 1-spp frame traced before
@@ -4051,6 +4066,127 @@ def bench_phase(scenes, card, report):
     return launches, errs
 
 
+# ---- phase 10: the headline, python -m rt_tpu_torch.bench ----
+
+# bench.py's JSON keys (bench.py:299-313 and :109-112), in its order
+P10_KEYS = ["metric", "value", "unit", "vs_baseline", "spread", "fwd_ref", "ratio_step_over_fwd"]
+P10_SCALING_KEYS = ["metric", "value", "unit", "vs_baseline"]
+
+
+def bench_process(args):
+    """``python -m rt_tpu_torch.bench ARGS`` in a fresh process from the
+    repository root: (its stdout lines, seconds); a non-zero exit raises."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "rt_tpu_torch.bench", *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"python -m rt_tpu_torch.bench {' '.join(args)}: rc "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    return proc.stdout.splitlines(), seconds
+
+
+def check_headline(row, card_before, tag):
+    """The checks of a headline line: bench.py's keys in its order, its
+    shape text with grad_ok=True, positive finite rates, the card line on
+    an earlier line."""
+    check(list(row) == P10_KEYS, f"{tag}: keys {list(row)}, not bench.py's {P10_KEYS}")
+    check(row["metric"] == "fwd+bwd Mrays/s/chip (basic.toml 800x600 @ 4spp, depth 8, "
+          "grad_ok=True)", f"{tag}: metric {row['metric']!r}")
+    for k in ("value", "fwd_ref", "vs_baseline", "ratio_step_over_fwd"):
+        check(math.isfinite(row[k]) and row[k] > 0, f"{tag}: {k} {row[k]} not finite and > 0")
+    lo, hi = row["spread"]
+    check(0 < lo <= row["value"] + 0.05 and row["value"] <= hi + 0.05,
+          f"{tag}: spread {row['spread']} does not hold the value {row['value']}")
+    check(row["unit"] == "Mrays/s", f"{tag}: unit {row['unit']!r}")
+    check(card_before, f"{tag}: no card line before the JSON line")
+
+
+def headline_phase(card, report):
+    """Phase 10: (a) ``python -m rt_tpu_torch.bench`` in a fresh process;
+    (b) ``bench.main([])`` in this process, every kernel counter set to 0
+    just before it and read just after; (c) ``--scaling --spp 1`` in a
+    fresh process; (d) the gradient check's launch shape against the plain
+    version.  Returns the launches per kernel in (b) and (d)'s max |kernel
+    - plain|."""
+    import contextlib
+    import io
+
+    import torch
+    from rt_tpu_torch import bench
+    from rt_tpu_torch.ops import grad as G
+
+    out = {}
+    # ---- (a) the headline in a fresh process ----
+    lines, a_s = bench_process([])
+    row = json.loads(lines[-1])
+    check_headline(row, card in lines[:-1], "(a)")
+    log(f"[10] (a) python -m rt_tpu_torch.bench: {a_s:.1f} s; last line {lines[-1]} | {card}")
+    out["a"] = {"seconds": a_s, "row": row, "lines": lines}
+
+    # ---- (b) main() in this process, the counters zeroed ----
+    wrappers = kernel_wrappers()
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    for fn in wrappers:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        row_b = bench.main([])
+    torch.cuda.synchronize()
+    b_s = time.perf_counter() - t0
+    launches = {P9_KERNELS.get(fn.__name__, fn.__name__): fn.launches for fn in wrappers}
+    lines_b = printed.getvalue().splitlines()
+    check(lines_b[-1] == json.dumps(row_b), "(b): the returned row is not the last line")
+    check_headline(row_b, card in lines_b[:-1], "(b)")
+    # one warm-up step; sustained and the interleaved round-robin each run
+    # fn(0), a warm-up window and 9 windows of 32 calls; 3 gradient-check steps
+    calls = 1 + 32 * (1 + bench.WINDOWS)
+    want = {name: 0 for name in launches}
+    want.update(mse_step_kernel=1 + 2 * calls + 3, render_kernel=calls)
+    log(f"[10] (b) bench.main([]) in process: {b_s:.1f} s, kernel launches "
+        f"{ {k: v for k, v in launches.items() if v} }; line {lines_b[-1]} | {card}")
+    check(launches == want, f"(b): launches {launches}, not {want}")
+    out["b"] = {"seconds": b_s, "row": row_b, "launches": launches}
+
+    # ---- (c) the --scaling ladder in a fresh process (1 spp: 4 of its spp) ----
+    lines, c_s = bench_process(["--scaling", "--spp", "1"])
+    rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    log(f"[10] (c) python -m rt_tpu_torch.bench --scaling --spp 1: {c_s:.1f} s; rows {rows} | "
+        f"{card}")
+    check(card in lines[:lines.index(json.dumps(rows[0]))], "(c): no card line before the rows")
+    check(len(rows) == 1 and list(rows[0]) == P10_SCALING_KEYS,
+          f"(c): {len(rows)} rows, keys {list(rows[0])}: not one row of {P10_SCALING_KEYS}")
+    check(rows[0]["metric"] == "scaling rays/s (1 devices)" and rows[0]["vs_baseline"] == 1.0
+          and math.isfinite(rows[0]["value"]) and rows[0]["value"] > 0,
+          f"(c): row {rows[0]}")
+    out["c"] = {"seconds": c_s, "rows": rows}
+
+    # ---- (d) the gradient check's launch (200x150, 2 spp, depth 4, seed 17) ----
+    size, spp, depth = bench.FD_SIZE, bench.FD_SPP, bench.FD_DEPTH
+    sp, pl, cam, _ = grad_inputs(bench.load(str(bench.SCENE)), "mg", size)
+    tgt = torch.zeros((size[1], size[0], 3), device="cuda")
+    seeds = torch.from_numpy(G._sample_seeds(bench.FD_SEED, spp)).cuda()
+    kw = dict(size=size, max_bounces=depth)
+    got = G.mse_step_tile(sp, pl, cam, seeds, tgt, **kw)
+    want_d, l1 = G.mse_step_tile_plain(sp, pl, cam, seeds, tgt, with_l1=True, **kw)
+    torch.cuda.synchronize()
+    pairs = [(g, w, l) for g, w, l in zip(got, want_d, l1) if g.numel()]
+    err = max((g - w).abs().max().item() for g, w, l in pairs)
+    ratio = max(((g - w).abs() / l.clamp_min(1e-30)).max().item() for g, w, l in pairs)
+    log(f"[10] (d) mse_step_kernel basic 200x150 2spp d4 seed 17: max|d| {err:.3g}, max |d|/L1 "
+        f"{ratio:.3g} (tolerance {GRAD_TOL})")
+    check(all(torch.isfinite(g).all().item() for g, _, _ in pairs)
+          and all(((g - w).abs() <= GRAD_TOL * l).all().item() for g, w, l in pairs),
+          f"mse_step_kernel at the gradient check's shape differs from its plain version "
+          f"beyond {GRAD_TOL} x L1")
+    out["d"] = {"max_abs": err, "max_ratio_l1": ratio}
+    report["headline"] = out
+    return launches, {"mse_step_kernel": err}
+
+
 def profiler_probe():
     """Whether earlier profiler sessions leave later ones without device
     events: one process traces a frame, then runs ``device_times``
@@ -4354,6 +4490,12 @@ def main() -> int:
     report["bench_phase_s"] = time.perf_counter() - t9
     log(f"[9] the bench table phase: {report['bench_phase_s']:.1f} s")
 
+    # ---- 10. the headline: python -m rt_tpu_torch.bench ----
+    t10 = time.perf_counter()
+    p10, p10_errs = headline_phase(card, report)
+    report["headline_phase_s"] = time.perf_counter() - t10
+    log(f"[10] the headline phase: {report['headline_phase_s']:.1f} s")
+
     check("jax" not in sys.modules and "rt_tpu" not in sys.modules, "JAX was imported")
     log("[report] " + json.dumps(report))
 
@@ -4363,8 +4505,9 @@ def main() -> int:
         "source": "rt_tpu_torch/csrc/render_kernel.cu",
         "replaces": "rt_tpu/ops/pallas_render.py:171",
         "launches": launches + grad_launches["render_kernel"] + p7["render_kernel"]
-        + p9["render_kernel"],
+        + p9["render_kernel"] + p10["render_kernel"],
         "launches_phase7": p7["render_kernel"], "launches_phase9": p9["render_kernel"],
+        "launches_phase10": p10["render_kernel"],
         "max_abs_err": max(max_err, p9_errs["render_kernel"]),
         "ms": b["config4_launch_ms"],
         "plain_ms": b["plain_ms"],
@@ -4380,9 +4523,13 @@ def main() -> int:
         row = g_rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": "rt_tpu_torch/csrc/grad_kernel.cu",
-            "replaces": replaces, "launches": grad_launches[name] + p7.get(name, 0) + p9[name],
+            "replaces": replaces,
+            "launches": grad_launches[name] + p7.get(name, 0) + p9[name] + p10[name],
             "launches_phase7": p7.get(name, 0), "launches_phase9": p9[name],
-            "max_abs_err": max(grad_errs[name], p9_errs.get(name, 0.0)), "ms": row["ms"],
+            "launches_phase10": p10[name],
+            "max_abs_err": max(grad_errs[name], p9_errs.get(name, 0.0),
+                               p10_errs.get(name, 0.0)),
+            "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
             "device_ms": row["device_ms"],

@@ -206,10 +206,10 @@ def timeit(fn, reps: int = 3):
     return min(ts), out
 
 
-def native_mrays(tag: str, scene, size, spp: int, personality: str,
+def native_mrays(tag: str, scene, size, spp: int, personality: str, max_bounces: int = 8,
                  cache: Path = NATIVE_CACHE) -> float:
-    """The native CPU tracer's Mrays/s on this host at ``size`` and ``spp``
-    (depth 8, after a 1-spp warm-up), cached under ``cfg:<tag>`` in
+    """The native CPU tracer's Mrays/s on this host at ``size``, ``spp`` and
+    ``max_bounces`` (after a 1-spp warm-up), cached under ``cfg:<tag>`` in
     ``cache`` with the host's CPU model: a file written on another host is
     not read.  Raises where the native library cannot be built."""
     host = _native._cpu_model()
@@ -222,8 +222,9 @@ def native_mrays(tag: str, scene, size, spp: int, personality: str,
     key = f"cfg:{tag}"
     if key in entries:
         return entries[key]
-    _native.render_cpu(scene, size, spp=1, max_bounces=8, personality=personality)
-    _, secs = _native.render_cpu(scene, size, spp=spp, max_bounces=8, personality=personality)
+    _native.render_cpu(scene, size, spp=1, max_bounces=max_bounces, personality=personality)
+    _, secs = _native.render_cpu(scene, size, spp=spp, max_bounces=max_bounces,
+                                 personality=personality)
     entries[key] = size[0] * size[1] * spp / secs / 1e6
     Path(cache).parent.mkdir(parents=True, exist_ok=True)
     Path(cache).write_text(json.dumps(entries))

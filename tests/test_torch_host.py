@@ -214,7 +214,7 @@ def test_import_needs_no_jax():
             "rt_tpu_torch.examples.inverse_rendering, "
             "rt_tpu_torch.examples.big_scene_training, rt_tpu_torch.dist, "
             "rt_tpu_torch.mp_check, rt_tpu_torch.examples.sharded_render, "
-            "rt_tpu_torch.bench_table; "
+            "rt_tpu_torch.bench_table, rt_tpu_torch.bench; "
             "assert 'jax' not in sys.modules and 'rt_tpu' not in sys.modules; "
             "assert 'triton' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120,

@@ -98,6 +98,28 @@ def test_records_route_matches_fused_multi_step(name, personality):
     assert_grads_close(g_r, {k: v.numpy() for k, v in g_m.items()})
 
 
+def test_records_route_at_a_moved_camera():
+    """With ``camera.position`` moved away from the scene's camera, the
+    record pass traces from the params' camera: at one seed the route
+    gives the fused per-sample step's loss and gradients at that camera.
+    (JAX's ``pallas_loss_and_grad`` records from ``scene.camera`` whatever
+    the params say (rt_tpu/diff.py:315), so away from the scene's camera it
+    replays paths recorded from another pose; it is no reference here.)"""
+    scene = rt_tpu_torch.from_jax_scene(jax_scene("dielectric.toml"))
+    size = (16, 12)
+    target = np.random.default_rng(5).uniform(0.0, 0.5, (12, 16, 3)).astype(np.float32)
+    params = dict(tdiff.extract_params(scene))
+    params["camera.position"] = scene.camera.position + torch.tensor([0.05, -0.02, 0.03])
+    kw = dict(spp=2, max_bounces=4, personality="sm", device="cpu")
+    l_r, g_r = tdiff.records_loss_and_grad(params, scene, target, size, seed=9, **kw)
+    l_m, g_m = tg.mse_loss_and_grad(params, scene, target, size, seed=9, mode="multi", **kw)
+    l_0, _ = tdiff.records_loss_and_grad(tdiff.extract_params(scene), scene, target, size,
+                                         seed=9, **kw)
+    assert float(l_r) == pytest.approx(float(l_m), rel=1e-5)
+    assert float(l_r) != pytest.approx(float(l_0), rel=1e-3)  # the move changes the frame
+    assert_grads_close(g_r, {k: v.numpy() for k, v in g_m.items()})
+
+
 def test_records_route_box_center_fd():
     """A central finite difference through the port's own loss on a box's
     centre (tests/test_replay.py:157-176), the camera-only parameter set,
