@@ -71,8 +71,10 @@ the config-5 slice's 2-spp chunk, its bounce-0 launch and its bounces 1-7
 same chunk's reverse launches (``wf_rev``, into one set of float64
 gradient tables): its bounce-0 launch (the gen kernel, on the cotangents
 that the plain reverse of bounces 7-1 leaves) and its bounces 7-1; the
-unrolled record kernel at the headline shape (basic.toml 800x600, one
-sample: a launch of the headline records step); the blockwise record
+unrolled record kernel at the headline shape (basic.toml 800x600), one
+sample and the 4 samples of a headline records step in one launch (a
+tree built before that interface has neither case: ``--package`` times
+its records pass, four one-sample calls); the blockwise record
 kernel on the box scene (660 spheres, 24 boxes, 960x540, one sample) and
 on 2100 spheres and 24 boxes (its rows from device memory); all at depth
 8; and the FMA probe at k = 4096.
@@ -89,8 +91,14 @@ step (dielectric.toml, sm, 64 spp), ``make_render_step`` on basic.toml
 spp), the config-4 train step (``train.make_kernel_train_step``, Adam on
 the albedo), the 1000-sphere frame (``render_forward_blockwise``, 1920x1080
 8 spp), on the config-5 slice the wavefront and blockwise frames and
-the wavefront train step, and the box-scene records step
-(``records_loss_and_grad``, 660 spheres + 24 boxes, 960x540, 2 spp); and,
+the wavefront train step, the headline records step
+(``records_loss_and_grad``, basic.toml 800x600 4 spp) and its record
+pass alone (one launch of 4 samples, or four one-sample launches where
+the package's ``render_kernel`` library lacks ``rt_render_record_samples``;
+timed with the stream held, the card's time, and without, the wall
+time), and the box-scene records step (660 spheres + 24 boxes, 960x540,
+2 spp); the headline records step's loss and gradients at seed 0 against
+this package's (each entry within 1e-5 of its key's L1); and,
 per package, the device ms of each
 launch of a config-5 2-spp record chunk (events around each launch, the
 stream held while the host queues it), whose bounces 1-7 sum is printed.
@@ -102,7 +110,7 @@ config-5 reverse chunk: the same launches timed inside another script.
 
 The last line of standard output is one JSON object with every number;
 the exit code is 1 if a tree that is not an ablation disagrees with this
-tree.
+tree, or another package's headline records step with this one's.
 """
 
 from __future__ import annotations
@@ -131,10 +139,12 @@ KERNELS = {"render_kernel": ("rt_render_forward", "rt_render_record"),
 # the sources whose SASS --sass writes out (the scan's kernels)
 SASS_SOURCES = ("render_kernel", "blockwise_kernel")
 # entry points whose C signature changed in this tree, with the (library,
-# symbol) that marks a tree built with the new one: rows 5, 7, 8 and 9 take
-# a global pixel or ray offset (the sharded routes), which a tree with the
-# blockwise words form and the wavefront live count may still lack
-INTERFACE = {"rt_blockwise_forward": ("blockwise_kernel", "rt_blockwise_offsets"),
+# symbol) that marks a tree built with the new one: row 2 takes the samples
+# of a records step in one launch, and rows 5, 7, 8 and 9 take a global
+# pixel or ray offset (the sharded routes), which a tree with the blockwise
+# words form and the wavefront live count may still lack
+INTERFACE = {"rt_render_record": ("render_kernel", "rt_render_record_samples"),
+             "rt_blockwise_forward": ("blockwise_kernel", "rt_blockwise_offsets"),
              "rt_blockwise_forward_words": ("blockwise_kernel", "rt_blockwise_offsets"),
              "rt_bw_grad": ("bw_grad_kernel", "rt_bw_grad_offsets"),
              "rt_wf_bounce": ("wavefront_kernel", "rt_wf_offsets"),
@@ -169,7 +179,7 @@ _PER_ROW_SCAN = """#pragma unroll 4
   }
 """
 _REC_NO_WRITES = [
-    ("trace.cuh", r"  P\.jitter\[pix\] = jx;\n  P\.jitter\[n \+ pix\] = jy;\n", "", 1),
+    ("trace.cuh", r"  P\.jitter\[(pix|col)\] = jx;\n  P\.jitter\[n \+ (pix|col)\] = jy;\n", "", 1),
     ("trace.cuh", r"    P\.kind\[o\] = rec\.kind;\n.*?    P\.coin\[o\] = rec\.coin;\n",
      "    if ((rec.kind ^ rec.idx ^ rec.bits) == 0x7fffffff && rec.ux + rec.uy + rec.uz + rec.coin "
      f"== {_NEVER}) P.kind[o] = rec.kind;\n", 1),
@@ -265,6 +275,26 @@ ABLATIONS = {
     # the record kernels' seven record stores per bounce and their jitter
     # stores removed (the radiance still written), each value kept alive
     "rec_no_writes": _REC_NO_WRITES,
+    # the record kernels' radiance stores (three floats at a 12-byte stride
+    # a thread) removed, the values kept alive: what they cost
+    "rec_no_rad": [
+        ("trace.cuh", r"  out\[0\] = rad\[0\];\n  out\[1\] = rad\[1\];\n  out\[2\] = rad\[2\];\n",
+         f"  if (rad[0] + rad[1] + rad[2] == {_NEVER}) out[0] = rad[0];\n", 1),
+    ],
+    # the record kernels' stores as streaming stores (__stcs, evict first):
+    # each output is written once and read by a later kernel
+    "rec_streaming_stores": [
+        ("trace.cuh", r"  P\.jitter\[col\] = jx;\n  P\.jitter\[n \+ col\] = jy;\n",
+         "  __stcs(P.jitter + col, jx);\n  __stcs(P.jitter + n + col, jy);\n", 1),
+        ("trace.cuh", r"    P\.(kind|idx|bits|urx|ury|urz|coin)\[o\] = (rec\.\w+);",
+         r"    __stcs(P.\1 + o, \2);", 7),
+        ("trace.cuh", r"  out\[([012])\] = rad\[\1\];", r"  __stcs(out + \1, rad[\1]);", 3),
+    ],
+    # the unrolled record kernel held to 12 or 16 resident blocks of 128
+    # threads an SM (at most 40 or 32 registers; ptxas picks 50 unbound)
+    **{f"rec_launch_bounds_{b}": [
+        ("render_kernel.cu", r"__launch_bounds__\(kThreads\) render_record_kernel",
+         f"__launch_bounds__(kThreads, {b}) render_record_kernel", 1)] for b in (12, 16)},
     # the record form's table-row scan without its root work (sqrtf, the
     # roots and the select): t0 = t = -bq
     "rec_no_scan_root": [
@@ -558,10 +588,15 @@ def kernel_cases(trees, fns, windows, result, ablations, card, only=()):
          lambda: wf_bounce0(), (), {}, 4, None),
         ("wf_bounce proc5000 960x540 2spp d8 chunk: bounces 1-7", ("rt_wf_bounce",),
          lambda: wf_later(), (), {}, 4, None),
-        ("render_record_kernel basic 800x600 1 sample d8 (a headline records-step launch)",
+        ("render_record_kernel basic 800x600 1 sample d8 (a sample of a headline records step)",
          ("rt_render_record",), R.render_record_tile,
          (*render_args(basic), no_boxes, camera(basic, hd), seeds),
          dict(d8, size=hd, center_sample=False), 64, None),
+        ("render_record_kernel basic 800x600 4 samples d8 (the launch of a headline records "
+         "step)", ("rt_render_record",), R.render_record_tile,
+         (*render_args(basic), no_boxes, camera(basic, hd),
+          torch.from_numpy(G._sample_seeds(11, 4)).to(dev)),
+         dict(d8, size=hd, center_sample=True), 16, None),
         ("blockwise_record_kernel 660 spheres + 24 boxes 960x540 1 sample d8 (a box-scene "
          "records-step launch)", ("rt_blockwise_record",), BW.render_record_blockwise_tile,
          (*BW._device_tables(bigbox, "mg", True, dev), camera(bigbox, wf_size), seeds),
@@ -651,9 +686,10 @@ def kernel_cases(trees, fns, windows, result, ablations, card, only=()):
             + f" | {card}", flush=True)
 
 
-def package_cases(packages, windows, result, card):
+def package_cases(packages, windows, result, card, only=()):
     """The main paths of each package in interleaved windows (see the module
-    note)."""
+    note); ``only``: label filters (the config-5 chunk's launches are
+    "config-5 chunk")."""
     import importlib
     import statistics
 
@@ -664,7 +700,8 @@ def package_cases(packages, windows, result, card):
         return importlib.import_module(f"{pkg.__name__}.{name}")
 
     def cells(pkg):
-        """{cell: (step(i), calls per window)} for one package."""
+        """{cell: (step(i), calls per window[, the stream held])} for one
+        package."""
         R, G, BW, WF = (mod(pkg, f"ops.{m}") for m in ("render", "grad", "blockwise",
                                                          "wavefront"))
         train, diff = mod(pkg, "train"), mod(pkg, "diff")
@@ -698,6 +735,29 @@ def package_cases(packages, windows, result, card):
             st = train.make_kernel_train_step(opt, scene, target, size, spp=spp, max_bounces=8,
                                               device="cuda")
             out[label] = (lambda i, st=st, params=params: st(params, 100 + i), 2)
+        # the headline records step, and its record pass: one launch of
+        # the step's 4 samples, or one launch a sample (an older package)
+        hd_params = diff.extract_params(basic)
+        out["headline records step (basic 800x600 4spp d8)"] = (
+            lambda i: diff.records_loss_and_grad(hd_params, basic, t_hd, hd, seed=i, spp=4,
+                                                 max_bounces=8, device="cuda"), 2)
+        s_cols, p_cols = R._flatten_primitives(basic, "mg")
+        rec_args = [torch.from_numpy(c.T.copy()).cuda() for c in (s_cols, p_cols)]
+        rec_args += [torch.zeros((0, 12), device="cuda"),
+                     torch.from_numpy(R._pack_camera(basic.camera, hd)).cuda()]
+        rec_seeds = torch.from_numpy(G._sample_seeds(11, 4)).cuda()
+        rec_kw = dict(size=hd, max_bounces=8)
+        if hasattr(mod(pkg, "ops._build").load_library("render_kernel"),
+                   "rt_render_record_samples"):
+            record_pass = lambda i: R.render_record_tile(*rec_args, rec_seeds, center_sample=True,
+                                                         **rec_kw)
+        else:
+            record_pass = lambda i: [R.render_record_tile(*rec_args, rec_seeds[s:s + 1],
+                                                          center_sample=s == 0, **rec_kw)
+                                     for s in range(4)]
+        for how, held in (("card", True), ("wall", False)):
+            out[f"records pass of a headline step (basic 800x600 4 samples d8), {how}"] = (
+                record_pass, 16, held)
         # the records route on the box scene (the blockwise record kernel)
         sys.path.insert(0, str(ROOT / "tests"))
         from test_torch_common import box_scene_toml
@@ -749,9 +809,10 @@ def package_cases(packages, windows, result, card):
 
     names = list(packages)
     built = {p: cells(pkg) for p, pkg in packages.items()}
-    steps = {p: b[0] for p, b in built.items()}
+    picked = lambda label: not only or any(o in label for o in only)
+    steps = {p: {k: v for k, v in b[0].items() if picked(k)} for p, b in built.items()}
     for p in names:  # warm up
-        for fn, _ in steps[p].values():
+        for fn, *_ in steps[p].values():
             fn(0)
     torch.cuda.synchronize()
     rows = {}
@@ -759,10 +820,12 @@ def package_cases(packages, windows, result, card):
         ms = {p: [] for p in names}
         for w in range(windows):
             for p in (names if w % 2 == 0 else names[::-1]):
-                fn, iters = steps[p][label]
+                fn, iters, *held = steps[p][label]
                 torch.cuda.synchronize()
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
                     enable_timing=True)
+                if held and held[0]:
+                    hold()
                 start.record()
                 for i in range(iters):
                     fn(i)
@@ -776,6 +839,29 @@ def package_cases(packages, windows, result, card):
             f"{p} {r['ms']:.4f} ms ({r['over_this']:.4f} of this, windows "
             f"{min(r['windows_ms']):.4f}-{max(r['windows_ms']):.4f})" for p, r in rows[label].items())
             + f" | {card}", flush=True)
+    result["packages"] = {"cells": rows}
+    # the headline records step's loss and gradients at one seed, each
+    # package's against this one's: each entry within 1e-5 of its key's
+    # L1 (the sum of the key's |gradient|), and whether they are equal
+    label = "headline records step (basic 800x600 4spp d8)"
+    if picked(label) and len(names) > 1:
+        got = {p: steps[p][label][0](0) for p in names}
+        loss0, g0 = got["this"]
+        same = {}
+        for p in names[1:]:
+            loss, g = got[p]
+            gap = {k: ((g[k] - g0[k]).abs().max() / g0[k].abs().sum().clamp_min(1e-30)).item()
+                   for k in g0}
+            same[p] = {"loss": loss.item(), "loss_this": loss0.item(), "gap_over_l1": gap,
+                       "within_1e-5_l1": max(gap.values()) <= GRAD_TOL,
+                       "equal": bool(torch.equal(loss, loss0))
+                       and all(torch.equal(g[k], g0[k]) for k in g0)}
+            print(f"{label} at seed 0, {p} against this: loss {loss.item():.9g} / "
+                  f"{loss0.item():.9g}; max |d| over L1 {max(gap.values()):.3g}; equal "
+                  f"{same[p]['equal']} | {card}", flush=True)
+        result["packages"]["records_step_vs_this"] = same
+    if not picked("config-5 chunk"):
+        return
     per = {p: [] for p in names}
     for w in range(windows + 1):
         for p in (names if w % 2 == 0 else names[::-1]):
@@ -791,7 +877,7 @@ def package_cases(packages, windows, result, card):
         print(f"config-5 chunk (2spp) per launch, {p}: bounce 0 {med[0]:.4f} ms, bounces 1-7 "
               f"{sum(med[1:]):.4f} ms (" + ", ".join(f"{m:.4f}" for m in med[1:]) + f") | {card}",
               flush=True)
-    result["packages"] = {"cells": rows, "config5_chunk_launches": launches}
+    result["packages"]["config5_chunk_launches"] = launches
 
 
 def smoke_runs(specs, tmp: Path, result, card):
@@ -850,7 +936,8 @@ def main() -> int:
                     help="run CHECKOUT's chip_smoke.py whole (on an ablated build) and read its "
                          "wf_rev device times")
     ap.add_argument("--only", action="append", default=[], metavar="TEXT",
-                    help="only the kernel cases whose label holds TEXT (repeatable)")
+                    help="only the kernel cases and package cells whose label holds TEXT "
+                         "(repeatable)")
     ap.add_argument("--sass", type=Path, metavar="DIR",
                     help="write each tree's SASS of the scan's kernels to DIR/<tree>/<source>.sass")
     ap.add_argument("--windows", type=int, default=7)
@@ -934,7 +1021,7 @@ def main() -> int:
         for spec in args.package:
             name, _, path = spec.partition("=")
             packages[name] = load_package(name, Path(path).resolve())
-        package_cases(packages, args.windows, result, card)
+        package_cases(packages, args.windows, result, card, args.only)
     if args.smoke:
         with tempfile.TemporaryDirectory() as tmp:
             smoke_runs(args.smoke, Path(tmp), result, card)
@@ -943,8 +1030,10 @@ def main() -> int:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(line + "\n")
     print(line)
-    return 0 if all(r["agrees_with_this"] for c in result["cases"].values()
-                    for t, r in c.items() if t not in ablations) else 1
+    held = all(v["within_1e-5_l1"] for v in
+               result.get("packages", {}).get("records_step_vs_this", {}).values())
+    return 0 if held and all(r["agrees_with_this"] for c in result["cases"].values()
+                             for t, r in c.items() if t not in ablations) else 1
 
 
 if __name__ == "__main__":

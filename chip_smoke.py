@@ -71,6 +71,11 @@ Phases (an exception in any phase exits non-zero before the result line):
    24 boxes (past 640 primitives) at 320x240, 2100 spheres + 24 boxes (past
    the 2048 sphere rows its rejecting scan stages in shared memory) at
    160x120, and the tie-heavy (--boxes) and grazing scenes at 320x240.
+   The render kernel's record form also in the launch of a headline
+   records step, 4 samples of basic.toml 800x600 at depth 8 (sample 0 at
+   the centre) and of basic+box (--boxes, no sample at the centre), bit
+   for bit with its plain version and, slice by slice, with four
+   one-sample launches at the same seeds.
    The FMA probe at k = 1024 and 4096 within 1e-5 of its plain version.
 4. Main paths through the entry points, each with the launch counters
    reset just before and read just after: the CLI renders basic.toml to a
@@ -102,7 +107,7 @@ Phases (an exception in any phase exits non-zero before the result line):
    fall, each step must launch 8 forward and 8 reverse kernels, copy
    nothing to the card but the chunk seeds and build nothing.  The records
    route (diff.records_loss_and_grad; TF32 must be off): (a) at the
-   headline shape (basic.toml 800x600, 4 spp, depth 8; 4 record launches)
+   headline shape (basic.toml 800x600, 4 spp, depth 8; 1 record launch)
    against mse_loss_and_grad at the same seed (the mono kernel; the same
    paths and draws): the loss to rel 1e-5, each gradient to 2e-4 x max|g|
    with rtol 2e-3; (b) 5 steps of descent on camera.position alone for
@@ -142,8 +147,10 @@ Phases (an exception in any phase exits non-zero before the result line):
    the config-5 slice's frame and train step each beside
    the blockwise route's in 5 interleaved windows (and the frame with a
    sort before every bounce, which must be the same frame).  Each record
-   kernel per launch (the render kernel's at the headline shape, the
-   blockwise one on the 684-primitive box scene at 960x540), the (a) step
+   kernel per launch (the render kernel's at the headline shape, one
+   sample and the 4 samples of a records step, by wall time and by CUPTI
+   device time; the blockwise one on the 684-primitive box scene at
+   960x540), the (a) step
    beside the mono step in interleaved windows with its device time split
    between the record kernels and the replay's autograd, the (c) box-scene
    step (960x540, 2 spp) with the same split, and the FMA probe
@@ -2147,14 +2154,15 @@ def record_work(recs, tables, blockwise):
     return work
 
 
-def record_bound(work, depth, row_floats):
-    """(bound_ms, bound_by) of a record launch: bytes of the used table rows
-    (``row_floats`` floats per sphere, plane and box row), camera, seed and
-    every output written once (rad, 7 record arrays of (B, N), jitter), and
-    the FP32 operations of this launch's live work."""
+def record_bound(work, depth, row_floats, samples=1):
+    """(bound_ms, bound_by) of a record launch of ``samples`` samples:
+    bytes of the used table rows (``row_floats`` floats per sphere, plane
+    and box row), camera, seeds and every output written once (rad, 7
+    record arrays of (B, S * N), jitter), and the FP32 operations of this
+    launch's live work."""
     n = work["rays"]
     ns, npl, nb = work["counts"]
-    n_bytes = (4 * sum(c * f for c, f in zip((ns, npl, nb), row_floats)) + 4 * (16 + 1)
+    n_bytes = (4 * sum(c * f for c, f in zip((ns, npl, nb), row_floats)) + 4 * (16 + samples)
                + 4 * n * (3 + 7 * depth + 2))
     ops = (forward_ops(work, ns, npl) + work["live"] * (nb * OPS["scan_box"]
                                                         + (OPS["box_setup"] if nb else 0))
@@ -2168,12 +2176,15 @@ def records_parity(scenes, report):
     """Phase 3 for the record kernels and the FMA probe: each record kernel
     bit for bit with its plain version (every record array and the
     radiance) at depth 8 with both centre-sample settings, and its radiance
-    equal to the render kernel's 1-spp frame at the same seed; the probe at
-    the main path's k within 1e-5 of its plain version.  Returns max
-    |kernel - plain| per kernel."""
+    equal to the render kernel's 1-spp frame at the same seed; the render
+    kernel's record form also at the 4 samples of a headline records step
+    in one launch, against its plain version and the one-sample launches;
+    the probe at the main path's k within 1e-5 of its plain version.
+    Returns max |kernel - plain| per kernel."""
     import torch
     from rt_tpu_torch import roofline
     from rt_tpu_torch.ops import blockwise as BW
+    from rt_tpu_torch.ops import grad as G
     from rt_tpu_torch.ops import render as R
 
     errs = {"render_record_kernel": 0.0, "blockwise_record_kernel": 0.0, "fma_peak_kernel": 0.0}
@@ -2209,7 +2220,8 @@ def records_parity(scenes, report):
                 frame = BW.render_blockwise_tile(*args, seeds, spp=1, **kw)
             else:
                 r_args = card_tables(scene, pers, size, boxes)
-                frame = R.render_tile(*r_args[:3], args[-1], seeds, spp=1, **kw)[0]
+                frame = R.render_tile(*r_args[:3], args[-1], seeds, spp=1, **kw)
+            frame = frame.reshape(rad.shape)
             torch.cuda.synchronize()
             err = (rad - want_rad).abs().max().item()
             for k in want:
@@ -2229,6 +2241,42 @@ def records_parity(scenes, report):
                                            "frame")
             if boxes:
                 check(bool((recs["kind"] == 3).any()), f"{name} {label}: no box winner recorded")
+
+    # the launch of a records step: 4 samples in one launch, against the
+    # plain version and against one-sample launches at the same seeds
+    size, spp, depth = REC_SHAPE["size"], REC_SHAPE["spp"], REC_SHAPE["max_bounces"]
+    n = size[0] * size[1]
+    seeds4 = torch.from_numpy(G._sample_seeds(7, spp)).cuda()
+    for label, key, boxes, center in (("basic/mg", "basic", False, True),
+                                      ("basic+box/mg --boxes", "basic+box", True, False)):
+        args = record_tables(scenes[key], "mg", size, boxes, False)
+        kw = dict(size=size, max_bounces=depth)
+        rad, recs = R.render_record_tile(*args, seeds4, center_sample=center, **kw)
+        want_rad, want = R.render_record_tile_plain(*args, seeds4, center_sample=center, **kw)
+        ones = [R.render_record_tile(*args, seeds4[s:s + 1], center_sample=center and s == 0, **kw)
+                for s in range(spp)]
+        torch.cuda.synchronize()
+        err = (rad - want_rad).abs().max().item()
+        for k in want:
+            err = max(err, (recs[k].float() - want[k].float()).abs().max().item())
+        errs["render_record_kernel"] = max(errs["render_record_kernel"], err)
+        as_ones = (torch.equal(rad, torch.cat([r for r, _ in ones]))
+                   and all(torch.equal(recs[k], torch.cat([r[k] for _, r in ones], dim=1))
+                           for k in recs))
+        report["record_parity"].append({"kernel": "render_record_kernel", "case": label,
+                                        "size": size, "samples": spp, "center_sample": center,
+                                        "max_abs": err, "equals_one_sample_launches": as_ones})
+        log(f"[3] render_record_kernel {label} {size[0]}x{size[1]} {spp} samples in one launch "
+            f"d{depth} centre={center}: max|d| {err:.3g} over the radiance and the 7 record "
+            f"arrays; each sample's slice == its one-sample launch: {as_ones}")
+        check(tuple(rad.shape) == (spp, size[1], size[0], 3)
+              and all(tuple(v.shape) == ((2 if k == "jitter" else depth), spp * n)
+                      for k, v in recs.items()), f"render_record_kernel {label}: bad shapes")
+        check(torch.equal(rad, want_rad) and all(torch.equal(recs[k], want[k]) for k in want),
+              f"render_record_kernel {label}, {spp} samples: kernel differs from its plain "
+              "version")
+        check(as_ones, f"render_record_kernel {label}: the {spp}-sample launch differs from "
+                       "the one-sample launches")
 
     # the probe at the main path's (the roofline's) two chain lengths
     x = torch.full((256, 128), 1.0 + 1e-6, device="cuda")
@@ -2307,7 +2355,7 @@ def records_main_paths(scenes, report, box_rays=None):
     torch.cuda.reset_peak_memory_stats()
     reset()
     loss_r, g_r = diff.records_loss_and_grad(params, basic, target, size, seed=7, **kw)
-    read("(a) records_loss_and_grad basic 800x600 4spp d8", render_record_kernel=spp)
+    read("(a) records_loss_and_grad basic 800x600 4spp d8", render_record_kernel=1)
     peak_a = torch.cuda.max_memory_allocated()
     reset()
     loss_m, g_m = G.mse_loss_and_grad(params, basic, target, size, seed=7, **kw)
@@ -2359,7 +2407,7 @@ def records_main_paths(scenes, report, box_rays=None):
         else:
             break
     read(f"(b) descent on camera.position, dielectric/sm 800x600 4spp d8 ({evals} evaluations)",
-         render_record_kernel=evals * spp)
+         render_record_kernel=evals)
     log(f"[4] (b) camera-only descent: losses {losses}; distance to the target camera {dists}")
     check(losses[-1] < losses[0], "the camera-only descent did not lower the loss")
     out["b"] = {"losses": losses, "distances": dists, "evaluations": evals}
@@ -2593,6 +2641,41 @@ def records_timing(scenes, shape_a, card, report):
         log(f"[5] {name} {key} {size[0]}x{size[1]} 1 sample d8: kernel {rows[name]['ms']:.4f} ms, "
             f"plain {rows[name]['plain_ms']:.1f} ms, bound {b_ms:.4f} ms ({b_by}); live bounces "
             f"{work['live']} of {work['rays'] * 8} | {card}")
+        if not blockwise:
+            rows[name]["device_ms"] = kernel_device_ms(lambda i: kernel(*args, seeds, **kw),
+                                                       "render_record_kernel")
+
+    # row 2 at its main-path shape: the one launch of a headline records
+    # step, its 4 samples at the step's seeds (sample 0 at the centre); the
+    # kernels line reads this launch
+    size, spp = REC_SHAPE["size"], REC_SHAPE["spp"]
+    args = record_tables(scenes["basic"], "mg", size, False, False)
+    sd = G._sample_seeds(7, spp)
+    seeds4 = torch.from_numpy(sd).cuda()
+    kw = dict(size=size, max_bounces=8, center_sample=True)
+    launch4 = lambda i: R.render_record_tile(*args, seeds4, **kw)
+    k_s = profiling.sustained(launch4, iters=16)
+    p_s = profiling.sustained(lambda i: R.render_record_tile_plain(*args, seeds4, **kw), iters=1,
+                              windows=1, warmup_windows=0)
+    work = record_work(launch4(0)[1], args[:-1], False)
+    work["disc_pairs"] = sum(launch_disc_pairs(bw_tables(scenes["basic"], "mg"), args[-1],
+                                               int(sd[s]), size, 8, s == 0) for s in range(spp))
+    b_ms, b_by = record_bound(work, 8, (10, 10, 12), samples=spp)
+    one = rows["render_record_kernel"]
+    rows["render_record_kernel"] = {
+        "ms": k_s["median"] * 1e3, "spread_ms": [k_s["min"] * 1e3, k_s["max"] * 1e3],
+        "device_ms": kernel_device_ms(launch4, "render_record_kernel"),
+        "plain_ms": p_s["median"] * 1e3, "bound_ms": b_ms, "bound_by": b_by,
+        "live_work": {k: v for k, v in work.items() if k != "counts"},
+        "case": f"basic {size[0]}x{size[1]} {spp} samples d8 (one launch of a headline "
+                "records step)",
+        "one_sample": one}
+    r = rows["render_record_kernel"]
+    log(f"[5] render_record_kernel basic {size[0]}x{size[1]} {spp} samples d8 (the launch of a "
+        f"records step): {r['ms']:.4f} ms a wrapper call, {r['device_ms']:.4f} ms in the kernel "
+        f"(CUPTI), bound {b_ms:.4f} ms ({b_by}; {b_ms / r['ms']:.0%} of it); one sample "
+        f"{one['ms']:.4f} ms, {one['device_ms']:.4f} in the kernel; plain {r['plain_ms']:.1f} ms; "
+        f"live bounces {work['live']} of {work['rays'] * 8} | {card}")
 
     # the (a) step against the mono step, interleaved windows
     basic = scenes["basic"]
@@ -4574,6 +4657,9 @@ def main() -> int:
             "launches_phase9": p9[name], "max_abs_err": rec_errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+            **{k: row[k] for k in ("device_ms", "case") if k in row},
+            **({"one_sample": {k: row["one_sample"][k] for k in ("ms", "device_ms", "bound_ms")}}
+               if "one_sample" in row else {}),
         })
     log(json.dumps({"kernels": kernels}))
     log(card)

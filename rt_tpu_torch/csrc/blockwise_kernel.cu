@@ -155,7 +155,7 @@ __global__ void __launch_bounds__(kThreads) blockwise_record_kernel(
   if (gid >= n) return;
   const Tables T{spheres, n_spheres, planes, n_planes, boxes, n_boxes};
   record_pixel<kCols, kCols, kRecBlockwise, kGeo>(
-      T, cam, static_cast<uint32_t>(gid), n, static_cast<float>(gid % width),
+      T, cam, static_cast<uint32_t>(gid), gid, n, static_cast<float>(gid % width),
       static_cast<float>(gid / width), static_cast<uint32_t>(seeds[0]), inv_w, inv_h,
       max_bounces, center_sample, rng_sphere, true, P, geo);
 }

@@ -44,10 +44,26 @@
 // (pallas_render.py:686, _compiled_record): one sample per pixel, and per
 // bounce the replay record that rt_tpu_torch.replay consumes (trace.cuh's
 // record_pixel, the record form of bounce_once with the unrolled kernel's
-// conventions).  Same tables in shared memory, same one thread per pixel.
+// conventions).  Same tables in shared memory.  Where the JAX records
+// pipeline calls its kernel once per sample, one launch here traces every
+// sample of a records step: S * N threads, sample-major, thread t tracing
+// pixel t % N of sample t / N at seeds[t / N] (sample 0 alone at the pixel
+// centre when center_sample is set, as the pipeline's first call), and
+// writing the layout the replay reads: each record array (B, S * N), the
+// jitter (2, S * N), the radiance (S, H, W, 3).  Each sample's slice is bit
+// for bit the one-sample launch at its seed.
 // What bounds it on this card: the record writes, 7 x 4 bytes per pixel per
-// bounce (107 MB at 800x600, depth 8), coalesced across a warp (one array
-// row per bounce); the trace itself is the render kernel's 1-spp frame.
+// bounce (107 MB a sample at 800x600, depth 8), coalesced across a warp
+// (one array row per bounce); the trace itself is the render kernel's 1-spp
+// frame.  A one-sample launch at the headline shape is 3,750 blocks of 128
+// threads, too few warps to hide one warp's stores behind other warps'
+// traces; S samples give the scheduler S times the warps, and one launch a
+// step replaces S launches and S wrappers' host work.  The stores are plain
+// stores: streaming ones (__stcs, evict first), though each output is
+// written once and read only after the whole step's records have passed
+// through the 50 MB L2, bought 0.3% at the headline launch (chip_ab.py's
+// rec_streaming_stores), and the radiance's three floats at a 12-byte
+// stride cost their share of the bytes (rec_no_rad), so they coalesce.
 // Unlike the render kernel it cannot `break` out of a dead path: every
 // bounce writes its draws, as the JAX kernel does.  The JAX kernel bakes
 // its tables and knows at compile time whether they hold a dielectric
@@ -105,8 +121,9 @@ __global__ void __launch_bounds__(kThreads) render_record_kernel(
     const float* __restrict__ spheres, int n_spheres,
     const float* __restrict__ planes, int n_planes,
     const float* __restrict__ boxes, int n_boxes,
-    const float* __restrict__ cam, const int32_t* __restrict__ seeds, RecordPtrs P, int width,
-    int height, float inv_w, float inv_h, int max_bounces, int center_sample, int rng_sphere) {
+    const float* __restrict__ cam, const int32_t* __restrict__ seeds, int samples, RecordPtrs P,
+    int width, int height, float inv_w, float inv_h, int max_bounces, int center_sample,
+    int rng_sphere) {
   extern __shared__ float smem[];
   float* s_pl = smem;
   float* s_sp = s_pl + n_planes * kPrimCols;
@@ -125,12 +142,15 @@ __global__ void __launch_bounds__(kThreads) render_record_kernel(
 
   const int n = width * height;
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= n) return;
+  if (gid >= n * samples) return;
+  const int s = gid / n;
+  const int pix = gid - s * n;
   const Tables T{s_sp, n_spheres, s_pl, n_planes, s_bx, n_boxes};
   record_pixel<kPrimCols, kBoxCols, kRecUnrolled>(
-      T, cam, static_cast<uint32_t>(gid), n, static_cast<float>(gid % width),
-      static_cast<float>(gid / width), static_cast<uint32_t>(seeds[0]), inv_w, inv_h,
-      max_bounces, center_sample, rng_sphere, has_die, P);
+      T, cam, static_cast<uint32_t>(pix), gid, static_cast<int64_t>(n) * samples,
+      static_cast<float>(pix % width), static_cast<float>(pix / width),
+      static_cast<uint32_t>(seeds[s]), inv_w, inv_h, max_bounces, center_sample && s == 0,
+      rng_sphere, has_die, P);
 }
 
 }  // namespace
@@ -155,24 +175,34 @@ extern "C" int rt_render_forward(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches one record call on `stream`; returns cudaGetLastError() as an
-// int.  Tables as rt_render_forward; seeds: (1,) int32; rad: (height,
-// width, 3) float32; kind, idx, bits: (max_bounces, N) int32; urx, ury,
-// urz, coin: (max_bounces, N) float32; jitter: (2, N) float32 (N = width *
-// height).
+// Launches one record call of `samples` samples on `stream`; returns
+// cudaGetLastError() as an int.  Tables as rt_render_forward; seeds:
+// (samples,) int32.  With M = samples * width * height, the outputs lie in
+// two buffers, each array after the one before it: ints holds kind, idx and
+// bits, each (max_bounces, M) int32; floats holds urx, ury, urz and coin,
+// each (max_bounces, M), the jitter (2, M) and the radiance (samples,
+// height, width, 3), float32.  Column s * width * height + p of a record
+// array is pixel p of sample s.
 extern "C" int rt_render_record(
     const float* spheres, int n_spheres, const float* planes, int n_planes,
-    const float* boxes, int n_boxes, const float* cam, const int32_t* seeds, float* rad,
-    int32_t* kind, int32_t* idx, int32_t* bits, float* urx, float* ury, float* urz,
-    float* coin, float* jitter, int width, int height, float inv_w, float inv_h,
+    const float* boxes, int n_boxes, const float* cam, const int32_t* seeds, int samples,
+    int32_t* ints, float* floats, int width, int height, float inv_w, float inv_h,
     int max_bounces, int center_sample, int rng_sphere, void* stream) {
-  const int blocks = (width * height + kThreads - 1) / kThreads;
+  const int64_t m = static_cast<int64_t>(width) * height * samples;
+  const int64_t rows = m * max_bounces;
+  const RecordPtrs P{floats + 4 * rows + 2 * m, ints, ints + rows, ints + 2 * rows, floats,
+                     floats + rows, floats + 2 * rows, floats + 3 * rows, floats + 4 * rows};
+  const int blocks = static_cast<int>((m + kThreads - 1) / kThreads);
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(n_spheres + n_planes) * kPrimCols +
                        static_cast<size_t>(n_boxes) * kBoxCols);
-  const RecordPtrs P{rad, kind, idx, bits, urx, ury, urz, coin, jitter};
   render_record_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      spheres, n_spheres, planes, n_planes, boxes, n_boxes, cam, seeds, P, width, height,
-      inv_w, inv_h, max_bounces, center_sample, rng_sphere);
+      spheres, n_spheres, planes, n_planes, boxes, n_boxes, cam, seeds, samples, P, width,
+      height, inv_w, inv_h, max_bounces, center_sample, rng_sphere);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Marks a library whose rt_render_record takes the samples of a records
+// step in one launch (the interface above): tools that load libraries
+// built from other trees check for it.
+extern "C" int rt_render_record_samples() { return 1; }

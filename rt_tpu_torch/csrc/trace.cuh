@@ -108,8 +108,9 @@ struct Record {
   float ux, uy, uz, coin;
 };
 
-// Where a record kernel writes: rad (N, 3), the per-bounce records (B, N)
-// each, the jitter (2, N).
+// Where a record kernel writes: rad (M, 3), the per-bounce records (B, M)
+// each, the jitter (2, M); M = N, or S * N for the unrolled kernel's S
+// samples.
 struct RecordPtrs {
   float* rad;
   int32_t *kind, *idx, *bits;
@@ -597,8 +598,10 @@ __device__ __forceinline__ void trace_pixel(
   }
 }
 
-// One sample of pixel (px, py), flat index `pix` of `n`, with its replay
-// records (the record kernels, rows 2 and 6): the sample's counters are
+// One sample of pixel (px, py), flat index `pix`, with its replay records
+// (the record kernels, rows 2 and 6), written to column `col` of rows of
+// `n` (the unrolled kernel: the pixel's column of the sample-concatenated
+// layout; the blockwise kernel: the pixel): the sample's counters are
 // trace_pixel's with spp = 1, its jitter is written even at the pixel
 // centre (0.5), every bounce writes its draws, and once the path has ended
 // a bounce writes kind, idx and bits 0.  The spheres are scanned as
@@ -606,8 +609,8 @@ __device__ __forceinline__ void trace_pixel(
 // `geo`).
 template <int kPrimStride, int kBoxStride, int kRec, int kGeo = kGeoTable>
 __device__ __forceinline__ void record_pixel(const Tables& T, const float* __restrict__ cam,
-                                             uint32_t pix, int n, float px, float py,
-                                             uint32_t seed, float inv_w, float inv_h,
+                                             uint32_t pix, int64_t col, int64_t n, float px,
+                                             float py, uint32_t seed, float inv_w, float inv_h,
                                              int max_bounces, int center_sample, int rng_sphere,
                                              bool has_die, const RecordPtrs& P,
                                              const float4* __restrict__ geo = nullptr) {
@@ -616,8 +619,8 @@ __device__ __forceinline__ void record_pixel(const Tables& T, const float* __res
     jx = hash_u01(pix, seed, 1u);
     jy = hash_u01(pix, seed, 2u);
   }
-  P.jitter[pix] = jx;
-  P.jitter[n + pix] = jy;
+  P.jitter[col] = jx;
+  P.jitter[n + col] = jy;
   Ray r = camera_ray(cam, px, py, jx, jy, inv_w, inv_h);
   float rad[3] = {0.0f, 0.0f, 0.0f};
   bool alive = true;
@@ -631,7 +634,7 @@ __device__ __forceinline__ void record_pixel(const Tables& T, const float* __res
     } else {
       unit_draws(pix, seed, c, rng_sphere, rec.ux, rec.uy, rec.uz, rec.coin);
     }
-    const int64_t o = static_cast<int64_t>(b) * n + pix;
+    const int64_t o = b * n + col;
     P.kind[o] = rec.kind;
     P.idx[o] = rec.idx;
     P.bits[o] = rec.bits;
@@ -640,7 +643,7 @@ __device__ __forceinline__ void record_pixel(const Tables& T, const float* __res
     P.urz[o] = rec.uz;
     P.coin[o] = rec.coin;
   }
-  float* out = P.rad + static_cast<int64_t>(pix) * 3;
+  float* out = P.rad + col * 3;
   out[0] = rad[0];
   out[1] = rad[1];
   out[2] = rad[2];

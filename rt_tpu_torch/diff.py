@@ -138,34 +138,28 @@ def _record_rays(camera, size, grid, jitter):
     return torch.stack(o3, dim=-1), torch.stack(d3, dim=-1)
 
 
-def _replay_value_and_grad(params, scene, target, rec_sets, *, size, personality, max_bounces,
+def _replay_value_and_grad(params, scene, target, recs, *, spp, size, personality, max_bounces,
                            include_boxes, grid):
     """``(loss, grads)``: the MSE of the mean of the per-sample replays over
     the recorded paths against ``target``, and its gradient by autograd
-    (``rt_tpu.diff._replay_value_and_grad``).  The samples replay as one
-    batch of rays, from the record kernels' own camera rays
-    (:func:`_record_rays`, where JAX takes ``generate_rays``: the same
-    rays up to rounding, and the replay of a ray that grazes a sphere
-    follows the recorded path only if it rounds as the kernel did), and
-    are summed in sample order."""
+    (``rt_tpu.diff._replay_value_and_grad``).  ``recs`` is the flat record
+    set (:func:`rt_tpu_torch.ops.render.records_to_flat`) of the ``spp``
+    samples in the record kernels' sample-concatenated layout (column ``s *
+    N + i``: pixel i of sample s).  The samples replay as one batch of
+    rays, from the record kernels' own camera rays (:func:`_record_rays`,
+    where JAX takes ``generate_rays``: the same rays up to rounding, and
+    the replay of a ray that grazes a sphere follows the recorded path only
+    if it rounds as the kernel did), and are summed in sample order."""
     from .replay import PathRecords, replay_radiance
 
     w, h = size
     n = w * h
-    spp = len(rec_sets)
     leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
     sc = apply_params(scene, leaves)
-
-    def cat(key, dim):
-        return torch.cat([r[key] for r in rec_sets], dim=dim)
-
-    o, d = _record_rays(sc.camera, (w, h), grid.repeat(spp, 1), cat("jitter", 0))
-    records = PathRecords(kind=cat("kind", 1), idx=cat("idx", 1), root_lo=cat("root_lo", 1),
-                          live_in=cat("live_in", 1), miss=cat("miss", 1),
-                          alive_out=cat("alive_out", 1), reflect_bit=cat("reflect_bit", 1),
-                          lam_deg=cat("lam_deg", 1))
+    o, d = _record_rays(sc.camera, (w, h), grid.repeat(spp, 1), recs["jitter"])
+    records = PathRecords(*(recs[k] for k in PathRecords._fields))
     rad = replay_radiance(sc, o, d, None, records, personality=personality,
-                          max_bounces=max_bounces, draws=(cat("ur", 1), cat("coin", 1)),
+                          max_bounces=max_bounces, draws=(recs["ur"], recs["coin"]),
                           include_boxes=include_boxes).reshape(spp, n, 3)
     acc = rad[0]
     for s in range(1, spp):
@@ -186,14 +180,16 @@ def records_loss_and_grad(params, scene, target, size, seed: int = 0, *, spp: in
     replay as the differentiable pass (the counterpart of
     ``pallas_loss_and_grad``).
 
-    Each of the ``spp`` samples is one record launch at seed ``seed *
-    100003 + s`` (wrapping int32), sample 0 at the pixel centre: the same
-    draws as :func:`rt_tpu_torch.ops.grad.make_mse_step` at ``seed``.  The
-    record pass runs at the concrete ``params`` through the render kernel
-    while the scene fits it (640 primitives), else through the blockwise
-    record kernel (16384); its tables are runtime inputs, so changed
-    parameters cost no rebuild.  ``include_boxes`` traces the --boxes
-    extension: kind-3 records and the smooth slab replay, so
+    Sample s traces at seed ``seed * 100003 + s`` (wrapping int32),
+    sample 0 at the pixel centre: the same draws as
+    :func:`rt_tpu_torch.ops.grad.make_mse_step` at ``seed``.  The record
+    pass runs at the concrete ``params``: while the scene fits the render
+    kernel (640 primitives), one launch of its record form traces every
+    sample into the layout the replay reads; else the blockwise record
+    kernel (16384) traces one sample a launch, whose records are
+    concatenated into the same layout.  Its tables are runtime inputs, so
+    changed parameters cost no rebuild.  ``include_boxes`` traces the
+    --boxes extension: kind-3 records and the smooth slab replay, so
     ``boxes.center`` and ``boxes.extents`` get gradients.  ``target`` is
     (H, W, 3) pre-gamma radiance; the loss is the MSE of the spp-mean image
     against it and ``grads`` holds the gradient of every key of ``params``,
@@ -219,19 +215,16 @@ def records_loss_and_grad(params, scene, target, size, seed: int = 0, *, spp: in
         b_cols = (R._flatten_boxes(concrete, personality) if use_boxes
                   else np.zeros((12, 0), np.float32))
         tables = [R._upload(c.T, dev) for c in (s_cols, p_cols, b_cols)]
-
-        def record(s):
-            return R.render_record_tile(*tables, cam, seeds[s:s + 1], center_sample=(s == 0), **kw)
+        raw = R.render_record_tile(*tables, cam, seeds, center_sample=True, **kw)[1]
     elif BW.blockwise_supported(concrete, include_boxes):
         tables = BW._device_tables(concrete, personality, use_boxes, dev)
-
-        def record(s):
-            return BW.render_record_blockwise_tile(*tables, cam, seeds[s:s + 1],
-                                                   center_sample=(s == 0), **kw)
+        sets = [BW.render_record_blockwise_tile(*tables, cam, seeds[s:s + 1],
+                                                center_sample=(s == 0), **kw)[1]
+                for s in range(spp)]
+        raw = {k: torch.cat([r[k] for r in sets], dim=1) for k in sets[0]}
     else:
         raise ValueError("scene exceeds every record-kernel limit")
-    rec_sets = [R.records_to_flat(record(s)[1]) for s in range(spp)]
     tgt = torch.as_tensor(target, dtype=torch.float32).reshape(h, w, 3).to(dev)
-    return _replay_value_and_grad(params, scene, tgt, rec_sets, size=size,
-                                  personality=personality, max_bounces=max_bounces,
+    return _replay_value_and_grad(params, scene, tgt, R.records_to_flat(raw), spp=spp,
+                                  size=size, personality=personality, max_bounces=max_bounces,
                                   include_boxes=use_boxes, grid=_pixel_grid(size, dev))

@@ -45,8 +45,8 @@ import numpy as np
 import torch
 
 from .grad import _check
-from .render import (_chunked_frame, _device, _flatten_boxes, _flatten_primitives, _inv_size,
-                     _pack_camera, _record_outputs, _record_plain, _record_pointers, _upload,
+from .render import (RECORD_KEYS, _chunked_frame, _device, _flatten_boxes, _flatten_primitives,
+                     _inv_size, _pack_camera, _record_outputs, _record_plain, _upload,
                      render_tile_plain)
 
 __all__ = ["MAX_BLOCKWISE_PRIMS", "blockwise_supported", "render_blockwise_tile",
@@ -321,7 +321,8 @@ def render_record_blockwise_tile_plain(spheres, planes, boxes, counts, cam, seed
     """Plain PyTorch version of the blockwise record kernel, on the device
     of ``cam``: the tables and counts of :func:`render_blockwise_tile_plain`,
     the result of :func:`rt_tpu_torch.ops.render.render_record_tile_plain`
-    (``idx`` is the table row, which is the scene index: the JAX record
+    at the one seed ``seeds[0]``, its radiance (H, W, 3) (``idx`` is the
+    table row, which is the scene index: the JAX record
     kernel scans without cull or Morton order).  It follows the JAX
     blockwise record kernel (pallas_blockwise.py:1565-1661, whose record
     math is ``_bounce_once``'s ``want_record="replay"``, :1034-1059) where
@@ -331,8 +332,13 @@ def render_record_blockwise_tile_plain(spheres, planes, boxes, counts, cam, seed
     sphere row."""
     ns, npl, nb = counts
     rows = (planes[:npl, :10].tolist(), spheres[:ns, :10].tolist(), boxes[:nb, :12].tolist())
-    return _record_plain(rows, cam, seeds, size=size, max_bounces=max_bounces,
-                         center_sample=center_sample, rng_mode=rng_mode, replay="blockwise")
+    rad, recs = _record_plain(rows, cam, seeds[:1], size=size, max_bounces=max_bounces,
+                              center_sample=center_sample, rng_mode=rng_mode, replay="blockwise")
+    return rad[0], recs
+
+
+def _record_pointers(rad, recs):
+    return [rad.data_ptr()] + [recs[k].data_ptr() for k in RECORD_KEYS + ("jitter",)]
 
 
 @functools.cache
@@ -374,7 +380,7 @@ def render_record_blockwise_tile(spheres, planes, boxes, counts, cam, seeds, *, 
     _check(fn, "seeds", seeds, torch.int32, (1,), dev)
     if w < 1 or h < 1 or max_bounces < 0 or w * h * max(max_bounces, 3) >= 2**31:
         raise ValueError(f"{fn}: bad size {w}x{h} or max_bounces={max_bounces}")
-    rad, recs = _record_outputs(w, h, max_bounces, dev)
+    _, rad, recs = _record_outputs(w, h, max_bounces, 1, dev)
     inv_w, inv_h = _inv_size(w, h)
     with torch.cuda.device(dev):
         err = _record_kernel()(
@@ -385,7 +391,7 @@ def render_record_blockwise_tile(spheres, planes, boxes, counts, cam, seeds, *, 
     if err != 0:
         raise RuntimeError(f"blockwise record kernel launch failed: CUDA error {err}")
     render_record_blockwise_tile.launches += 1
-    return rad, recs
+    return rad[0], recs
 
 
 render_record_blockwise_tile.launches = 0

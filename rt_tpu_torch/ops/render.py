@@ -728,26 +728,31 @@ def make_render_step(
 # the record kernel: one sample per pixel and the replay records
 # ---------------------------------------------------------------------------
 
-# the raw record set of one call: (B, N) per bounce, jitter (2, N)
+# the raw record set of one call: (B, S * N) per bounce, jitter (2, S * N)
 RECORD_KEYS = ("kind", "idx", "bits", "urx", "ury", "urz", "coin")
 
 
 def _record_plain(rows, cam, seeds, *, size, max_bounces, center_sample, rng_mode, replay):
-    """The record kernels' function, dense over pixels: ``rows`` as
-    :func:`_bounce_plain` takes them, ``replay`` the record conventions
-    ("unrolled" or "blockwise").  Returns ``(rad, recs)`` as
+    """The record kernels' function, dense over the ``S * N`` rays of the
+    ``(S,)`` seeds (sample-major, ray t the pixel t % N of sample t / N at
+    ``seeds[t / N]``, sample 0 alone at the centre with ``center_sample``):
+    ``rows`` as :func:`_bounce_plain` takes them, ``replay`` the record
+    conventions ("unrolled" or "blockwise").  Returns ``(rad, recs)`` as
     :func:`render_record_tile_plain`."""
     w, h = size
     dev = cam.device
     n = w * h
-    idx = torch.arange(n, device=dev, dtype=torch.int64)
-    seed = int(seeds[0])
+    s_count = seeds.shape[0]
+    ray = torch.arange(s_count * n, device=dev, dtype=torch.int64)
+    idx = ray % n
+    seed = seeds.to(device=dev, dtype=torch.int64).repeat_interleave(n)
     px = (idx % w).to(torch.float32)
     py = (idx // w).to(torch.float32)
     inv_w, inv_h = _inv_size(w, h)
     jx, jy = hash_u01(idx, seed, 1), hash_u01(idx, seed, 2)
     if center_sample:
-        jx, jy = torch.full_like(px, 0.5), torch.full_like(px, 0.5)
+        first = ray < n
+        jx, jy = (torch.where(first, torch.full_like(px, 0.5), j) for j in (jx, jy))
     o3, d3 = _raygen_plain(cam.tolist(), px, py, jx, jy, inv_w, inv_h)
     one = torch.ones_like(px)
     thr3, live = (one, one, one), one
@@ -763,29 +768,33 @@ def _record_plain(rows, cam, seeds, *, size, max_bounces, center_sample, rng_mod
         acc = [a + r for a, r in zip(acc, rad)]
         per_bounce.append(rec)
     recs = {k: (torch.stack([r[k] for r in per_bounce]) if max_bounces else
-                torch.zeros((0, n), dtype=torch.int32 if k in ("kind", "idx", "bits")
+                torch.zeros((0, s_count * n), dtype=torch.int32 if k in ("kind", "idx", "bits")
                             else torch.float32, device=dev)) for k in RECORD_KEYS}
     recs["jitter"] = torch.stack([jx, jy])
-    return torch.stack(acc, dim=-1).reshape(h, w, 3), recs
+    return torch.stack(acc, dim=-1).reshape(s_count, h, w, 3), recs
 
 
 def render_record_tile_plain(spheres, planes, boxes, cam, seeds, *, size, max_bounces,
                              center_sample, rng_mode="reference"):
     """Plain PyTorch version of the record kernel, on the device of ``cam``.
 
-    Arguments as :func:`render_tile_plain` with one sample: ``seeds`` (1,)
-    int32; ``center_sample`` puts the sample at the pixel centre.
+    Arguments as :func:`render_tile_plain`, with ``seeds`` (S,) int32: one
+    sample per pixel at each seed, ``center_sample`` putting sample 0 (and
+    only it) at the pixel centre, as the JAX records pipeline's first call.
 
-    Returns ``(rad, recs)``: the pre-gamma radiance (H, W, 3) float32 (the
-    1-spp frame of :func:`render_tile_plain` at the same seed), and the
-    raw records: for every bounce b and pixel i, ``recs[k][b, i]`` for k
-    in :data:`RECORD_KEYS` (kind, idx, bits: int32, 0 once the path has
-    ended; the normalized unit vector urx/ury/urz and the coin: float32,
-    every bounce's draws), and ``recs["jitter"]`` (2, N) float32.  Every
-    step mirrors the JAX kernel body with ``record=True``
-    (pallas_render.py:212-577), including its class-presence
-    specialization: the reflect bit is computed only where a table holds
-    a dielectric.  :func:`records_to_flat` decodes the records."""
+    Returns ``(rad, recs)``: the pre-gamma radiance (S, H, W, 3) float32
+    (sample s is the 1-spp frame of :func:`render_tile_plain` at
+    ``seeds[s]``), and the raw records in the sample-concatenated layout
+    the replay reads: for every bounce b and column ``s * N + i`` (pixel i
+    of sample s), ``recs[k][b, s * N + i]`` for k in :data:`RECORD_KEYS`
+    (kind, idx, bits: int32, 0 once the path has ended; the normalized
+    unit vector urx/ury/urz and the coin: float32, every bounce's draws),
+    and ``recs["jitter"]`` (2, S * N) float32.  Each sample's columns are
+    the one-sample call's at its seed.  Every step mirrors the JAX kernel
+    body with ``record=True`` (pallas_render.py:212-577), including its
+    class-presence specialization: the reflect bit is computed only where
+    a table holds a dielectric.  :func:`records_to_flat` decodes the
+    records."""
     return _record_plain((planes.tolist(), spheres.tolist(), boxes.tolist()), cam, seeds,
                          size=size, max_bounces=max_bounces, center_sample=center_sample,
                          rng_mode=rng_mode, replay="unrolled")
@@ -797,30 +806,32 @@ def _record_kernel():
 
     fn = load_library("render_kernel").rt_render_record
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, i, p, i, p, i, p, p, p, p, p, p, p, p, p, p, p, i, i, f, f, i, i, i, p]
+    fn.argtypes = [p, i, p, i, p, i, p, p, i, p, p, i, i, f, f, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _record_outputs(w, h, max_bounces, dev):
-    """Empty record outputs on ``dev``: rad (H, W, 3) and the raw records."""
-    n = w * h
-    recs = {k: torch.empty((max_bounces, n), dtype=torch.int32 if k in ("kind", "idx", "bits")
-                           else torch.float32, device=dev) for k in RECORD_KEYS}
-    recs["jitter"] = torch.empty((2, n), dtype=torch.float32, device=dev)
-    return torch.empty((h, w, 3), dtype=torch.float32, device=dev), recs
-
-
-def _record_pointers(rad, recs):
-    return [rad.data_ptr()] + [recs[k].data_ptr() for k in RECORD_KEYS + ("jitter",)]
+def _record_outputs(w, h, max_bounces, samples, dev):
+    """Empty record outputs on ``dev`` for ``samples`` samples, from one
+    int32 and one float32 allocation (in rt_render_record's order): the
+    buffers ``(ints, floats)``, the radiance (S, H, W, 3) and the raw
+    records (:data:`RECORD_KEYS` (B, S * N) each, jitter (2, S * N))."""
+    m = w * h * samples
+    ints = torch.empty(3 * max_bounces * m, dtype=torch.int32, device=dev)
+    floats = torch.empty((4 * max_bounces + 5) * m, dtype=torch.float32, device=dev)
+    recs = dict(zip(RECORD_KEYS, (*ints.view(3, max_bounces, m),
+                                  *floats[:4 * max_bounces * m].view(4, max_bounces, m))))
+    recs["jitter"] = floats[4 * max_bounces * m:(4 * max_bounces + 2) * m].view(2, m)
+    rad = floats[(4 * max_bounces + 2) * m:].view(samples, h, w, 3)
+    return (ints, floats), rad, recs
 
 
 def render_record_tile(spheres, planes, boxes, cam, seeds, *, size, max_bounces, center_sample,
                        rng_mode="reference"):
-    """One launch of the record kernel; arguments and result as
-    :func:`render_record_tile_plain`.  CPU tensors run the plain version;
-    CUDA tensors launch the kernel on the current stream (without
-    synchronizing) or raise."""
+    """One launch of the record kernel for every seed of ``seeds`` (S,);
+    arguments and result as :func:`render_record_tile_plain`.  CPU tensors
+    run the plain version; CUDA tensors launch the kernel on the current
+    stream (without synchronizing) or raise."""
     fn = "render_record_tile"
     dev = cam.device
     for name, t in (("spheres", spheres), ("planes", planes), ("boxes", boxes), ("seeds", seeds)):
@@ -840,18 +851,21 @@ def render_record_tile(spheres, planes, boxes, cam, seeds, *, size, max_bounces,
     _check("planes", planes, f32, (None, 10), dev)
     _check("boxes", boxes, f32, (None, 12), dev)
     _check("cam", cam, f32, (16,), dev)
-    _check("seeds", seeds, torch.int32, (1,), dev)
+    _check("seeds", seeds, torch.int32, (None,), dev)
+    samples = seeds.shape[0]
     if spheres.shape[0] + planes.shape[0] + boxes.shape[0] > MAX_UNROLL_PRIMS:
         raise ValueError(f"{fn}: more than {MAX_UNROLL_PRIMS} primitives")
-    if w < 1 or h < 1 or max_bounces < 0 or w * h * max(max_bounces, 3) >= 2**31:
-        raise ValueError(f"{fn}: bad size {w}x{h} or max_bounces={max_bounces}")
-    rad, recs = _record_outputs(w, h, max_bounces, dev)
+    if (w < 1 or h < 1 or samples < 1 or max_bounces < 0
+            or w * h * samples * max(max_bounces, 3) >= 2**31):
+        raise ValueError(f"{fn}: bad size {w}x{h} x {samples} samples or "
+                         f"max_bounces={max_bounces}")
+    (ints, floats), rad, recs = _record_outputs(w, h, max_bounces, samples, dev)
     inv_w, inv_h = _inv_size(w, h)
     with torch.cuda.device(dev):
         err = _record_kernel()(
             spheres.data_ptr(), spheres.shape[0], planes.data_ptr(), planes.shape[0],
-            boxes.data_ptr(), boxes.shape[0], cam.data_ptr(), seeds.data_ptr(),
-            *_record_pointers(rad, recs), w, h, inv_w, inv_h, max_bounces,
+            boxes.data_ptr(), boxes.shape[0], cam.data_ptr(), seeds.data_ptr(), samples,
+            ints.data_ptr(), floats.data_ptr(), w, h, inv_w, inv_h, max_bounces,
             int(bool(center_sample)), int(rng_mode == "sphere"),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -867,10 +881,11 @@ def render_record(scene, size, seed: int, *, personality: str = "mg",
                   max_bounces: Optional[int] = None, rng_mode: str = "reference",
                   center_sample: bool = True, include_boxes: bool = False, device="cuda"):
     """One sample per pixel through the record kernel (the counterpart of
-    ``render_record_pallas``).  Returns ``(rad, recs)`` on ``device``, as
-    :func:`render_record_tile` (kind=3 records and the box index with
-    ``include_boxes``); :func:`records_to_flat` decodes ``recs`` into the
-    layout :func:`rt_tpu_torch.replay.replay_radiance` takes."""
+    ``render_record_pallas``).  Returns ``(rad, recs)`` on ``device``: the
+    radiance (H, W, 3) and the records of :func:`render_record_tile` at the
+    one seed (kind=3 records and the box index with ``include_boxes``);
+    :func:`records_to_flat` decodes ``recs`` into the layout
+    :func:`rt_tpu_torch.replay.replay_radiance` takes."""
     if not supported(scene, include_boxes):
         raise ValueError("scene exceeds the unrolled megakernel limits")
     dev = _device(device)
@@ -879,10 +894,12 @@ def render_record(scene, size, seed: int, *, personality: str = "mg",
     b_cols = (_flatten_boxes(scene, personality) if include_boxes
               else np.zeros((12, 0), np.float32))
     spheres, planes, boxes = (_upload(c.T, dev) for c in (s_cols, p_cols, b_cols))
-    return render_record_tile(spheres, planes, boxes, _upload(_pack_camera(scene.camera, size), dev),
-                              _upload(np.asarray([seed], np.int32), dev), size=size,
-                              max_bounces=max_bounces, center_sample=center_sample,
-                              rng_mode=rng_mode)
+    rad, recs = render_record_tile(spheres, planes, boxes,
+                                   _upload(_pack_camera(scene.camera, size), dev),
+                                   _upload(np.asarray([seed], np.int32), dev), size=size,
+                                   max_bounces=max_bounces, center_sample=center_sample,
+                                   rng_mode=rng_mode)
+    return rad[0], recs
 
 
 def records_to_flat(recs: dict) -> dict:

@@ -660,9 +660,55 @@ def test_record_kernels_match_plain(cuda, name, personality, include_boxes, rng_
     frame = tr.render_tile(*tabs, cam, seeds, spp=1, **kw)[0]
     torch.cuda.synchronize()
     for (rad, recs), (want_rad, want) in runs:
-        assert torch.equal(rad, want_rad) and torch.equal(rad, frame)
+        assert torch.equal(rad, want_rad) and torch.equal(rad.reshape(frame.shape), frame)
         for k in want:
             assert torch.equal(recs[k], want[k]), k
+
+
+@pytest.mark.parametrize("name,personality,include_boxes,center", [
+    ("basic.toml", "mg", False, True),
+    ("dielectric.toml", "sm", False, False),
+    ("box", "mg", True, True),
+])
+def test_record_kernel_samples_in_one_launch(cuda, name, personality, include_boxes, center):
+    """The render kernel's record form traces S samples in one launch: bit
+    for bit with its plain version, each sample's slice (records (B, S *
+    N), jitter (2, S * N), radiance (S, H, W, 3)) equal to the one-sample
+    launch at its seed (sample 0 alone at the centre); and
+    records_loss_and_grad launches it once a step."""
+    scene = _scene(name)
+    size, spp, depth = (37, 23), 4, 6
+    n = size[0] * size[1]
+    s_cols, p_cols = tr._flatten_primitives(scene, personality)
+    b_cols = (tr._flatten_boxes(scene, personality) if include_boxes
+              else np.zeros((12, 0), np.float32))
+    tabs = [torch.from_numpy(np.ascontiguousarray(c.T)).to(cuda) for c in (s_cols, p_cols, b_cols)]
+    cam = torch.from_numpy(tr._pack_camera(scene.camera, size)).to(cuda)
+    seeds = torch.from_numpy(tg._sample_seeds(-5, spp)).to(cuda)
+    kw = dict(size=size, max_bounces=depth)
+    before = tr.render_record_tile.launches
+    rad, recs = tr.render_record_tile(*tabs, cam, seeds, center_sample=center, **kw)
+    assert tr.render_record_tile.launches == before + 1
+    want_rad, want = tr.render_record_tile_plain(*tabs, cam, seeds, center_sample=center, **kw)
+    ones = [tr.render_record_tile(*tabs, cam, seeds[s:s + 1], center_sample=center and s == 0,
+                                  **kw) for s in range(spp)]
+    torch.cuda.synchronize()
+    assert rad.shape == (spp, size[1], size[0], 3) and recs["jitter"].shape == (2, spp * n)
+    assert torch.equal(rad, want_rad) and torch.equal(rad, torch.cat([r for r, _ in ones]))
+    for k in want:
+        assert recs[k].shape[1] == spp * n, k
+        assert torch.equal(recs[k], want[k]), k
+        assert torch.equal(recs[k], torch.cat([r[k] for _, r in ones], dim=1)), k
+
+    target = torch.full((size[1], size[0], 3), 0.2, device=cuda)
+    before = tr.render_record_tile.launches
+    loss, grads = diff.records_loss_and_grad(diff.extract_params(scene), scene, target, size,
+                                             seed=3, spp=spp, max_bounces=depth,
+                                             personality=personality,
+                                             include_boxes=include_boxes, device=cuda)
+    torch.cuda.synchronize()
+    assert tr.render_record_tile.launches == before + 1
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads.values())
 
 
 @pytest.mark.parametrize("name,size,include_boxes", [

@@ -1,7 +1,8 @@
 """The record kernel's plain PyTorch version (queue 2 row 2) against the
 JAX record megakernel (``render_record_pallas(rng_impl="hash",
-interpret=True)``): the replay records and the 1-spp radiance, and the
-pieces around it (``records_to_flat``, the entry point's gates)."""
+interpret=True)``): the replay records and the 1-spp radiance, a call of
+several samples (one launch a records step) slice by slice, and the pieces
+around it (``records_to_flat``, the entry point's gates)."""
 
 import numpy as np
 import pytest
@@ -21,6 +22,8 @@ CASES = {  # id: scene, personality, --boxes, centre sample, rng_mode
     "cornell/sm sphere": ("cornell_spheres.toml", "sm", False, False, "sphere"),
     "box/mg": ("box", "mg", True, True, "reference"),
 }
+# the seeds of a 3-sample call on basic/mg: the fixture's seed first
+SAMPLE_SEEDS = (5, 6, 7)
 
 
 @pytest.fixture(scope="module")
@@ -32,6 +35,12 @@ def jax_records():
             jax_scene(name), SIZE, 5, personality=pers, max_bounces=BOUNCES, rows=8,
             rng_mode=rng_mode, center_sample=center, rng_impl="hash", interpret=True,
             include_boxes=boxes)
+    # basic/mg's later samples, off the pixel centre as the records
+    # pipeline (pallas_loss_and_grad) calls its kernel after sample 0
+    for seed in SAMPLE_SEEDS[1:]:
+        out["basic/mg", seed] = jr.render_record_pallas(
+            jax_scene("basic.toml"), SIZE, seed, personality="mg", max_bounces=BOUNCES, rows=8,
+            rng_mode="reference", center_sample=False, rng_impl="hash", interpret=True)
     return out
 
 
@@ -83,7 +92,7 @@ def test_record_radiance_is_the_one_spp_frame(cid):
     seeds = torch.tensor([-3], dtype=torch.int32)
     kw = dict(size=SIZE, max_bounces=5, center_sample=center, rng_mode=rng_mode)
     rad, recs = tr.render_record_tile(*tabs, cam, seeds, **kw)
-    frame = tr.render_tile_plain(*tabs, cam, seeds, spp=1, **kw)[0]
+    frame = tr.render_tile_plain(*tabs, cam, seeds, spp=1, **kw)
     assert torch.equal(rad, frame)
     live = (recs["bits"] & 16) > 0
     assert not live.all() and live[0].all()
@@ -106,3 +115,54 @@ def test_render_record_gates():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tr.render_record(basic, (8, 8), 0)
+
+
+def _tile_args(cid):
+    """The case's record-tile tables and camera on the CPU, and its
+    keywords but the centre setting."""
+    name, pers, boxes, _, rng_mode = CASES[cid]
+    ts = rt_tpu_torch.from_jax_scene(jax_scene(name))
+    s_cols, p_cols = tr._flatten_primitives(ts, pers)
+    b_cols = tr._flatten_boxes(ts, pers) if boxes else np.zeros((12, 0), np.float32)
+    tabs = [torch.from_numpy(np.ascontiguousarray(c.T)) for c in (s_cols, p_cols, b_cols)]
+    cam = torch.from_numpy(tr._pack_camera(ts.camera, SIZE))
+    return tabs, cam, dict(size=SIZE, max_bounces=BOUNCES, rng_mode=rng_mode)
+
+
+@pytest.mark.parametrize("samples", [1, 3])
+@pytest.mark.parametrize("cid", ["basic/mg", "dielectric/sm"])
+def test_samples_are_the_one_sample_calls_concatenated(cid, samples):
+    """The plain version with (S,) seeds is the one-sample calls at each
+    seed (sample 0 alone at the pixel centre) laid side by side as the
+    replay reads them, bit for bit: each record array (B, S * N), the
+    jitter (2, S * N), the radiance (S, H, W, 3)."""
+    from rt_tpu_torch.ops.grad import _sample_seeds
+
+    n = SIZE[0] * SIZE[1]
+    tabs, cam, kw = _tile_args(cid)
+    seeds = torch.from_numpy(_sample_seeds(11, samples))
+    rad, recs = tr.render_record_tile_plain(*tabs, cam, seeds, center_sample=True, **kw)
+    ones = [tr.render_record_tile_plain(*tabs, cam, seeds[s:s + 1], center_sample=(s == 0), **kw)
+            for s in range(samples)]
+    assert rad.shape == (samples, SIZE[1], SIZE[0], 3)
+    assert torch.equal(rad, torch.cat([r for r, _ in ones]))
+    assert set(recs) == set(tr.RECORD_KEYS) | {"jitter"}
+    for k in recs:
+        assert recs[k].shape == (2 if k == "jitter" else BOUNCES, samples * n), k
+        assert torch.equal(recs[k], torch.cat([r[k] for _, r in ones], dim=1)), k
+    jitter = recs["jitter"].view(2, samples, n)
+    assert (jitter[:, 0] == 0.5).all() and (jitter[:, 1:] != 0.5).any(dim=-1).all()
+
+
+def test_samples_match_jax(jax_records):
+    """Each sample's slice of a 3-sample call on basic/mg against the JAX
+    record kernel at that seed, sample 0 at the pixel centre and the
+    others not, as the records pipeline calls it."""
+    n = SIZE[0] * SIZE[1]
+    tabs, cam, kw = _tile_args("basic/mg")
+    seeds = torch.tensor(SAMPLE_SEEDS, dtype=torch.int32)
+    rad, recs = tr.render_record_tile(*tabs, cam, seeds, center_sample=True, **kw)
+    for s, seed in enumerate(SAMPLE_SEEDS):
+        jrad, jrecs = jax_records["basic/mg", seed] if s else jax_records["basic/mg"]
+        assert_records_match({k: v[:, s * n:(s + 1) * n] for k, v in recs.items()}, jrecs, n)
+        assert_frames_close(rad[s], tiles_to_flat(jrad, n).T.reshape(SIZE[1], SIZE[0], 3))

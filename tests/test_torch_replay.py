@@ -149,7 +149,7 @@ def test_replay_matches_jax(cid):
         max_bounces=BOUNCES, include_boxes=boxes, grid=grid_j)
     tp = tdiff.params_from_numpy({k: np.asarray(v) for k, v in jp.items()}, device="cpu")
     loss, got = tdiff._replay_value_and_grad(
-        tp, ts, torch.from_numpy(target), [tflat], size=SIZE, personality=pers,
+        tp, ts, torch.from_numpy(target), tflat, spp=1, size=SIZE, personality=pers,
         max_bounces=BOUNCES, include_boxes=boxes, grid=tint._pixel_grid(SIZE))
     assert float(loss) == pytest.approx(float(want_loss), rel=1e-5)
     assert set(got) == set(want) == set(tp)
