@@ -44,6 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..profiling import span
 from .grad import _check
 from .render import (RECORD_KEYS, _chunked_frame, _device, _flatten_boxes, _flatten_primitives,
                      _inv_size, _pack_camera, _record_outputs, _record_plain, _upload,
@@ -240,14 +241,15 @@ render_blockwise_tile.launches = 0
 def _device_tables(scene, personality: str, include_boxes: bool, dev):
     """The padded tables on ``dev`` and their counts: ``(spheres, planes,
     boxes, (n_spheres, n_planes, n_boxes))``."""
-    s_cols, p_cols = _flatten_primitives(scene, personality)
-    b_pad, b_tab = _box_inputs(scene, personality, include_boxes)
-    if b_tab is None:
-        b_tab = np.zeros((0, _COLS), np.float32)
-    tabs = [_padded_table(s_cols, _bucket(scene.spheres.count)),
-            _padded_table(p_cols, _bucket(scene.planes.count)), b_tab]
-    counts = (scene.spheres.count, scene.planes.count, scene.boxes.count if b_pad else 0)
-    return (*(_upload(t, dev) for t in tabs), counts)
+    with span("rt.tables"):
+        s_cols, p_cols = _flatten_primitives(scene, personality)
+        b_pad, b_tab = _box_inputs(scene, personality, include_boxes)
+        if b_tab is None:
+            b_tab = np.zeros((0, _COLS), np.float32)
+        tabs = [_padded_table(s_cols, _bucket(scene.spheres.count)),
+                _padded_table(p_cols, _bucket(scene.planes.count)), b_tab]
+        counts = (scene.spheres.count, scene.planes.count, scene.boxes.count if b_pad else 0)
+        return (*(_upload(t, dev) for t in tabs), counts)
 
 
 def render_forward_blockwise(

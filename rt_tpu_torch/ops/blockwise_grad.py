@@ -57,6 +57,7 @@ import torch
 
 from ..diff import apply_params
 from ..materials import personality_classes
+from ..profiling import span
 from .blockwise import MAX_BLOCKWISE_PRIMS, _COLS, _bucket, _check_tables, render_blockwise_tile
 from .grad import _assemble_grads, _check, _fused_plain, _sample_seeds
 from .render import _device, _inv_size, _upload
@@ -222,7 +223,7 @@ def _tables_torch(scene, personality: str, s_pad: int, p_pad: int, size, device)
         for k, v in params.items():
             if v.device != dev:
                 raise ValueError(f"param {k} is on {v.device}, the step on {dev}")
-        with torch.no_grad():
+        with span("rt.tables"), torch.no_grad():
             sc = apply_params(sc0, {k: v.detach() for k, v in params.items()})
             if ns:
                 s_tab[:ns, :10] = rows(sc.spheres.center[:ns], sc.spheres.radius[:ns], s_m,
@@ -289,29 +290,32 @@ def _bw_pipeline(scene, target, size, *, spp, max_bounces, rng_mode, dev, mesh=N
 
     def run(s_tab, p_tab, cam, seed):
         seeds = _upload(_sample_seeds(seed, spp), dev)
-        total = None
-        words = []
-        for s in range(spp):
-            out, wd = render_blockwise_tile(s_tab, p_tab, no_boxes, (*counts, 0), cam,
-                                            seeds[s:s + 1], spp=1, center_sample=(s == 0),
-                                            words=True, **kw)
-            words.append(wd)
-            total = out if total is None else total + out
-        if ax is not None:
-            total = ax.all_gather(total)[:n].reshape(h, w, 3)
-        diff = total * scale - tgt
-        loss = torch.mean(diff ** 2)
-        cot = 2.0 * diff / (3.0 * n * spp)
-        if ax is not None:  # this rank's columns of the cotangent, zero past the frame
-            cot = torch.cat([cot.reshape(n, 3), cot.new_zeros((count * ax.size - n, 3))])
-            cot = cot[pix0:pix0 + count]
-        acc = tuple(torch.zeros(s, dtype=torch.float64, device=dev)
-                    for s in ((9, counts[0]), (5, counts[1]), (16,)))
-        for s in range(spp):
-            bw_grad_tile(s_tab, p_tab, counts, cam, seeds[s:s + 1], cot, words[s],
-                         center_sample=(s == 0), out=acc, **kw)
-        acc = _sum_over(ax, acc)
-        return loss, _assemble_grads(*(a.float() for a in acc), s_mat, p_mat, *tables)
+        with span("rt.forward"):
+            total = None
+            words = []
+            for s in range(spp):
+                out, wd = render_blockwise_tile(s_tab, p_tab, no_boxes, (*counts, 0), cam,
+                                                seeds[s:s + 1], spp=1, center_sample=(s == 0),
+                                                words=True, **kw)
+                words.append(wd)
+                total = out if total is None else total + out
+            if ax is not None:
+                total = ax.all_gather(total)[:n].reshape(h, w, 3)
+        with span("rt.loss"):
+            diff = total * scale - tgt
+            loss = torch.mean(diff ** 2)
+            cot = 2.0 * diff / (3.0 * n * spp)
+            if ax is not None:  # this rank's columns of the cotangent, zero past the frame
+                cot = torch.cat([cot.reshape(n, 3), cot.new_zeros((count * ax.size - n, 3))])
+                cot = cot[pix0:pix0 + count]
+        with span("rt.reverse"):
+            acc = tuple(torch.zeros(s, dtype=torch.float64, device=dev)
+                        for s in ((9, counts[0]), (5, counts[1]), (16,)))
+            for s in range(spp):
+                bw_grad_tile(s_tab, p_tab, counts, cam, seeds[s:s + 1], cot, words[s],
+                             center_sample=(s == 0), out=acc, **kw)
+            acc = _sum_over(ax, acc)
+            return loss, _assemble_grads(*(a.float() for a in acc), s_mat, p_mat, *tables)
 
     return run
 
@@ -399,10 +403,11 @@ def make_bw_train_step(
                        rng_mode=rng_mode, dev=dev, mesh=mesh, axis=axis)
 
     def step(params, seed: int):
-        loss, grads = run(*build(params), seed)
-        for k, p in params.items():
-            p.grad = grads[k]
-        optimizer.step()
-        return loss
+        with span("rt.step", root=True):
+            loss, grads = run(*build(params), seed)
+            for k, p in params.items():
+                p.grad = grads[k]
+            optimizer.step()
+            return loss
 
     return step

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..materials import personality_classes
+from ..profiling import span
 
 __all__ = ["MAX_UNROLL_PRIMS", "supported", "hash_u01", "render_tile",
            "render_tile_plain", "render_forward", "make_render_step"]
@@ -610,10 +611,11 @@ def _device(device) -> torch.device:
 def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     """Host array → tensor on ``dev``; a CUDA copy goes through pinned
     memory without blocking the host."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if dev.type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
-    return t
+    with span("rt.upload"):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if dev.type == "cuda":
+            return t.pin_memory().to(dev, non_blocking=True)
+        return t
 
 
 def _frame_renderer(scene, size, *, personality, spp, max_bounces, gamma, rng_mode,
@@ -630,10 +632,11 @@ def _frame_renderer(scene, size, *, personality, spp, max_bounces, gamma, rng_mo
     spp = scene.samples_per_pixel if spp is None else spp
     max_bounces = scene.max_bounces if max_bounces is None else max_bounces
 
-    s_cols, p_cols = _flatten_primitives(scene, personality)
-    b_cols = (_flatten_boxes(scene, personality) if include_boxes
-              else np.zeros((12, 0), np.float32))
-    spheres, planes, boxes = (_upload(c.T, dev) for c in (s_cols, p_cols, b_cols))
+    with span("rt.tables"):
+        s_cols, p_cols = _flatten_primitives(scene, personality)
+        b_cols = (_flatten_boxes(scene, personality) if include_boxes
+                  else np.zeros((12, 0), np.float32))
+        spheres, planes, boxes = (_upload(c.T, dev) for c in (s_cols, p_cols, b_cols))
 
     def launch(cam, seeds, k, center):
         return render_tile(spheres, planes, boxes, cam, seeds, size=(w, h), spp=k,
@@ -656,10 +659,15 @@ def _chunked_frame(launch, cam, seed: int, spp: int, frames: int, gamma: bool, d
     total = None
     for ci, k in enumerate(chunks):
         out = launch(cam, seeds[ci], k, ci == 0)
-        total = out if total is None else total + out
-    img = total * float(np.float32(1.0 / spp))
-    if gamma:
-        img = torch.sqrt(torch.clamp_min(img, 0.0))
+        if total is None:
+            total = out
+        else:
+            with span("rt.assemble"):
+                total = total + out
+    with span("rt.assemble"):
+        img = total * float(np.float32(1.0 / spp))
+        if gamma:
+            img = torch.sqrt(torch.clamp_min(img, 0.0))
     return img
 
 

@@ -55,6 +55,7 @@ from typing import Optional
 
 import torch
 
+from ..profiling import count_live, recording, span
 from . import _grad_math as gm
 from .blockwise import _check_tables, _device_tables, blockwise_supported
 from .grad import _check
@@ -129,11 +130,12 @@ def _sort_state(state, ids, cell_bits: int):
     """Compaction and coherence sort: ``(state, ids, n_live)`` with the
     columns in stable key order and n_live, the live count, as a (1,)
     int32 tensor on the device (no host sync)."""
-    key = _sort_key(state, cell_bits)
-    perm = torch.sort(key, stable=True).indices
-    state = state.index_select(1, perm)
-    n_live = (state[12] > 0.0).sum(dtype=torch.int32).reshape(1)
-    return state, ids.index_select(0, perm), n_live
+    with span("rt.sort"):
+        key = _sort_key(state, cell_bits)
+        perm = torch.sort(key, stable=True).indices
+        state = state.index_select(1, perm)
+        n_live = (state[12] > 0.0).sum(dtype=torch.int32).reshape(1)
+        return state, ids.index_select(0, perm), n_live
 
 
 def wf_bounce_plain(spheres, planes, boxes, counts, cam, seeds, state, ids, limit=None, *, size,
@@ -203,14 +205,18 @@ def wf_bounce_plain(spheres, planes, boxes, counts, cam, seeds, state, ids, limi
                                                    rng_mode == "sphere", record)
     new = torch.stack([*o_n, *d_n, *thr_n, *(r0 + r for r0, r in zip(rad0, rad)), af])
     if bounce == 0:
+        alive = n
         if total is not None:
-            inside = ray < total
+            alive = inside = ray < total
             new = torch.where(inside, new, 0.0)
             word = torch.where(inside, word, WORD_MISS) if record else None
         state.copy_(new)
         ids.copy_(ray)
     else:
-        state.copy_(torch.where(live > 0.0, new, state))
+        alive = live > 0.0
+        state.copy_(torch.where(alive, new, state))
+    if recording():
+        count_live(bounce, alive)
     return word.to(torch.int32) if record else None
 
 
@@ -296,6 +302,10 @@ def wf_bounce(spheres, planes, boxes, counts, cam, seeds, state, ids, limit=None
     if err != 0:
         raise RuntimeError(f"wavefront kernel launch failed: CUDA error {err}")
     wf_bounce.launches += 1
+    if recording():
+        # the rays a bounce-0 launch generates (those of its columns inside
+        # the chunk), or the live count the launch already read
+        count_live(bounce, live if bounce else max(0, min(n, total - ray0)))
     return words
 
 
@@ -314,7 +324,8 @@ def _forward_chunk(launch, n_rays: int, dev, *, max_bounces: int, sched, shrink_
     whose rays the reverse regenerates), its winner words and limit."""
     state = torch.empty((STATE_ROWS, n_rays), dtype=torch.float32, device=dev)
     ids = torch.empty(n_rays, dtype=torch.int32, device=dev)
-    words = launch(0, state, ids, None)
+    with span("rt.bounce", 0):
+        words = launch(0, state, ids, None)
     saved = [(None, None, words, None)] if record else None
     limit = None
     for b in range(1, max_bounces):
@@ -324,9 +335,12 @@ def _forward_chunk(launch, n_rays: int, dev, *, max_bounces: int, sched, shrink_
                 limit = n_live
         if record:
             entering, state = state, state.clone()
-            saved.append((entering, ids, launch(b, state, ids, limit), limit))
+            with span("rt.bounce", b):
+                words = launch(b, state, ids, limit)
+            saved.append((entering, ids, words, limit))
         else:
-            launch(b, state, ids, limit)
+            with span("rt.bounce", b):
+                launch(b, state, ids, limit)
     return state, ids, saved
 
 
@@ -415,10 +429,11 @@ def render_forward_wavefront(
 
         state, ids, _ = _forward_chunk(bounce, rays, dev, max_bounces=max_bounces,
                                        sched=sched, shrink_at=shrink_at, cell_bits=cell_bits)
-        rad = _radiance_by_id(state, ids, ray0)
-        if ax is not None:
-            rad = ax.all_gather(rad.T).T
-        return _sum_samples(rad, n_pix, k).reshape(h, w, 3)
+        with span("rt.assemble"):
+            rad = _radiance_by_id(state, ids, ray0)
+            if ax is not None:
+                rad = ax.all_gather(rad.T).T
+            return _sum_samples(rad, n_pix, k).reshape(h, w, 3)
 
     cam = _upload(_pack_camera(scene.camera, size), dev)
     return _chunked_frame(launch, cam, seed, spp, 1, gamma, dev, chunk=chunk)

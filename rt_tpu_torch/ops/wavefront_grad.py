@@ -55,6 +55,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..profiling import span
 from . import _grad_math as gm
 from .blockwise import _COLS, _bucket, _check_tables
 from .blockwise_grad import _table_builder, bw_grad_supported
@@ -352,42 +353,46 @@ def _wf_pipeline(scene, target, size, *, spp, spp_chunk, max_bounces, rng_mode, 
 
     def run(s_tab, p_tab, cam, seeds, center_first):
         # ---- record forward: the frame, and per chunk the saved bounces ----
-        total, chunks = None, []
-        for ci, k in enumerate(ks):
-            center = ci == 0 and center_first
-            ray0, rays = rays_of(k)
+        with span("rt.forward"):
+            total, chunks = None, []
+            for ci, k in enumerate(ks):
+                center = ci == 0 and center_first
+                ray0, rays = rays_of(k)
 
-            def bounce(b, state, ids, limit, seed=seeds[ci], center=center, ray0=ray0, k=k):
-                return wf_bounce(s_tab, p_tab, no_boxes, (*counts, 0), cam, seed, state, ids,
-                                 limit, bounce=b, center_sample=center, record=True, ray0=ray0,
-                                 total=n_pix * k, **kw)
+                def bounce(b, state, ids, limit, seed=seeds[ci], center=center, ray0=ray0, k=k):
+                    return wf_bounce(s_tab, p_tab, no_boxes, (*counts, 0), cam, seed, state, ids,
+                                     limit, bounce=b, center_sample=center, record=True,
+                                     ray0=ray0, total=n_pix * k, **kw)
 
-            state, ids, saved = _forward_chunk(bounce, rays, dev, max_bounces=max_bounces,
-                                               sched=sched, shrink_at=shrink_at,
-                                               cell_bits=2, record=True)
-            rad = _radiance_by_id(state, ids, ray0)
-            if ax is not None:
-                rad = ax.all_gather(rad.T).T
-            img = _sum_samples(rad, n_pix, k)
-            total = img if total is None else total + img
-            chunks.append((k, center, saved))
+                state, ids, saved = _forward_chunk(bounce, rays, dev, max_bounces=max_bounces,
+                                                   sched=sched, shrink_at=shrink_at,
+                                                   cell_bits=2, record=True)
+                with span("rt.assemble"):
+                    rad = _radiance_by_id(state, ids, ray0)
+                    if ax is not None:
+                        rad = ax.all_gather(rad.T).T
+                    img = _sum_samples(rad, n_pix, k)
+                    total = img if total is None else total + img
+                chunks.append((k, center, saved))
         # ---- loss and pixel cotangent (pre-gamma), as the blockwise step ----
-        diff = total.reshape(h, w, 3) * float(np.float32(1.0 / spp)) - tgt
-        loss = torch.mean(diff ** 2)
-        cot_pix = (2.0 * diff / (3.0 * n_pix * spp)).reshape(n_pix, 3)
+        with span("rt.loss"):
+            diff = total.reshape(h, w, 3) * float(np.float32(1.0 / spp)) - tgt
+            loss = torch.mean(diff ** 2)
+            cot_pix = (2.0 * diff / (3.0 * n_pix * spp)).reshape(n_pix, 3)
         # ---- reverse: bounce B-1 down to 0, cotangents by ray id ----
-        acc = tuple(torch.zeros(s, dtype=torch.float64, device=dev)
-                    for s in ((9, counts[0]), (5, counts[1]), (16,)))
-        for ci, (k, center, saved) in enumerate(chunks):
-            ray0, rays = rays_of(k)
-            cot = torch.zeros((9, rays), dtype=torch.float32, device=dev)
-            for b in reversed(range(max_bounces)):
-                state, ids, words, limit = saved[b]
-                wf_rev(s_tab, p_tab, counts, cam, seeds[ci], state, ids, words, limit, cot,
-                       cot_pix, bounce=b, center_sample=center, out=acc, ray0=ray0,
-                       total=n_pix * k, **kw)
-        acc = _sum_over(ax, acc)
-        return loss, _assemble_grads(*(a.float() for a in acc), s_mat, p_mat, *tables)
+        with span("rt.reverse"):
+            acc = tuple(torch.zeros(s, dtype=torch.float64, device=dev)
+                        for s in ((9, counts[0]), (5, counts[1]), (16,)))
+            for ci, (k, center, saved) in enumerate(chunks):
+                ray0, rays = rays_of(k)
+                cot = torch.zeros((9, rays), dtype=torch.float32, device=dev)
+                for b in reversed(range(max_bounces)):
+                    state, ids, words, limit = saved[b]
+                    wf_rev(s_tab, p_tab, counts, cam, seeds[ci], state, ids, words, limit, cot,
+                           cot_pix, bounce=b, center_sample=center, out=acc, ray0=ray0,
+                           total=n_pix * k, **kw)
+            acc = _sum_over(ax, acc)
+            return loss, _assemble_grads(*(a.float() for a in acc), s_mat, p_mat, *tables)
 
     return run, len(ks)
 
@@ -475,11 +480,12 @@ def make_wf_train_step(
                                  axis=axis)
 
     def step(params, seed: int):
-        seeds = _upload(_train_seeds(seed, n_chunks).reshape(-1, 1), dev)
-        loss, grads = run(*build(params), seeds, True)
-        for k, p in params.items():
-            p.grad = grads[k]
-        optimizer.step()
-        return loss
+        with span("rt.step", root=True):
+            seeds = _upload(_train_seeds(seed, n_chunks).reshape(-1, 1), dev)
+            loss, grads = run(*build(params), seeds, True)
+            for k, p in params.items():
+                p.grad = grads[k]
+            optimizer.step()
+            return loss
 
     return step

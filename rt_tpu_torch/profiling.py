@@ -13,22 +13,131 @@ a device time or nothing.
 :class:`RenderTimer` times one render on the host's clock (waiting for the
 device of its result) into :data:`counters`; :func:`trace` records a
 ``torch.profiler`` Chrome trace around a block.
+
+:func:`span` marks the program's layer boundaries (``rt.frame/<n>``,
+``rt.step/<n>``, ``rt.route/<route>``, ``rt.tables``, ``rt.upload``,
+``rt.bounce/<b>``, ``rt.sort``, ``rt.assemble``, ``rt.forward``,
+``rt.loss``, ``rt.reverse``) as ``torch.profiler.record_function`` events,
+only while a profiler session records: any ``torch.profiler`` session,
+:func:`trace` among them, puts them on the device trace's clock beside the
+kernels they launch.  While a session records, the wavefront kernel's
+wrapper also keeps each bounce's live-ray count, which :func:`live_rays`
+reads into :data:`counters` (``wf.live_rays/<b>``) once the session has
+stopped.  Neither adds device work inside the session.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import tempfile
 import time
 import warnings
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 __all__ = ["RenderTimer", "trace", "counters", "mrays_per_sec", "sustained", "interleaved",
-           "device_times"]
+           "device_times", "span", "recording", "live_rays"]
 
 counters: dict[str, float] = {}
+
+
+# ---------------------------------------------------------------------------
+# spans and the live-ray counter
+# ---------------------------------------------------------------------------
+
+class _Off:
+    """The span every site gets while no profiler session records."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        return False
+
+
+OFF = _Off()
+_root_calls = itertools.count(1)
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` session is recording in this process
+    (the flag ``torch.profiler.profile`` sets on entry and clears on
+    exit)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str, suffix=None, *, root: bool = False):
+    """The context of one span of the program: :data:`OFF`, shared by every
+    site, while no profiler session records (a site then allocates nothing,
+    reads no clock and formats no name); else
+    ``torch.profiler.record_function`` named ``name``, ``name/<suffix>``,
+    or, with ``root``, ``name/<n>``, n this process's sequence number of
+    traced units, so that the spans of one frame or step share an
+    identifier."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return OFF
+    if root:
+        suffix = next(_root_calls)
+    return torch.profiler.record_function(name if suffix is None else f"{name}/{suffix}")
+
+
+_LIVE = "wf.live_rays/"
+_live_pending: list = []   # (bounce, int or tensor whose sum is the count), not yet read
+_live_read = False         # the tally was read: the next count starts a new one
+
+
+def count_live(bounce: int, n) -> None:
+    """Adds ``n`` live rays entering ``bounce`` to the counter: an int, or a
+    tensor whose sum is the count (the wavefront kernel's (1,) live count
+    on the card, the plain version's live mask), kept as it is and summed
+    by :func:`live_rays`.  Call it only while :func:`recording`; the first
+    count after a read starts a new tally."""
+    if _live_read:
+        _reset_live()
+    _live_pending.append((bounce, n))
+
+
+def _reset_live() -> None:
+    global _live_read
+    _live_pending.clear()
+    for k in [k for k in counters if k.startswith(_LIVE)]:
+        del counters[k]
+    _live_read = False
+
+
+def live_rays() -> tuple[int, ...]:
+    """The live rays that entered each bounce (index b) of the wavefront
+    frames and steps traced since the counts were last read, bounce 0
+    counting the rays it generated; ``()`` if none ran.  Reads the kept
+    device counts with one synchronisation a device, folds them into
+    :data:`counters` (``wf.live_rays/<b>``) and keeps the result until a
+    later traced bounce starts a new tally.  Raises while a profiler session
+    records: the read would add device work to its trace."""
+    global _live_read
+    if recording():
+        raise RuntimeError("live_rays(): read the counts after the profiler session stops")
+    by_device: dict = {}
+    for _, n in _live_pending:
+        if isinstance(n, torch.Tensor):
+            by_device.setdefault(n.device, []).append(n)
+    values = {}
+    for ts in by_device.values():
+        sums = torch.stack([t.sum(dtype=torch.int64) for t in ts]).tolist()
+        values.update((id(t), v) for t, v in zip(ts, sums))
+    for b, n in _live_pending:
+        key = f"{_LIVE}{b}"
+        counters[key] = counters.get(key, 0) + (values[id(n)] if isinstance(n, torch.Tensor)
+                                                else int(n))
+    _live_pending.clear()
+    _live_read = True
+    bounces = [int(k[len(_LIVE):]) for k in counters if k.startswith(_LIVE)]
+    return tuple(int(counters.get(f"{_LIVE}{b}", 0)) for b in range(max(bounces, default=-1) + 1))
+
 
 # Why a profiler session on the card can come back without device events.
 # On an H100 with torch 2.11, one process ran sessions of 10,000, 100,000
@@ -139,7 +248,7 @@ def device_times(step, iters: int = 20) -> dict:
     ms = {}
     for e in prof.key_averages():
         total_us = getattr(e, "device_time_total", 0)
-        if e.device_type.name == "CUDA" and total_us > 0:
+        if _on_device(e) and total_us > 0:
             ms[e.key] = total_us / 1e3 / iters
     if not ms:
         raise RuntimeError(f"device_times(): the profiler recorded no device event; "
@@ -213,7 +322,9 @@ def trace(log_dir: str | None = None):
     ``counters["trace.device_events"]`` counts its device events.  A trace
     that asked for CUDA activity and holds no device event warns: either
     the block ran nothing on the card or the profiler lost its events
-    (:data:`LOST_EVENTS`).
+    (:data:`LOST_EVENTS`).  The trace holds the program's spans
+    (:func:`span`), and ``counters["wf.live_rays/<b>"]`` the block's
+    live-ray counts (:func:`live_rays`).
     Yields ``log_dir``."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -223,6 +334,7 @@ def trace(log_dir: str | None = None):
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(log_dir, exist_ok=True)
     prof = profile(activities=activities)
+    _reset_live()
     prof.start()
     try:
         yield log_dir
@@ -230,6 +342,7 @@ def trace(log_dir: str | None = None):
         if cuda:
             torch.cuda.synchronize()
         prof.stop()
+        live_rays()
         path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
         prof.export_chrome_trace(path)
         n = _device_events(prof.events())
@@ -240,6 +353,12 @@ def trace(log_dir: str | None = None):
                           RuntimeWarning, stacklevel=3)
 
 
+def _on_device(e) -> bool:
+    """Whether a profiler event ran on the card: a kernel, copy or set, and
+    not the device-side range of a span (:func:`span`)."""
+    return e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)
+
+
 def _device_events(events) -> int:
     """The profiler events that ran on the card (kernels, copies, sets)."""
-    return sum(e.device_type.name == "CUDA" for e in events)
+    return sum(_on_device(e) for e in events)

@@ -33,6 +33,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+from .profiling import span
+
 __all__ = [
     "Description",
     "install",
@@ -162,7 +164,9 @@ def _install_builtins() -> None:
             def render(scene, size, key=None, *, seed: int = 0, **opts):
                 from .ops.render import render_forward
 
-                return render_forward(scene, size, seed=seed, personality=personality, **opts)
+                with span("rt.frame", root=True):
+                    return render_forward(scene, size, seed=seed, personality=personality,
+                                          **opts)
             return render
         return factory
 
@@ -171,8 +175,9 @@ def _install_builtins() -> None:
             def render(scene, size, key=None, *, seed: int = 0, **opts):
                 from .ops.blockwise import render_forward_blockwise
 
-                return render_forward_blockwise(scene, size, seed=seed, personality=personality,
-                                                **opts)
+                with span("rt.frame", root=True):
+                    return render_forward_blockwise(scene, size, seed=seed,
+                                                    personality=personality, **opts)
             return render
         return factory
 
@@ -181,8 +186,9 @@ def _install_builtins() -> None:
             def render(scene, size, key=None, *, seed: int = 0, **opts):
                 from .ops.wavefront import render_forward_wavefront
 
-                return render_forward_wavefront(scene, size, seed=seed, personality=personality,
-                                                **opts)
+                with span("rt.frame", root=True):
+                    return render_forward_wavefront(scene, size, seed=seed,
+                                                    personality=personality, **opts)
             return render
         return factory
 
@@ -196,18 +202,22 @@ def _install_builtins() -> None:
                 from .ops.wavefront import render_forward_wavefront
 
                 include_boxes = opts.get("include_boxes", False)
-                route = auto_route(scene, torch.device(device).type, include_boxes)
-                if route == "jnp":
-                    from .log import warn_once
+                with span("rt.frame", root=True):
+                    # the route names its span, so the choice (host arithmetic
+                    # on the scene's counts) precedes it
+                    route = auto_route(scene, torch.device(device).type, include_boxes)
+                    with span("rt.route", route):
+                        if route == "jnp":
+                            from .log import warn_once
 
-                    warning = _jnp_warning(scene, include_boxes)
-                    warn_once(("auto", personality, warning), warning)
-                    return _tracer(personality)()(scene, size, key, seed=seed, device=device,
-                                                  **opts)
-                fwd = {"pallas": render_forward, "blockwise": render_forward_blockwise,
-                       "wavefront": render_forward_wavefront}[route]
-                return fwd(scene, size, seed=seed, personality=personality, device=device,
-                           **opts)
+                            warning = _jnp_warning(scene, include_boxes)
+                            warn_once(("auto", personality, warning), warning)
+                            return _tracer(personality)()(scene, size, key, seed=seed,
+                                                          device=device, **opts)
+                        fwd = {"pallas": render_forward, "blockwise": render_forward_blockwise,
+                               "wavefront": render_forward_wavefront}[route]
+                        return fwd(scene, size, seed=seed, personality=personality,
+                                   device=device, **opts)
             return render
         return factory
 

@@ -873,6 +873,71 @@ def test_profiler_sessions_report_device_events(cuda, tmp_path):
                                                                       iters=2))
 
 
+def test_spans_share_the_device_clock(cuda, tmp_path):
+    """A wavefront frame traced with ``profiling.trace``: every launch of the
+    frame lies inside its ``rt.frame`` span, each bounce's kernel starts
+    after its ``rt.bounce/<b>`` span opens (the host's spans and the card's
+    events on one clock), the trace still counts its device events and
+    ``device_times`` its kernels (not the spans' device ranges), and the
+    live rays counted on the card are those the benchmark's reference
+    traces at the same scene and draws."""
+    import json
+    from pathlib import Path
+
+    from rt_tpu_torch import profiling
+    from rt_tpu_torch import renderer as treg
+    from rtbench import inputs
+    from rtbench import reference as R
+    from rtbench.drive import port_scene
+
+    config = json.loads((Path(__file__).resolve().parent.parent / "rtbench" / "configs"
+                         / "cfg5-proc5000.json").read_text())
+    config.update(name="small", resolution=[64, 48], samples_per_pixel=2, max_bounces=4)
+    config["scene"]["spheres"] = 64
+    arrays = inputs.scene_arrays(config)
+    scene = port_scene(arrays, config)
+    size, kw = (64, 48), dict(seed=12345, spp=2, max_bounces=4, device=cuda)
+    render = treg.create("mg_wavefront")
+    render(scene, size, **kw)  # the kernel's build, outside the trace
+    torch.cuda.synchronize()
+    with profiling.trace(str(tmp_path)) as d:
+        render(scene, size, **kw)
+    counts = profiling.live_rays()
+    [path] = Path(d).glob("trace_*.json")
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "ts" in e and "dur" in e]
+    host = [e for e in events if e.get("cat") == "user_annotation"]
+    [frame] = [e for e in host if e["name"].startswith("rt.frame/")]
+    f0, f1 = float(frame["ts"]), float(frame["ts"]) + float(frame["dur"])
+    launches = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "Launch" in e["name"]]
+    assert launches and all(f0 <= float(e["ts"]) and float(e["ts"]) + float(e["dur"]) <= f1
+                            for e in launches)
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    assert device and all(float(e["ts"]) >= f0 for e in device)
+    # the spans' ranges on the card are not counted as its work
+    assert any(e.get("cat") == "gpu_user_annotation" for e in events)
+    assert profiling.counters["trace.device_events"] == len(device)
+    assert not any(k.startswith("rt.") for k in
+                   profiling.device_times(lambda i: render(scene, size, **kw), iters=2))
+    bounces = sorted((e for e in host if e["name"].startswith("rt.bounce/")),
+                     key=lambda e: float(e["ts"]))
+    kernels = sorted((e for e in device if "wf_gen_kernel" in e["name"]
+                      or "wf_bounce_kernel" in e["name"]), key=lambda e: float(e["ts"]))
+    assert [e["name"] for e in bounces] == [f"rt.bounce/{b}" for b in range(4)]
+    assert len(kernels) == 4
+    for b, (s, k) in enumerate(zip(bounces, kernels)):
+        assert ("wf_gen_kernel" if b == 0 else "wf_bounce_kernel") in k["name"]
+        assert float(k["ts"]) >= float(s["ts"]), b
+    cnt = R.new_counts()
+    cam = R.camera_vector(arrays["camera_position"], arrays["camera_direction"], size,
+                          inputs.VFOV, inputs.NEAR)
+    n_pix = size[0] * size[1]
+    R.render_sums(R.Tables(arrays, cuda), cam, size, 4, R.frame_plan(12345, 2, n_pix),
+                  torch.arange(n_pix, device=cuda), cnt)
+    assert counts[0] == n_pix * 2 and sum(counts) == int(cnt["live"])
+
+
 # ---- rows 5, 7, 8 and 9 with a global offset (the sharded routes) ----
 
 
