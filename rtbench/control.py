@@ -8,7 +8,12 @@ size: the reference put in the program's place, judged by the same check.
 * ``altered``: the answer altered where it is produced (a frame times
   1.01; the albedo gradient times 1.5);
 * ``unchanged``: a unit that returns its state unchanged (every frame the
-  first one; steps that never update the parameter).
+  first one; steps that never update the parameter);
+* ``drop_rank`` (a cell of several ranks): the last rank's sums left out
+  of the exchange, so that its pixels are missing from the gradient;
+* ``no_exchange`` (a cell of several ranks): no exchange at all, each
+  rank's replica stepping on its own pixels' gradient (the check reads
+  rank 0's replica, and how far the others' parameters lie from it).
 
 Their numbers set the upper reading of each limit.  The benchmark's runs
 do not run this::
@@ -31,12 +36,12 @@ import torch
 
 from . import core, inputs
 from . import reference as R
-from .drive import GENERATORS
+from .drive import GENERATORS, shard_pixels
 
 ROOT = core.ROOT
 
 
-FAULTS = ("control", "half_batch", "altered", "unchanged")
+FAULTS = ("control", "half_batch", "altered", "unchanged", "drop_rank", "no_exchange")
 
 
 def _frames_fault(gen, fault):
@@ -65,39 +70,55 @@ def _frames_fault(gen, fault):
 def _steps_fault(gen, fault, plan):
     """The first steps of the job as the faulty stand-in takes them
     (float64 Adam on its gradients): the losses, the first gradient and the
-    parameter after them."""
-    dtype = torch.bfloat16 if fault == "control" else torch.float32
-    spp = max(1, gen.spp // 2) if fault == "half_batch" else gen.spp
+    parameter after them; for ``no_exchange`` those of rank 0's replica,
+    and the widest gap between a replica's parameter and rank 0's."""
     tr = gen.traffic
+    ranks = tr.get("ranks", 1)
+    if fault in ("drop_rank", "no_exchange") and ranks < 2:
+        raise ValueError(f"{fault} needs a cell of several ranks")
+    band = shard_pixels(gen.n_pix, ranks, 0)[1]
     m = gen.arrays["albedo"].shape[0]
     gen.target = inputs.target_image(gen.size, gen.seed, gen.device, tuple(tr["target_cells"]))
     gen.p0 = torch.full((m, 4), tr["init"], dtype=torch.float32)
+    gen.check_seeds = [gen.take_seed() for _ in range(tr["check"]["steps"])]
+    if fault == "drop_rank":
+        pixels = [(0, (ranks - 1) * band)]
+    elif fault == "no_exchange":   # each rank steps on its own band's sums
+        pixels = [(r * band, band) for r in range(ranks)]
+    else:
+        pixels = [None]
+    replicas = [_replica(gen, fault, plan, px) for px in pixels]
+    gen.losses, gen.g1, gen.p_after = replicas[0]
+    gen.replica_gap = max(float((p - gen.p_after).abs().max()) for _, _, p in replicas)
+
+
+def _replica(gen, fault, plan, grad_pixels):
+    """``(losses, first gradient, parameter after)`` of one replica of the
+    stand-in, its gradient taken on ``grad_pixels`` (None: every pixel)."""
+    dtype = torch.bfloat16 if fault == "control" else torch.float32
+    spp = max(1, gen.spp // 2) if fault == "half_batch" else gen.spp
     p = gen.p0.double().to(gen.device)
     mo, vo = torch.zeros_like(p), torch.zeros_like(p)
-    gen.check_seeds, gen.losses = [], []
-    for k in range(tr["check"]["steps"]):
-        seed = gen.take_seed()
-        gen.check_seeds.append(seed)
+    losses, g1 = [], None
+    for k, seed in enumerate(gen.check_seeds):
         tab = R.Tables(gen.arrays, gen.device, dtype, albedo=p.float().cpu().numpy())
         loss, grad = R.loss_and_grad(tab, gen.cam(), gen.size, spp, gen.depth,
-                                     R.STEP_PLANS[plan](seed, spp, gen.n_pix), gen.target)
+                                     R.STEP_PLANS[plan](seed, spp, gen.n_pix), gen.target,
+                                     grad_pixels=grad_pixels)
         g = torch.zeros_like(p)
         g[:, :3] = grad * (1.5 if fault == "altered" else 1.0)
         if k == 0:
-            gen.g1 = (g * (fault != "unchanged")).float().cpu()
-        gen.losses.append(loss)
+            g1 = (g * (fault != "unchanged")).float().cpu()
+        losses.append(loss)
         if fault != "unchanged":
-            R.adam_update(p, g, mo, vo, k + 1, tr["lr"])
-    gen.p_after = p.float().cpu()
+            R.adam_update(p, g, mo, vo, k + 1, gen.traffic["lr"])
+    return losses, g1, p.float().cpu()
 
 
 def control_checks(cell_name: str, seed: int, *, root: Path = ROOT, device="cuda",
                    fault: str = "control", plan: str = "per_sample") -> list:
     """``[(name, value, limit)]`` of the stand-in ``fault`` at ``seed``."""
-    bench = core.load_benchmark(root)
-    cell = core.find(bench["workloads"], cell_name, "workload")
-    config = core.load_config(root, core.find(bench["configs"], cell["config"], "configuration"))
-    traffic = core.load_traffic(root, cell["traffic"])
+    _, _, config, traffic = core.load_cell(root, cell_name)
     limits = core.load_limits(root, cell_name)
     gen = GENERATORS[traffic["kind"]](config, traffic, seed, torch.device(device))
     if traffic["kind"] == "frames":

@@ -56,6 +56,15 @@ def load_limits(root: Path, cell: str) -> dict:
     return json.loads((root / "rtbench" / "limits" / f"{cell}.json").read_text())
 
 
+def load_cell(root: Path, workload: str) -> tuple[dict, dict, dict, dict]:
+    """``(benchmark, cell, configuration, traffic)`` of the cell named
+    ``workload``."""
+    bench = load_benchmark(root)
+    cell = find(bench["workloads"], workload, "workload")
+    config = load_config(root, find(bench["configs"], cell["config"], "configuration"))
+    return bench, cell, config, load_traffic(root, cell["traffic"])
+
+
 def load_reader(root: Path, metric: str):
     """The ``read`` function of ``rtbench/metrics/<metric>.py``."""
     path = root / "rtbench" / "metrics" / f"{metric}.py"
@@ -156,15 +165,29 @@ def parse(argv):
     return ap.parse_args(argv)
 
 
-def run(argv, t_start: float, *, root: Path = ROOT, device=None, chips_check=True) -> int:
+def run(argv, t_start: float, *, root: Path = ROOT, device=None, chips_check=True,
+        rank_entry=None) -> int:
     """One run; returns the exit code.  ``device`` and ``chips_check`` let
-    the CPU tests drive a run without a card."""
+    the CPU tests drive a run without a card, ``rank_entry`` the function
+    that the other ranks of a cell of several run (:mod:`rtbench.ranks`)."""
     args = parse(argv)
-    bench = load_benchmark(root)
-    cell = find(bench["workloads"], args.workload, "workload")
-    config = load_config(root, find(bench["configs"], cell["config"], "configuration"))
-    traffic = load_traffic(root, cell["traffic"])
+    bench, cell, config, traffic = load_cell(root, args.workload)
+    world = None
+    if traffic.get("ranks", 1) > 1:
+        from .ranks import World
 
+        # the other ranks import and set up while this one does
+        world = World(traffic["ranks"], argv, root, "cuda" if chips_check else str(device),
+                      rank_entry)
+    try:
+        return _run(args, t_start, root, bench, cell, config, traffic, device, chips_check,
+                    world)
+    finally:
+        if world is not None:
+            world.close()
+
+
+def _run(args, t_start, root, bench, cell, config, traffic, device, chips_check, world) -> int:
     import torch
 
     from . import devtrace
@@ -184,6 +207,7 @@ def run(argv, t_start: float, *, root: Path = ROOT, device=None, chips_check=Tru
 
     gen = GENERATORS[traffic["kind"]](config, traffic, args.seed, device)
     gen.setup()
+    gen.count_window(args.seconds)
     if on_card:
         torch.cuda.synchronize(device)
     setup_s = time.perf_counter() - t_start
@@ -198,17 +222,32 @@ def run(argv, t_start: float, *, root: Path = ROOT, device=None, chips_check=Tru
     if refused_modules():
         return 3
 
-    events, traced_s = [], 0.0
+    trace, traced_s = None, 0.0
     if args.trace:
         k = traffic["profile_units"]
         if on_card:
-            events, traced_s = devtrace.run_profiled(lambda: gen.profiled(k), device)
+            trace, traced_s = devtrace.profile(lambda: gen.profiled(k), device, gen.meet)
         else:
             t0 = time.perf_counter()
             gen.profiled(k)
             traced_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+    reports = gen.reports(peak, trace)
     gen.release()
+    if world is not None and not world.join():
+        print("rtbench: a rank did not end cleanly", file=sys.stderr)
+        return 4
+    rank_events = [devtrace.read_trace(r["trace"]) if r["trace"] else [] for r in reports]
+    for r, rep in enumerate(reports):
+        if rep["refused"]:
+            print(f"rtbench: rank {r} loaded modules that the run must not load: "
+                  f"{', '.join(rep['refused'])}", file=sys.stderr)
+            return 3
+    if len(reports) > 1:
+        for r, rep in enumerate(reports):
+            print(f"rtbench: rank {r}: {rep['units']} {gen.units_name}, first losses "
+                  f"{rep['losses']!r}, peak {rep['peak']} bytes, parameter gap to rank 0 "
+                  f"{rep['gap']!r}", file=sys.stderr)
 
     limits = load_limits(root, cell["name"])
     t_check = time.perf_counter()
@@ -220,17 +259,23 @@ def run(argv, t_start: float, *, root: Path = ROOT, device=None, chips_check=Tru
     e2e = cell_metrics(bench, cell["name"], "end_to_end")
     dev = {"platform": "gpu" if on_card else device.type,
            "kind": torch.cuda.get_device_name(device) if on_card else "cpu",
-           "count": cell["chips"], "memory_peak_bytes": int(peak)}
+           "count": cell["chips"], "memory_peak_bytes": max(r["peak"] for r in reports)}
     breakdown = None
     if args.trace:
-        dev_events = devtrace.device_events(events)
-        dev["busy_s"] = devtrace.union_us(dev_events) * 1e-6
+        events = rank_events[0]
+        dev["busy_s"] = sum(devtrace.union_us(devtrace.device_events(ev))
+                            for ev in rank_events) / len(rank_events) * 1e-6
         dev["window_s"] = traced_s
+        rank_work = gen.profiled_rank_work()
+        csrc = devtrace.csrc_kernels()
+        if len(rank_events) > 1:
+            for r, ev in enumerate(rank_events):
+                print(f"rtbench: rank {r} traced, device ms a {gen.units_name[:-1]}: "
+                      + devtrace.split_ms(ev, csrc, traffic["profile_units"]), file=sys.stderr)
         ctx = types.SimpleNamespace(
             kind=gen.units_name, records=gen.records, window_s=gen.window_s,
             events=events, profiled=traffic["profile_units"],
-            csrc=devtrace.csrc_kernels(),
-            work=gen.profiled_work())
+            csrc=csrc, work=rank_work[0], rank_events=rank_events, rank_work=rank_work)
         print(f"rtbench: live work of {len(ctx.work)} profiled {gen.units_name} counted "
               f"in {time.perf_counter() - t_check - check_s:.3f} s", file=sys.stderr)
         metrics = {}

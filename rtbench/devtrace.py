@@ -45,15 +45,19 @@ def kernel_base(name: str) -> str:
     return re.split(r"[<(]", name, maxsplit=1)[0].rsplit("::", 1)[-1].strip()
 
 
-def run_profiled(fn, device) -> tuple[list, float]:
-    """Run ``fn()`` under the profiler: ``(events, seconds)``, the trace's
-    complete events (dicts with ``cat``, ``name``, ``ts`` and ``dur`` in
-    microseconds) and the session's host seconds."""
+def profile(fn, device, ready=None) -> tuple[str, float]:
+    """Run ``fn()`` under the profiler: ``(path, seconds)``, the path of
+    the session's Chrome trace (a new file under ``TMPDIR``, which
+    :func:`read_trace` deletes) and the session's host seconds, from after
+    ``ready()`` (called once the session records) to the end of ``fn``'s
+    work on the device."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as _profile
 
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        if ready is not None:
+            ready()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize(device)
@@ -62,13 +66,23 @@ def run_profiled(fn, device) -> tuple[list, float]:
     os.close(fd)
     try:
         prof.export_chrome_trace(path)
+    except BaseException:
+        os.unlink(path)
+        raise
+    return path, seconds
+
+
+def read_trace(path: str) -> list:
+    """The complete events of the Chrome trace at ``path`` (dicts with
+    ``cat``, ``name``, ``ts`` and ``dur`` in microseconds); deletes the
+    file."""
+    try:
         with open(path) as f:
             trace = json.load(f)
     finally:
         os.unlink(path)
-    events = [e for e in trace.get("traceEvents", [])
-              if e.get("ph") == "X" and "dur" in e and "ts" in e]
-    return events, seconds
+    return [e for e in trace.get("traceEvents", [])
+            if e.get("ph") == "X" and "dur" in e and "ts" in e]
 
 
 def device_events(events) -> list:
@@ -90,6 +104,24 @@ def union_us(events) -> float:
     if end is not None:
         total += end - start
     return total
+
+
+def split_ms(events, csrc, units: int) -> str:
+    """The device milliseconds a unit in the program's own kernels, in the
+    collectives' (``nccl*``) and in the rest, and the busy union, as one
+    line for the log."""
+    own = comm = rest = 0.0
+    dev = device_events(events)
+    for e in dev:
+        base = kernel_base(e["name"])
+        if base in csrc:
+            own += float(e["dur"])
+        elif base.startswith("nccl"):
+            comm += float(e["dur"])
+        else:
+            rest += float(e["dur"])
+    return (f"own kernels {own / 1e3 / units:.3f}, nccl {comm / 1e3 / units:.3f}, "
+            f"other {rest / 1e3 / units:.3f}, busy {union_us(dev) / 1e3 / units:.3f}")
 
 
 def busy_gaps(events) -> list:

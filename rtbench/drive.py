@@ -20,6 +20,7 @@ import time
 import traceback
 
 import torch
+import torch.distributed as tdist
 
 from . import counts as C
 from . import inputs
@@ -91,6 +92,30 @@ class Generator:
     def cam(self):
         return R.camera_vector(self.arrays["camera_position"], self.arrays["camera_direction"],
                                self.size, inputs.VFOV, inputs.NEAR)
+
+    def count_window(self, seconds: float):
+        """Fix what the window will do before it opens (nothing here: the
+        window runs until ``seconds`` have passed)."""
+
+    def meet(self):
+        """Wait for the other ranks on the host (one rank here: nothing)."""
+
+    def report(self, peak: int, trace) -> dict:
+        """What rank 0 needs of this rank once the profiled units are done:
+        its peak device memory, the path of its trace, the forbidden
+        modules it loaded and its units."""
+        from .core import forbidden_modules
+
+        return {"peak": int(peak), "trace": trace, "refused": forbidden_modules(),
+                "units": len(self.records)}
+
+    def reports(self, peak: int, trace) -> list:
+        """Every rank's :meth:`report`, in rank order (one rank here)."""
+        return [self.report(peak, trace)]
+
+    def profiled_rank_work(self) -> list:
+        """Each rank's :meth:`profiled_work`, in rank order (one rank here)."""
+        return [self.profiled_work()]
 
 
 class Frames(Generator):
@@ -201,6 +226,7 @@ class Steps(Generator):
     dispatched ahead, the host waiting only at the end of the window."""
 
     units_name = "steps"
+    mesh = None
 
     def setup(self):
         from rt_tpu_torch.train import make_kernel_train_step
@@ -222,7 +248,7 @@ class Steps(Generator):
         self.step = make_kernel_train_step(self.opt, self.scene, self.target, self.size,
                                            spp=self.spp, max_bounces=self.depth,
                                            personality=self.config["personality"],
-                                           device=self.device)
+                                           device=self.device, mesh=self.mesh)
         self.mark("program objects")
         # the first steps, through the window's own call: the warm-up, and
         # what the reference follows
@@ -319,13 +345,15 @@ class Steps(Generator):
         return [("loss_gap", loss_gap), ("grad_gap", grad_gap),
                 ("update_gap", _worst([abs(du - du_ref) / du_ref]))]
 
-    def profiled_work(self):
+    def profiled_work(self, first: int = 0, count: int = None):
         """The live work of each profiled step under the draw plan the
         check matched, counted by the reference (a path does not depend on
-        the albedo)."""
+        the albedo), on the pixels ``first .. first + count - 1`` (all of
+        them by default)."""
         tab = R.Tables(self.arrays, self.device)
         cam = self.cam()
-        pix = torch.arange(self.n_pix, device=self.device)
+        end = self.n_pix if count is None else max(first, min(self.n_pix, first + count))
+        pix = torch.arange(first, end, device=self.device)
         plan = R.STEP_PLANS[self.plan or "per_sample"]
         out = []
         for seed in self.profiled_seeds:
@@ -333,9 +361,124 @@ class Steps(Generator):
             R.render_sums(tab, cam, self.size, self.depth, plan(seed, self.spp, self.n_pix),
                           pix, cnt)
             out.append(C.step_cost({k: int(v) for k, v in cnt.items()},
-                                   self.arrays["n_spheres"], self.n_pix,
+                                   self.arrays["n_spheres"], end - first,
                                    self.arrays["albedo"].shape[0]))
         return out
 
 
-GENERATORS = {"frames": Frames, "steps": Steps}
+def shard_pixels(total: int, ranks: int, rank: int, quantum: int = 128) -> tuple[int, int]:
+    """The contiguous pixels a rank of the 'rays' axis traces: ``(first,
+    count)``, every rank the same count, a multiple of ``quantum``; those at
+    or past ``total`` are padding (the program's rule, worked out here
+    again so that the counts of live work do not read the program)."""
+    count = -(-(-(-total // quantum)) // ranks) * quantum
+    return rank * count, count
+
+
+class ShardedSteps(Steps):
+    """The training job of :class:`Steps` over ``ranks`` processes, one a
+    card, its rays sharded over the program's ('rays', 'prims') mesh: every
+    rank builds the same scene, target, seed stream and Adam and takes the
+    same steps; the program gathers the frame and sums the gradients
+    inside each step.  The window's steps are counted out at the end of
+    set-up, so that no collective of the benchmark's own falls inside it."""
+
+    # steps timed at the end of set-up to count out the window's steps
+    PROBE_STEPS = 8
+
+    def __init__(self, config: dict, traffic: dict, seed: int, device):
+        super().__init__(config, traffic, seed, device)
+        self.ranks = traffic["ranks"]
+        if self.ranks != math.prod(traffic["mesh"]):
+            raise ValueError(f"a {traffic['mesh']} mesh does not hold {self.ranks} ranks")
+        self.replica_gap = 0.0     # a stand-in in the program's place is one replica
+        self.count = 0
+
+    def setup(self):
+        from rt_tpu_torch import dist
+
+        self.device = dist.initialize(device=self.device.type)
+        self.mesh = dist.make_mesh(*self.traffic["mesh"])
+        # a group on the host alone, so that the ranks meet without a kernel
+        self.host_group = tdist.new_group(backend="gloo")
+        self.mark("world and mesh")
+        super().setup()
+
+    def meet(self):
+        """Wait on the host until every rank is here: the profiled steps
+        start together, whenever each rank's profiler began to record."""
+        tdist.barrier(group=self.host_group)
+
+    def count_window(self, seconds: float):
+        """Time a few more steps, dispatched ahead and closed by a
+        synchronize, and fix the window's steps at the count that fills
+        ``seconds`` on rank 0's clock (broadcast to every rank)."""
+        clock = time.perf_counter
+        t0 = clock()
+        for _ in range(self.PROBE_STEPS):
+            self.step(self.params, self.take_seed())
+        _sync(self.device)
+        per_step = (clock() - t0) / self.PROBE_STEPS
+        n = torch.tensor([max(1, round(seconds / per_step))], device=self.device)
+        tdist.broadcast(n, 0)
+        self.count = int(n.item())
+        self.mark(f"{self.PROBE_STEPS} steps timed, {self.count} to the window")
+
+    def window(self, seconds: float):
+        """The counted steps, dispatched ahead; the window ends once every
+        rank's card has finished them (a synchronize, then an all-reduce of
+        the non-finite steps that every rank waits for)."""
+        p = self.params[self.traffic["param"]]
+        bad = torch.zeros((), dtype=torch.int64, device=self.device)
+        clock = time.perf_counter
+        t0 = clock()
+        for _ in range(self.count):
+            seed = self.take_seed()
+            self.attempted += 1
+            t_req = clock()
+            loss = self.step(self.params, seed)
+            self.records.append((t_req, clock(), None))
+            bad += ~(torch.isfinite(loss) & torch.isfinite(p.grad).all())
+        _sync(self.device)
+        tdist.all_reduce(bad)
+        self.failed += int(bad)
+        self.window_s = clock() - t0
+
+    def report(self, peak: int, trace) -> dict:
+        rep = super().report(peak, trace)
+        rep["losses"] = self.losses
+        rep["albedo"] = self.params[self.traffic["param"]].detach().cpu()
+        return rep
+
+    def reports(self, peak: int, trace) -> list:
+        """Every rank's report, gathered on every rank; rank 0 takes from
+        them the largest gap between a rank's parameter and its own."""
+        out = [None] * self.ranks
+        tdist.all_gather_object(out, self.report(peak, trace))
+        for r in out:
+            r["gap"] = float((r["albedo"] - out[0]["albedo"]).abs().max())
+        self.replica_gap = max(r["gap"] for r in out)
+        return out
+
+    def release(self):
+        super().release()
+        self.mesh = self.host_group = None
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+
+    def check(self):
+        """:meth:`Steps.check` on the whole frame, and ``replica_gap``: the
+        widest gap between a rank's parameter and rank 0's after the window.
+        The ranks take the same summed sums, but each assembles its
+        gradient with float32 atomics of its own, so the replicas drift
+        apart in their last bits; a rank that steps on other sums than the
+        others lies far off."""
+        return super().check() + [("replica_gap", self.replica_gap)]
+
+    def profiled_rank_work(self) -> list:
+        """The live work of the profiled steps on each rank's pixels."""
+        return [self.profiled_work(*shard_pixels(self.n_pix, self.ranks, r))
+                for r in range(self.ranks)]
+
+
+GENERATORS = {"frames": Frames, "steps": Steps, "sharded_steps": ShardedSteps}

@@ -408,10 +408,13 @@ def frame_pixels(tab, cam, size, spp, max_bounces, seed, pix, counts=None):
     return torch.sqrt(torch.clamp_min(img, 0.0))
 
 
-def loss_and_grad(tab, cam, size, spp, max_bounces, plan, target, counts=None):
+def loss_and_grad(tab, cam, size, spp, max_bounces, plan, target, counts=None,
+                  grad_pixels=None):
     """The MSE of the plan's pre-gamma frame against ``target`` (H, W, 3)
     and its gradient with respect to the (M, 3) albedo: ``(loss, grad
-    float64 (M, 3))``."""
+    float64 (M, 3))``.  ``grad_pixels``, ``(first, count)``: the only pixels
+    whose terms the gradient takes (a fault's stand-in; the loss keeps
+    every pixel)."""
     counts = new_counts() if counts is None else counts
     w, h = size
     n = w * h
@@ -421,6 +424,10 @@ def loss_and_grad(tab, cam, size, spp, max_bounces, plan, target, counts=None):
     diff = total * float(np.float32(1.0 / spp)) - target.reshape(n, 3).to(tab.dtype)
     loss = torch.mean(diff.double() ** 2)
     cot = (2.0 * diff.double() / (3.0 * n * spp))
+    if grad_pixels is not None:
+        first, count = grad_pixels
+        cot[:first] = 0.0
+        cot[first + count:] = 0.0
     grad = torch.zeros((tab.n_mat, 3), dtype=torch.float64, device=target.device)
     for rad, mt in zip(rads, mats):
         wgt = cot * rad.double()

@@ -22,7 +22,8 @@ def test_every_name_has_its_file():
         for key in c["reduced"]:
             assert cfg[key] != cfg["source_values"][key]
     for w in BENCH["workloads"]:
-        assert core.load_traffic(ROOT, w["traffic"])["kind"] in ("frames", "steps")
+        assert core.load_traffic(ROOT, w["traffic"])["kind"] in ("frames", "steps",
+                                                                  "sharded_steps")
         assert core.load_limits(ROOT, w["name"])
     for m in BENCH["per_layer"]:
         assert callable(core.load_reader(ROOT, m["name"]))
@@ -32,7 +33,7 @@ def test_cell_metrics():
     for cell in CELLS:
         e2e = {m["name"] for m in core.cell_metrics(BENCH, cell, "end_to_end")}
         layer = core.cell_metrics(BENCH, cell, "per_layer")
-        kind = cell.rsplit(".", 1)[1]
+        kind = cell.rsplit(".", 1)[1].split("-")[0]   # train-x4: a training cell
         assert "setup_s" in e2e and len(e2e) >= 2
         assert layer and all(m["name"].endswith("." + kind) for m in layer)
         assert all(m["moves"] in e2e for m in layer)

@@ -143,3 +143,29 @@ def test_span_readers_on_a_real_cpu_trace(tmp_path):
     idle = core.load_reader(ROOT, "program_idle_ms.serve")(ctx)
     assert 0.0 < tables < idle
     assert idle == pytest.approx(sum(float(e["dur"]) for e in frames) / 2e3)
+
+
+# every reader of the four one-rank cells on the made-up traces above, as
+# the parent of the four-card cell read them
+PRESENT = [
+    ("enqueue_ms.serve", "frames", 1.5), ("enqueue_ms.train", "steps", 1.5),
+    ("glue_device_ms.serve", "frames", 0.1), ("glue_device_ms.train", "steps", 0.0),
+    ("kernel_roofline.serve", "frames", 363.6363636363636),
+    ("kernel_roofline.train", "steps", 235.29411764705884),
+    ("device_idle.serve", "frames", 94.0), ("device_idle.train", "steps", 91.5),
+    ("tables_host_ms.serve", "frames", 0.3), ("host_wait_ms.train", "steps", 0.3),
+    ("program_idle_ms.serve", "frames", 0.5), ("program_idle_ms.train", "steps", 0.15),
+    ("live_ray_ns.serve", "frames", 10000.0),
+]
+
+
+@pytest.mark.parametrize("metric,kind,want", PRESENT)
+def test_present_readers_read_as_before(live_counts, metric, kind, want):
+    """The same value, bit for bit, whether the context carries the ranks'
+    lists as a run of one rank now builds it or not."""
+    events = _frames() if kind == "frames" else _steps()
+    read = core.load_reader(ROOT, metric)
+    ctx = _ctx(kind, events, 2)
+    assert read(ctx) == want
+    ctx.rank_events, ctx.rank_work = [ctx.events], [ctx.work]
+    assert read(ctx) == want
