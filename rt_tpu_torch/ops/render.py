@@ -653,17 +653,19 @@ def _chunked_frame(launch, cam, seed: int, spp: int, frames: int, gamma: bool, d
     """The frame of ``spp`` samples from calls of at most ``chunk`` samples,
     ``launch(cam, seeds, k, center_sample) -> sum of k samples``: chunk
     seeds from :func:`_chunk_seeds` (uploaded in one copy), the chunk sums
-    added in chunk order, times float32(1/spp), then gamma (sqrt)."""
+    added in chunk order, times float32(1/spp), then gamma (sqrt).  Chunk
+    i's launch and its addition run inside the span ``rt.chunk/<i>``."""
     chunks = [min(chunk, spp - s) for s in range(0, spp, chunk)]
     seeds = _upload(_chunk_seeds(seed, len(chunks), frames), dev)
     total = None
     for ci, k in enumerate(chunks):
-        out = launch(cam, seeds[ci], k, ci == 0)
-        if total is None:
-            total = out
-        else:
-            with span("rt.assemble"):
-                total = total + out
+        with span("rt.chunk", ci):
+            out = launch(cam, seeds[ci], k, ci == 0)
+            if total is None:
+                total = out
+            else:
+                with span("rt.assemble"):
+                    total = total + out
     with span("rt.assemble"):
         img = total * float(np.float32(1.0 / spp))
         if gamma:

@@ -16,7 +16,7 @@ device of its result) into :data:`counters`; :func:`trace` records a
 
 :func:`span` marks the program's layer boundaries (``rt.frame/<n>``,
 ``rt.step/<n>``, ``rt.route/<route>``, ``rt.tables``, ``rt.upload``,
-``rt.bounce/<b>``, ``rt.sort``, ``rt.assemble``, ``rt.forward``,
+``rt.chunk/<i>``, ``rt.bounce/<b>``, ``rt.sort``, ``rt.assemble``, ``rt.forward``,
 ``rt.loss``, ``rt.reverse``) as ``torch.profiler.record_function`` events,
 only while a profiler session records: any ``torch.profiler`` session,
 :func:`trace` among them, puts them on the device trace's clock beside the

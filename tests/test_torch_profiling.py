@@ -153,16 +153,17 @@ def _train_step(make):
     return lambda seed: step(params, seed)
 
 
-def _frame(name):
+def _frame(name, spp=2):
     scene = _tiny_scene()
     render = rt_tpu_torch.renderer.create(name)
-    return lambda seed: render(scene, (8, 6), seed=seed, spp=2, max_bounces=3, device="cpu")
+    return lambda seed: render(scene, (8, 6), seed=seed, spp=spp, max_bounces=3, device="cpu")
 
 
 def _unit(case):
     from rt_tpu_torch.ops import blockwise_grad, wavefront_grad
 
     return {"mg_wavefront": lambda: _frame("mg_wavefront"),
+            "mg_wavefront_2chunks": lambda: _frame("mg_wavefront", spp=8),
             "mg_auto": lambda: _frame("mg_auto"),
             "bw_step": lambda: _train_step(blockwise_grad.make_bw_train_step),
             "wf_step": lambda: _train_step(wavefront_grad.make_wf_train_step)}[case]()
@@ -172,11 +173,15 @@ BOUNCES = {"rt.bounce/0", "rt.bounce/1", "rt.bounce/2", "rt.sort", "rt.assemble"
 
 
 @pytest.mark.parametrize("case,root,spans", [
-    ("mg_wavefront", "rt.frame", {"rt.tables", "rt.upload"} | BOUNCES),
-    ("mg_auto", "rt.frame", {"rt.route/pallas", "rt.tables", "rt.upload", "rt.assemble"}),
+    ("mg_wavefront", "rt.frame", {"rt.tables", "rt.upload", "rt.chunk/0"} | BOUNCES),
+    ("mg_auto", "rt.frame",
+     {"rt.route/pallas", "rt.tables", "rt.upload", "rt.chunk/0", "rt.assemble"}),
     ("bw_step", "rt.step", {"rt.tables", "rt.upload", "rt.forward", "rt.loss", "rt.reverse"}),
     ("wf_step", "rt.step", {"rt.tables", "rt.upload", "rt.forward", "rt.loss", "rt.reverse"}
      | BOUNCES),
+    # 8 samples: two chunks of four
+    ("mg_wavefront_2chunks", "rt.frame",
+     {"rt.tables", "rt.upload", "rt.chunk/0", "rt.chunk/1"} | BOUNCES),
 ])
 def test_spans_nest_under_their_root(tmp_path, case, root, spans):
     """Two units under a CPU profiler session: each opens one root span
