@@ -98,14 +98,18 @@ Phases (an exception in any phase exits non-zero before the result line):
    peak device memory is printed); and bench.py's gradient check through
    bw_mse_loss_and_grad.  The wavefront
    route, on BASELINE config 5's slice (5000 spheres, 960x540, 2 spp,
-   depth 8): the CLI (mg_auto) renders it with 8 wavefront launches, equal
-   to render_forward_blockwise's frame at the same seed (torch.equal); the
+   depth 8): the CLI (mg_wavefront) renders it with 8 wavefront launches, equal
+   to render_forward_blockwise's frame at the same seed (torch.equal), and
+   the CLI's mg_auto renders the same frame with 1 blockwise launch; the
    wavefront step at 1 spp and seed S*100003 against the blockwise step at
-   seed S (matched draws): equal loss, gradients within 2e-4 x max|g|; 6
-   steps of train.make_kernel_train_step (Adam on materials.albedo at lr
+   seed S (matched draws): equal loss, gradients within 2e-4 x max|g|; 5
+   steps of ops.wavefront_grad.make_wf_train_step (Adam on materials.albedo at lr
    5e-2 from 0.5, the target rendered at the true albedo): the loss must
    fall, each step must launch 8 forward and 8 reverse kernels, copy
-   nothing to the card but the chunk seeds and build nothing.  The records
+   nothing to the card but the chunk seeds and build nothing; 5 steps of
+   train.make_kernel_train_step (the blockwise step) from the same start:
+   the loss must fall, each step must launch 2 blockwise and 2 gradient
+   kernels and build nothing.  The records
    route (diff.records_loss_and_grad; TF32 must be off): (a) at the
    headline shape (basic.toml 800x600, 4 spp, depth 8; 1 record launch)
    against mse_loss_and_grad at the same seed (the mono kernel; the same
@@ -209,9 +213,10 @@ Phases (an exception in any phase exits non-zero before the result line):
    kernel); then ``interactive`` through a pty with mg_auto at 192x108:
    '+' cycles to sm_auto, 'w' moves, 'q' quits with rc 0.  (f)
    ``python -m rt_tpu_torch.render_4k`` at 3840x2160 and 8 spp (two chunks
-   of 4 samples, 33,177,600 rays each): the chunk it reports, its time,
-   Mrays/s and peak device memory, a finite frame equal (torch.equal) to
-   the same render with a sort before every bounce; then one chunk at
+   of 4 samples, 33,177,600 rays each, through mg_auto's blockwise route):
+   the route and chunk it reports, 2 blockwise launches, its time, Mrays/s
+   and peak device memory, a finite frame equal (torch.equal) to the
+   wavefront route's with a sort before every bounce; then one chunk at
    that width through the wavefront kernel (bounce 0, and bounce 2 under
    its live-prefix limit) bit for bit with wf_bounce_plain: the
    5000-sphere chunk on ~45,000 columns across its ids (the first, the
@@ -236,7 +241,9 @@ Phases (an exception in any phase exits non-zero before the result line):
    config 4 (500 spheres, 1920x1080, 4 spp, depth 8) and
    ``render_forward_wavefront_sharded`` at the config-5 slice (5000
    spheres, 960x540, 2 spp, depth 8) torch.equal to the unsharded routes;
-   ``train.make_kernel_train_step(mesh=)`` on both scenes (4 and 2 spp;
+   ``train.make_kernel_train_step(mesh=)`` on config 4 and on the
+   config-5 slice (the blockwise step) and ``make_wf_train_step(mesh=)``
+   on the config-5 slice (4, 2 and 2 spp;
    SGD at lr 0, the step's gradients read from .grad): the loss equal to
    the unmeshed step's and the gradients within 1e-5 x L1 (the sum of the
    unmeshed gradient's magnitudes); ``dist.render_image_sharded`` on
@@ -1790,10 +1797,10 @@ def wavefront_main_paths(scenes, report):
     with tempfile.TemporaryDirectory() as tmp:
         npy = Path(tmp) / "proc5000.npy"
         reset()
-        rc = cli_main(["--procedural", "5000", "--renderer", "mg_auto", "--size", "960x540",
-                       "--spp", str(spp), "--bounces", str(depth), "--device", "cuda", "--out",
-                       str(npy)])
-        read("cli mg_auto --procedural 5000 960x540 2spp d8", wf_bounce=depth)
+        rc = cli_main(["--procedural", "5000", "--renderer", "mg_wavefront", "--size",
+                       "960x540", "--spp", str(spp), "--bounces", str(depth), "--device", "cuda",
+                       "--out", str(npy)])
+        read("cli mg_wavefront --procedural 5000 960x540 2spp d8", wf_bounce=depth)
         check(rc == 0, f"cli exited with {rc}")
         frame = np.load(npy)
         check(frame.shape == (540, 960, 3) and np.isfinite(frame).all(),
@@ -1803,8 +1810,19 @@ def wavefront_main_paths(scenes, report):
         check(np.array_equal(frame, ref),
               "the wavefront frame is not the blockwise kernel's at the same seed")
         out["cli_5000_mean"] = float(frame.mean())
-        log(f"[4] 5000-sphere 960x540 frame through the wavefront route (mg_auto), mean "
+        log(f"[4] 5000-sphere 960x540 frame through the wavefront route (mg_wavefront), mean "
             f"{frame.mean():.4f}: equal to render_forward_blockwise's (torch.equal)")
+        # the CLI's default kernel renderer on the same slice: auto_route's blockwise
+        reset()
+        rc = cli_main(["--procedural", "5000", "--renderer", "mg_auto", "--size", "960x540",
+                       "--spp", str(spp), "--bounces", str(depth), "--device", "cuda", "--out",
+                       str(npy)])
+        read("cli mg_auto --procedural 5000 960x540 2spp d8", blockwise_kernel=1)
+        check(rc == 0, f"cli exited with {rc}")
+        auto = np.load(npy)
+        check(np.array_equal(auto, frame), "mg_auto's 5000-sphere frame is not mg_wavefront's")
+        log("[4] 5000-sphere 960x540 frame through mg_auto (the blockwise route): equal to "
+            "mg_wavefront's (torch.equal)")
 
     # the training target and start of examples/big_scene_training.py
     target = WF.render_forward_wavefront(scene, size, seed=0, spp=spp, max_bounces=depth,
@@ -1827,10 +1845,11 @@ def wavefront_main_paths(scenes, report):
     check(max(rel.values()) <= 2e-4, "the wavefront and blockwise steps' gradients differ")
     out.update(matched_loss=lw.item(), matched_grad_rel=rel)
 
-    # the config-5 train step through the JAX package's router
+    # the config-5 wavefront train step, by name (make_kernel_train_step
+    # builds the blockwise step)
     opt = torch.optim.Adam(list(params.values()), lr=5e-2, foreach=True)
-    step = train.make_kernel_train_step(opt, scene, target, size, spp=spp, max_bounces=depth,
-                                        device="cuda")
+    step = WG.make_wf_train_step(opt, scene, target, size, spp=spp, max_bounces=depth,
+                                 device="cuda")
     built = _build.load_library.cache_info().misses
     reset()
     losses = [step(params, i).item() for i in range(5)]
@@ -1844,6 +1863,22 @@ def wavefront_main_paths(scenes, report):
     check(copies == 1, f"{copies} host-to-device copies in a train step, expected 1 (the seeds)")
     check(_build.load_library.cache_info().misses == built, "a train step built a library")
     out.update(train_losses=losses, train_htod_copies=copies)
+
+    # the config-5 train step through make_kernel_train_step: the blockwise
+    # step, one forward and one gradient launch a sample
+    params_bw = {"materials.albedo": torch.full_like(scene.materials.albedo, 0.5).cuda()}
+    opt_bw = torch.optim.Adam(list(params_bw.values()), lr=5e-2, foreach=True)
+    step_bw = train.make_kernel_train_step(opt_bw, scene, target, size, spp=spp,
+                                           max_bounces=depth, device="cuda")
+    built = _build.load_library.cache_info().misses
+    reset()
+    losses_bw = [step_bw(params_bw, i).item() for i in range(5)]
+    read("config-5 make_kernel_train_step (5000 spheres 960x540 2spp d8), 5 steps",
+         blockwise_kernel=5 * spp, bw_grad_kernel=5 * spp)
+    log(f"[4] config-5 make_kernel_train_step losses {losses_bw}")
+    check(losses_bw[-1] < losses_bw[0], "make_kernel_train_step did not lower the loss")
+    check(_build.load_library.cache_info().misses == built, "a train step built a library")
+    out.update(kernel_train_losses=losses_bw)
     report["wf_main_path"] = dict(out, launches=total)
     return total, step, params, target
 
@@ -3560,13 +3595,15 @@ def surface_phase(scenes, step_mse, card, report):
         check(rc == 0, f"the viewer exited with {rc}: {err[-600:]}")
 
         # (f) render_4k at 3840x2160, 8 spp: two 4-sample chunks of 33.2 M rays
+        # through mg_auto's route, the blockwise kernel
         reset()
         t0 = time.perf_counter()
         img4k, text = quiet(render_4k.main, ["--spp", "8", "--out", str(tmp / "4k.png")])
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
-        read("(f) render_4k 3840x2160 8spp", wf_bounce=2 * 8)
-        check("4 samples a chunk" in text, "render_4k did not report 4 samples a chunk")
+        read("(f) render_4k 3840x2160 8spp", blockwise_kernel=2)
+        check("the blockwise route, 4 samples a chunk" in text,
+              "render_4k did not report the blockwise route and 4 samples a chunk")
         check(img4k.shape == (2160, 3840, 3) and torch.isfinite(img4k).all().item(),
               "the 4K frame has the wrong shape or is not finite")
         t1 = time.perf_counter()
@@ -3577,22 +3614,23 @@ def surface_phase(scenes, step_mse, card, report):
         torch.cuda.synchronize()
         every_s = time.perf_counter() - t1
         reset()
-        check(torch.equal(img4k, every), "the 4K frame differs with a sort before every bounce")
+        check(torch.equal(img4k, every),
+              "the 4K frame is not the wavefront's with a sort before every bounce")
         rays = 3840 * 2160 * 8
         m = [float(v) for v in re.findall(r": ([0-9.]+) s wall \(([0-9.]+) Mrays/s\)",
                                           text)[0]]
         out["render_4k_8spp"] = {"render_s": m[0], "mrays_s": m[1], "command_s": wall,
                                  "peak_gib": peak,
-                                 "estimate_gib": render_4k.chunk_bytes(3840 * 2160 * 4) / 2**30,
+                                 "estimate_gib": render_4k.frame_bytes(3840 * 2160) / 2**30,
                                  "sorted_every_bounce_s": every_s,
                                  "sorted_every_bounce_mrays_s": rays / every_s / 1e6,
                                  "mean": img4k.mean().item()}
         del img4k, every
         torch.cuda.empty_cache()
-        log(f"[7] (f) render_4k 3840x2160 8spp d8 (chunks of 4 samples, 33,177,600 rays): "
-            f"{m[0]:.3f} s = {m[1]:.2f} Mrays/s, peak device memory {peak:.3f} GiB (estimate "
-            f"{out['render_4k_8spp']['estimate_gib']:.3f}); with a sort before every bounce "
-            f"{every_s:.3f} s, the same frame (torch.equal) | {card}")
+        log(f"[7] (f) render_4k 3840x2160 8spp d8 (blockwise, chunks of 4 samples, 33,177,600 "
+            f"rays): {m[0]:.3f} s = {m[1]:.2f} Mrays/s, peak device memory {peak:.3f} GiB "
+            f"(estimate {out['render_4k_8spp']['estimate_gib']:.3f}); the wavefront with a sort "
+            f"before every bounce {every_s:.3f} s, the same frame (torch.equal) | {card}")
         # the kernel at this width against its plain version: the frame's
         # chunk on columns across it, and every column of a few-row scene
         out["wf_wide"] = [
@@ -3679,7 +3717,9 @@ def p8_drive(scenes, mesh, reference: bool, timed, timed_ref, tag: str):
     (each route's kernel counters set to 0 just before it and read just
     after): ``render_forward_blockwise_sharded`` at config 4,
     ``render_forward_wavefront_sharded`` at the config-5 slice,
-    ``train.make_kernel_train_step(mesh=)`` on both scenes (SGD at lr 0, so
+    ``train.make_kernel_train_step(mesh=)`` at config 4 and at the
+    config-5 slice and ``make_wf_train_step(mesh=)`` at the config-5 slice
+    (SGD at lr 0, so
     the params stay and their .grad holds the step's gradients) and
     ``dist.render_image_sharded`` on basic.toml (with replay gradients on
     a (1, 2) mesh, the prims-sharded replay).  With ``reference`` the
@@ -3693,6 +3733,7 @@ def p8_drive(scenes, mesh, reference: bool, timed, timed_ref, tag: str):
     from rt_tpu_torch import diff, dist, train
     from rt_tpu_torch.ops import blockwise as BW
     from rt_tpu_torch.ops import wavefront as WF
+    from rt_tpu_torch.ops import wavefront_grad as WG
 
     wrappers = p8_wrappers()
     total = {name: 0 for name in P8_KERNELS.values()}
@@ -3733,11 +3774,14 @@ def p8_drive(scenes, mesh, reference: bool, timed, timed_ref, tag: str):
         res[label] = row
         log(f"[8] {tag} {label}: {row}")
 
-    steps = (("blockwise step config 4", "proc500", P8_C4,
+    # make_kernel_train_step builds the blockwise step; the wavefront step by name
+    steps = (("blockwise step config 4", "proc500", P8_C4, train.make_kernel_train_step,
               {"blockwise_kernel": 4, "bw_grad_kernel": 4}),
-             ("wavefront step config-5 slice", "proc5000", P8_C5,
+             ("blockwise step config-5 slice", "proc5000", P8_C5, train.make_kernel_train_step,
+              {"blockwise_kernel": 2, "bw_grad_kernel": 2}),
+             ("wavefront step config-5 slice", "proc5000", P8_C5, WG.make_wf_train_step,
               {"wf_bounce": 8, "wf_rev": 8}))
-    for label, key, shape, want in steps:
+    for label, key, shape, make_step, want in steps:
         sc, c = scenes[key], dict(shape)
         size = c.pop("size")
         target = torch.zeros((size[1], size[0], 3), device="cuda")
@@ -3745,7 +3789,7 @@ def p8_drive(scenes, mesh, reference: bool, timed, timed_ref, tag: str):
         def make(m):
             params = {k: v.to("cuda") for k, v in diff.extract_params(sc).items()}
             opt = torch.optim.SGD(list(params.values()), lr=0.0)
-            return train.make_kernel_train_step(opt, sc, target, size, mesh=m, **c), params
+            return make_step(opt, sc, target, size, mesh=m, **c), params
 
         step, params = make(mesh)
         reset()
@@ -4622,7 +4666,8 @@ def main() -> int:
         row = bw_rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"rt_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": bw_launches[name] + p7[name] + p8[name] + p9[name],
+            "replaces": replaces,
+            "launches": bw_launches[name] + wf_launches[name] + p7[name] + p8[name] + p9[name],
             "launches_phase7": p7[name], "launches_phase8": p8[name], "launches_phase9": p9[name],
             "max_abs_err": max(bw_errs[name], p7_errs[name], p8_errs[name], p9_errs[name]),
             "ms": row["ms"],

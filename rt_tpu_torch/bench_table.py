@@ -21,7 +21,8 @@ card's would round to 0 at the JAX tool's):
   raises, and prints no row.
 
 Row 21, BASELINE config 5's 3840x2160 frame at 256 spp, is measured through
-the wavefront route as ``render_4k`` renders it (8 spp under ``--fast``).
+the wavefront route, as the JAX tool's ``render_4k`` renders it (8 spp
+under ``--fast``).
 The rows print, and the table is written to ``--out`` (by default
 ``BENCH_TABLE_torch.md`` at the repository root: ``BENCH_TABLE.md`` is the
 JAX tool's), headed by the card's name and power limit as nvidia-smi gives
@@ -50,7 +51,7 @@ DEFAULT_OUT = REPO / "BENCH_TABLE_torch.md"
 NATIVE_CACHE = _native.BUILD_DIR / "baseline_cpu.json"
 BATCH_FRAMES = 16  # row 3's frames a launch
 TRAIN_LR = 1e-2    # the JAX tool's optax.adam(1e-2)
-# row 21's samples a chunk: render_4k's --spp-chunk, which the 2^25-ray cap
+# row 21's samples a chunk: the JAX render_4k's --spp-chunk, which the 2^25-ray cap
 # of a chunk cuts to 4 at 3840x2160
 E2E_SPP_CHUNK = 8
 # what a label calls each route of ops.grad.route

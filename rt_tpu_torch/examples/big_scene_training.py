@@ -4,9 +4,10 @@ N-sphere scene with the fused forward+backward kernels (port of
 
 The blockwise pipeline rebuilds the primitive tables from the parameters
 on the device every step, so a whole Adam loop runs at kernel speed.
-:func:`rt_tpu_torch.train.make_kernel_train_step` routes the scene as the
-JAX package does: the blockwise step below 1024 padded sphere rows (500
-spheres at the defaults), the wavefront record/reverse step from there.
+:func:`rt_tpu_torch.train.make_kernel_train_step` builds the blockwise
+step for every scene up to the kernels' 16384 primitives (the JAX package
+takes its wavefront record/reverse step from 1024 padded sphere rows, which
+an H100 runs slower).
 
 Usage::
 

@@ -45,10 +45,10 @@ import numpy as np
 import torch
 
 from ..profiling import span
+from . import render as _render
 from .grad import _check
-from .render import (RECORD_KEYS, _chunked_frame, _device, _flatten_boxes, _flatten_primitives,
-                     _inv_size, _pack_camera, _record_outputs, _record_plain, _upload,
-                     render_tile_plain)
+from .render import (RECORD_KEYS, _device, _flatten_boxes, _flatten_primitives, _inv_size,
+                     _pack_camera, _record_outputs, _record_plain, _upload, render_tile_plain)
 
 __all__ = ["MAX_BLOCKWISE_PRIMS", "blockwise_supported", "render_blockwise_tile",
            "render_blockwise_tile_plain", "render_forward_blockwise",
@@ -294,7 +294,9 @@ def render_forward_blockwise(
                                      rng_mode=rng_mode, **pixels)
 
     cam = _upload(_pack_camera(scene.camera, size), dev)
-    frame = _chunked_frame(launch, cam, seed, spp, 1, gamma, dev)
+    # ops.render's, looked up at each call as render_forward looks it up: one
+    # frame assembly for every forward route
+    frame = _render._chunked_frame(launch, cam, seed, spp, 1, gamma, dev)
     return frame if ax is None else ax.all_gather(frame)[:w * h].reshape(h, w, 3)
 
 

@@ -20,8 +20,8 @@ device="cuda", **opts) -> (H, W, 3)`` float32 radiance tensor on
   (:func:`rt_tpu_torch.ops.blockwise.render_forward_blockwise`);
 * ``mg_wavefront`` / ``sm_wavefront`` — the bounce-major wavefront kernel,
   the same tables (:func:`rt_tpu_torch.ops.wavefront.render_forward_wavefront`);
-* ``mg_auto`` / ``sm_auto`` — :func:`auto_route` picks one of the three
-  kernels, or the integrator past their limits.
+* ``mg_auto`` / ``sm_auto`` — :func:`auto_route` picks the megakernel
+  or the blockwise kernel, or the integrator past their limits.
 
 The kernel renderers take ``seed`` and ignore ``key``.  The names keep
 "pallas" although nothing here is Pallas: on CUDA they run the hand-written
@@ -99,36 +99,34 @@ def create(name: str) -> Callable:
     return d.create()
 
 
-# the JAX package's forward crossover to the wavefront route, in padded
-# sphere rows (rt_tpu.renderer.auto_route)
-_WAVEFRONT_MIN_BUCKET = 2048
-
-
 def auto_route(scene, platform: str, include_boxes: bool = False) -> str:
     """The forward route for ``mg_auto``/``sm_auto`` on ``platform``
     ("cuda" or "cpu").
 
-    Returns "pallas" (the megakernel), "blockwise", "wavefront" or "jnp"
-    exactly where the JAX package does on an accelerator: the megakernel up
-    to its 640 primitives, then up to 16384 the blockwise kernel while the
-    sphere table pads to fewer than 2048 rows and the wavefront kernel from
-    there, and past the kernels' limits the jnp-style integrator (much
-    slower; ``mg_auto`` warns once, :func:`_jnp_warning`).  The route does
-    not depend on ``platform``: on the CPU a kernel route runs its
-    kernel's plain version, where the JAX package takes "jnp" for every
-    scene.  Unlike the JAX version, which returns ``(route, warning)``,
-    this returns the route alone.
+    Returns "pallas" (the megakernel) up to its 640 primitives, then
+    "blockwise" up to the kernels' 16384, and past them "jnp", the
+    jnp-style integrator (much slower; ``mg_auto`` warns once,
+    :func:`_jnp_warning`): the JAX package's gates.  The JAX package sends
+    a scene whose sphere table pads to 2048 rows or more to the wavefront
+    kernel (a TPU's crossover); this never picks "wavefront": on an H100
+    the blockwise route renders the same frame 2.3 to 3.9 times faster at
+    every size under the cap, every ray count from 960x540 at 2 spp to
+    3840x2160 at 4, both personalities and with boxes (``chip_crossover.py``
+    measures it; its table is in PERF.md).  ``mg_wavefront`` renders the
+    wavefront frame by name.  The route does not depend on ``platform``: on
+    the CPU a kernel route runs its kernel's plain version, where the JAX
+    package takes "jnp" for every scene.  Unlike the JAX version, which
+    returns ``(route, warning)``, this returns the route alone.
     """
     if platform not in ("cuda", "cpu"):
         raise ValueError(f"unknown platform {platform!r}")
-    from .ops.blockwise import _bucket, blockwise_supported
+    from .ops.blockwise import blockwise_supported
     from .ops.render import supported
 
     if supported(scene, include_boxes):
         return "pallas"
     if blockwise_supported(scene, include_boxes):
-        # wavefront_supported is blockwise_supported
-        return "wavefront" if _bucket(scene.spheres.count) >= _WAVEFRONT_MIN_BUCKET else "blockwise"
+        return "blockwise"
     return "jnp"
 
 
@@ -199,7 +197,6 @@ def _install_builtins() -> None:
 
                 from .ops.blockwise import render_forward_blockwise
                 from .ops.render import render_forward
-                from .ops.wavefront import render_forward_wavefront
 
                 include_boxes = opts.get("include_boxes", False)
                 with span("rt.frame", root=True):
@@ -214,8 +211,8 @@ def _install_builtins() -> None:
                             warn_once(("auto", personality, warning), warning)
                             return _tracer(personality)()(scene, size, key, seed=seed,
                                                           device=device, **opts)
-                        fwd = {"pallas": render_forward, "blockwise": render_forward_blockwise,
-                               "wavefront": render_forward_wavefront}[route]
+                        fwd = {"pallas": render_forward,
+                               "blockwise": render_forward_blockwise}[route]
                         return fwd(scene, size, seed=seed, personality=personality,
                                    device=device, **opts)
             return render

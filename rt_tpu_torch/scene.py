@@ -39,6 +39,7 @@ __all__ = [
     "load_first_available",
     "loads",
     "make_procedural_scene",
+    "box_scene_toml",
 ]
 
 # material_type enum, common.hpp:105-115
@@ -722,3 +723,34 @@ def make_procedural_scene(
         max_bounces=max_bounces,
         path=f"<procedural:{n_spheres}>",
     )
+
+
+def box_scene_toml(n_spheres: int, n_boxes: int) -> str:
+    """TOML text of the box scenes of the JAX package's blockwise tests
+    (tests/test_pallas_blockwise.py's ``_box_scene_toml``): a red lambert
+    ground plane, then spheres and boxes alternating lambert and
+    metal, their positions and sizes from numpy seed 9 (660 spheres and 24
+    boxes: past the render kernel's 640 primitives)."""
+    rng = np.random.default_rng(9)
+    lines = [
+        "samples_per_pixel = 1",
+        "max_bounces = 2",
+        "materials = [ { type = 'lambert', albedo = 'red' },",
+        "              { type = 'metal', albedo = [0.9,0.9,0.9], roughness = 0.1 } ]",
+        "planes  = [ { material = 0, position = [0,0,0], normal = 'up' } ]",
+    ]
+    sph = ["{ material = %d, position = [%.3f, %.3f, %.3f], radius = %.3f }"
+           % (i % 2, x, y, z, r)
+           for i, (x, y, z, r) in enumerate(zip(
+               rng.uniform(-6, 6, n_spheres), rng.uniform(0.2, 2, n_spheres),
+               rng.uniform(-9, -3, n_spheres), rng.uniform(0.1, 0.4, n_spheres)))]
+    if sph:
+        lines.append("spheres = [ " + ",\n  ".join(sph) + " ]")
+    box = ["{ material = %d, position = [%.3f, %.3f, %.3f], extents = [%.3f, %.3f, %.3f] }"
+           % (i % 2, x, y, z, ex, ey, ez)
+           for i, (x, y, z, ex, ey, ez) in enumerate(zip(
+               rng.uniform(-6, 6, n_boxes), rng.uniform(0.2, 2, n_boxes),
+               rng.uniform(-9, -3, n_boxes), rng.uniform(0.1, 0.5, n_boxes),
+               rng.uniform(0.1, 0.5, n_boxes), rng.uniform(0.1, 0.5, n_boxes)))]
+    lines.append("boxes = [ " + ",\n  ".join(box) + " ]")
+    return "\n".join(lines)

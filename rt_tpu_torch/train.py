@@ -5,8 +5,8 @@
 (``torch.optim.Adam`` for ``optax.adam``), one :func:`make_train_step` step
 per iteration through the jnp-style integrator, the key of step i being
 ``rng.fold(rng.make_key(seed), i)`` as in the JAX package.
-:func:`make_kernel_train_step` routes to the fused-kernel optimizer steps
-(blockwise and wavefront).
+:func:`make_kernel_train_step` builds the fused-kernel (blockwise)
+optimizer step.
 
 The JAX package takes an optax optimizer and threads its state through
 ``step(params, opt_state, key)``; here the optimizer is a ``torch.optim``
@@ -66,11 +66,6 @@ def make_train_step(optimizer: torch.optim.Optimizer, scene, target, size: tuple
     return step
 
 
-# the JAX router's train-step crossover to the wavefront pipeline, in padded
-# sphere rows (rt_tpu/train.py:72-82)
-_WAVEFRONT_MIN_BUCKET = 1024
-
-
 def make_kernel_train_step(
     optimizer: torch.optim.Optimizer,
     scene,
@@ -83,24 +78,24 @@ def make_kernel_train_step(
     **opts,
 ):
     """The fused-kernel optimizer step for ``scene``: ``step(params, seed)
-    -> loss`` (see :func:`rt_tpu_torch.ops.blockwise_grad.make_bw_train_step`).
-
-    Routed as the JAX package routes it: scenes whose sphere table pads to
-    1024 rows or more (and that the wavefront pipeline takes) go to the
-    wavefront record/reverse step
-    (:func:`rt_tpu_torch.ops.wavefront_grad.make_wf_train_step`), every
-    other scene to the blockwise fused step.  ``mesh`` (a
-    :func:`rt_tpu_torch.dist.make_mesh` mesh) shards either step's rays over
+    -> loss``, the blockwise fused step
+    (:func:`rt_tpu_torch.ops.blockwise_grad.make_bw_train_step`) for every
+    scene that the kernels take.  The JAX package sends a scene whose
+    sphere table pads to 1024 rows or more to the wavefront record/reverse
+    step (a TPU's crossover); on an H100 the blockwise step is 2.3 to 5.6
+    times faster at every size under the kernels' cap
+    (``chip_crossover.py``; its table is in PERF.md), so, as
+    :func:`rt_tpu_torch.renderer.auto_route`, this never picks the
+    wavefront: :func:`rt_tpu_torch.ops.wavefront_grad.make_wf_train_step`
+    builds that step by name.  The two steps draw on different plans (a
+    seed a sample against a seed a chunk of samples).  ``mesh`` (a
+    :func:`rt_tpu_torch.dist.make_mesh` mesh) shards the step's rays over
     its 'rays' axis.  ``opts`` (``personality``, ``rng_mode``, ``device``,
     ``axis``) go to the step."""
-    from .ops.blockwise import _bucket
     from .ops.blockwise_grad import make_bw_train_step
-    from .ops.wavefront_grad import make_wf_train_step, wf_grad_supported
 
-    route = (make_wf_train_step if wf_grad_supported(scene)
-             and _bucket(scene.spheres.count) >= _WAVEFRONT_MIN_BUCKET else make_bw_train_step)
-    return route(optimizer, scene, target, size, spp=spp, max_bounces=max_bounces, mesh=mesh,
-                 **opts)
+    return make_bw_train_step(optimizer, scene, target, size, spp=spp, max_bounces=max_bounces,
+                              mesh=mesh, **opts)
 
 
 def fit(scene, target, size: tuple[int, int], *, steps: int = 100, learning_rate: float = 1e-2,

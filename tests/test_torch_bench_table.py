@@ -365,7 +365,7 @@ def expected(rows, calls, fast):
                             f"ms/step = {t / t_wfg:.2f}x the blockwise step, step/fwd = "
                             f"{t_wfg / t_wf5_i:.2f}x the wavefront forward"]
     e, t = R["e2e"], next(ts)  # measured here; the JAX row (:400-410) is static text
-    chunk = min(8, e.spp)  # render_4k's --spp-chunk 8 (the 2^25-ray cap binds only at 4K)
+    chunk = min(8, e.spp)  # the JAX render_4k's --spp-chunk 8 (the 2^25-ray cap binds only at 4K)
     E["e2e"] = [f"{t:.3f} s wall via the wavefront route ({px(e) * e.spp / t / 1e6:.2f} "
                 f"Mrays/s; {-(-e.spp // chunk)} chunks of {chunk} samples = {px(e) * chunk} rays"]
     assert next(ts, None) is None

@@ -78,7 +78,10 @@ def test_meta_rows_seed_chain_is_chunk_seeds(seed, n_chunks):
 
 
 def test_gates_and_auto_route_match_jax():
-    seen = set()
+    """The gates (megakernel, blockwise cap, boxes, "jnp") are JAX's, with
+    and without boxes; the port routes every scene JAX sends to the
+    wavefront to blockwise instead (the H100's measured crossover: none)."""
+    seen, got = set(), set()
     for label, js in _scenes():
         ts = rt_tpu_torch.from_jax_scene(js)
         assert tbg.bw_grad_supported(ts) == jbg.bw_grad_supported(js), label
@@ -87,16 +90,22 @@ def test_gates_and_auto_route_match_jax():
                     == jb.blockwise_supported(js, include_boxes)), label
             want, _ = jreg.auto_route(js, "tpu", include_boxes)
             seen.add(want)
+            want = "blockwise" if want == "wavefront" else want
             # on the CPU too the port takes the kernel routes (their plain
             # versions) where the JAX package takes "jnp" for every scene
-            assert treg.auto_route(ts, "cuda", include_boxes) == want, (label, include_boxes)
+            route = treg.auto_route(ts, "cuda", include_boxes)
+            assert route == want, (label, include_boxes)
             assert treg.auto_route(ts, "cpu", include_boxes) == want, (label, include_boxes)
+            got.add(route)
     assert seen == {"pallas", "blockwise", "wavefront", "jnp"}
+    assert got == {"pallas", "blockwise", "jnp"}
 
 
 def test_train_step_router_matches_jax(monkeypatch):
-    """make_kernel_train_step sends a scene where rt_tpu.train sends it
-    (its two step builders replaced by spies)."""
+    """make_kernel_train_step builds the blockwise step wherever the
+    kernels take the scene, on both sides of the 1024-row threshold past
+    which rt_tpu.train picks the wavefront step (JAX's builders replaced
+    by spies, the port's blockwise builder by a recording wrapper)."""
     class Picked(Exception):
         pass
 
@@ -106,6 +115,12 @@ def test_train_step_router_matches_jax(monkeypatch):
         def spy(*a, _name=name, **kw):
             raise Picked(_name)
         monkeypatch.setattr(mod, name, spy)
+    built = []
+
+    def record(*a, _make=tbg.make_bw_train_step, **kw):
+        built.append(a[1].spheres.count)
+        return _make(*a, **kw)
+    monkeypatch.setattr(tbg, "make_bw_train_step", record)
     opt = torch.optim.Adam([torch.zeros(1)])
     seen = set()
     for n in (3, 500, 1000, 1100, 1600, 17000):
@@ -118,7 +133,7 @@ def test_train_step_router_matches_jax(monkeypatch):
         if tbg.bw_grad_supported(ts):
             step = ttrain.make_kernel_train_step(opt, ts, np.zeros((8, 8, 3), np.float32),
                                                  (8, 8), device="cpu")
-            assert callable(step)
+            assert callable(step) and built[-1] == ts.spheres.count, n
         else:
             with pytest.raises(ValueError, match="limits"):
                 ttrain.make_kernel_train_step(opt, ts, np.zeros((8, 8, 3), np.float32), (8, 8),

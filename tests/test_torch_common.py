@@ -9,6 +9,8 @@ import zlib
 import numpy as np
 import torch
 
+from rt_tpu_torch.scene import box_scene_toml  # noqa: F401  (the tests' box scenes)
+
 SCENES = pathlib.Path(__file__).resolve().parent.parent / "scenes"
 
 # One torch thread in every test process that imports this module (every
@@ -80,36 +82,6 @@ REPLAY_BOX_TOML = (
     "boxes = [ { material = 2, position = [0, 0.5, -3], extents = [0.5, 0.5, 0.5] },\n"
     "          { material = 1, position = [1.6, 0.4, -3.5], extents = [0.4, 0.4, 0.4] } ]\n"
 )
-
-
-def box_scene_toml(n_spheres: int, n_boxes: int) -> str:
-    """tests/test_pallas_blockwise.py's ``_box_scene_toml`` generator: a red
-    lambert ground plane, then spheres and boxes alternating lambert and
-    metal, their positions and sizes from numpy seed 9 (660 spheres and 24
-    boxes: past the render kernel's 640 primitives)."""
-    rng = np.random.default_rng(9)
-    lines = [
-        "samples_per_pixel = 1",
-        "max_bounces = 2",
-        "materials = [ { type = 'lambert', albedo = 'red' },",
-        "              { type = 'metal', albedo = [0.9,0.9,0.9], roughness = 0.1 } ]",
-        "planes  = [ { material = 0, position = [0,0,0], normal = 'up' } ]",
-    ]
-    sph = ["{ material = %d, position = [%.3f, %.3f, %.3f], radius = %.3f }"
-           % (i % 2, x, y, z, r)
-           for i, (x, y, z, r) in enumerate(zip(
-               rng.uniform(-6, 6, n_spheres), rng.uniform(0.2, 2, n_spheres),
-               rng.uniform(-9, -3, n_spheres), rng.uniform(0.1, 0.4, n_spheres)))]
-    if sph:
-        lines.append("spheres = [ " + ",\n  ".join(sph) + " ]")
-    box = ["{ material = %d, position = [%.3f, %.3f, %.3f], extents = [%.3f, %.3f, %.3f] }"
-           % (i % 2, x, y, z, ex, ey, ez)
-           for i, (x, y, z, ex, ey, ez) in enumerate(zip(
-               rng.uniform(-6, 6, n_boxes), rng.uniform(0.2, 2, n_boxes),
-               rng.uniform(-9, -3, n_boxes), rng.uniform(0.1, 0.5, n_boxes),
-               rng.uniform(0.1, 0.5, n_boxes), rng.uniform(0.1, 0.5, n_boxes)))]
-    lines.append("boxes = [ " + ",\n  ".join(box) + " ]")
-    return "\n".join(lines)
 
 
 def tiles_to_flat(a, n: int) -> np.ndarray:

@@ -579,11 +579,12 @@ def test_wf_rev_warp_sums(cuda, case):
 
 
 def test_wavefront_entry_points_launch_the_kernels(cuda):
-    """Past 1536 spheres mg_auto takes the wavefront route (one gen and 3
-    bounce launches per chunk at depth 4) and renders the blockwise frame
-    bit for bit; the wavefront step at 1 spp equals the blockwise step at
-    matched draws; past 512 spheres the train step takes the wavefront
-    route, 4 + 4 launches per chunk, and lowers the loss."""
+    """mg_wavefront (one gen and 3 bounce launches per chunk at depth 4)
+    renders the blockwise frame bit for bit, which mg_auto renders on the
+    blockwise route at 1600 spheres; the wavefront step at 1 spp equals
+    the blockwise step at matched draws; make_wf_train_step makes 4 + 4
+    launches per chunk and lowers the loss, and make_kernel_train_step
+    launches no wavefront kernel."""
     from rt_tpu_torch import renderer as treg
     from rt_tpu_torch import train as ttrain
     from rt_tpu_torch.ops import blockwise as tb
@@ -592,13 +593,16 @@ def test_wavefront_entry_points_launch_the_kernels(cuda):
     from rt_tpu_torch.ops import wavefront_grad as twg
 
     big = rt_tpu_torch.scene.make_procedural_scene(1600)
-    assert treg.auto_route(big, "cuda") == "wavefront"
+    assert treg.auto_route(big, "cuda") == "blockwise"
     counts = lambda: (twf.wf_bounce.launches, twg.wf_rev.launches)
     before = counts()
-    img = treg.create("mg_auto")(big, (40, 30), spp=6, max_bounces=4, device=cuda)
+    img = treg.create("mg_wavefront")(big, (40, 30), spp=6, max_bounces=4, device=cuda)
     assert counts() == (before[0] + 8, before[1])
     assert torch.equal(img, tb.render_forward_blockwise(big, (40, 30), spp=6, max_bounces=4,
                                                         device=cuda))
+    assert torch.equal(img, treg.create("mg_auto")(big, (40, 30), spp=6, max_bounces=4,
+                                                   device=cuda))
+    assert counts() == (before[0] + 8, before[1])
     size = (40, 30)
     target = torch.from_numpy(np.random.default_rng(2).uniform(0, 0.5, (30, 40, 3))
                               .astype(np.float32)).to(cuda)
@@ -615,12 +619,16 @@ def test_wavefront_entry_points_launch_the_kernels(cuda):
                                           gamma=False, device=cuda)
     params = {"materials.albedo": torch.full_like(scene.materials.albedo, 0.5).to(cuda)}
     opt = torch.optim.Adam(list(params.values()), lr=5e-2, foreach=True)
-    step = ttrain.make_kernel_train_step(opt, scene, target, size, spp=2, max_bounces=4,
-                                         device=cuda)
+    step = twg.make_wf_train_step(opt, scene, target, size, spp=2, max_bounces=4, device=cuda)
     before = counts()
     losses = [float(step(params, i)) for i in range(4)]
     assert counts() == (before[0] + 16, before[1] + 16)
     assert losses[-1] < losses[0]
+    step = ttrain.make_kernel_train_step(opt, scene, target, size, spp=2, max_bounces=4,
+                                         device=cuda)
+    before = counts()
+    step(params, 4)
+    assert counts() == before
 
 
 # ---- the record kernels (queue 2 rows 2 and 6) and the FMA probe (row 10) ----

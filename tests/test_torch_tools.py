@@ -1,6 +1,6 @@
 """The port's tools and examples on the CPU: ``rt_tpu_torch.render_4k``
-(the chunk it reports, its frame against ``render_forward_wavefront``, and
-where it writes) and ``rt_tpu_torch.examples``' two single-process
+(the route and chunk it reports, its frame against
+``render_forward_blockwise``, and where it writes) and ``rt_tpu_torch.examples``' two single-process
 examples at tiny sizes.  The examples' functions are held against JAX in
 their own test files; JAX's interpret-mode examples are not re-run here."""
 
@@ -14,7 +14,8 @@ import rt_tpu_torch
 from rt_tpu_torch import render_4k
 from rt_tpu_torch.colour import pack_rgba8888
 from rt_tpu_torch.examples import big_scene_training, inverse_rendering
-from rt_tpu_torch.ops.wavefront import _resolve_chunk, render_forward_wavefront
+from rt_tpu_torch.ops.blockwise import render_forward_blockwise
+from rt_tpu_torch.ops.wavefront import _resolve_chunk
 from test_torch_common import SCENES, read_png
 
 REPO = SCENES.parent
@@ -32,9 +33,12 @@ def one_torch_thread():
 
 
 def test_render_4k_chunk_at_3840x2160():
-    # 2^25 rays a chunk: 4 of --spp-chunk 8's samples at 3840x2160
+    # the JAX tool's wavefront chunk, 2^25 rays: 4 of its --spp-chunk 8's
+    # samples at 3840x2160, the blockwise route's 4 (so the two draw alike)
     assert _resolve_chunk((3840, 2160), 256, 8) == 4
-    assert render_4k.chunk_bytes(3840 * 2160 * 4) < 80 * 2**30
+    scene = rt_tpu_torch.scene.make_procedural_scene(render_4k.SPHERES)
+    assert rt_tpu_torch.renderer.auto_route(scene, "cuda") == "blockwise"
+    assert render_4k.frame_bytes(3840 * 2160) < 80 * 2**30
     assert not os.path.abspath(render_4k.default_out()).startswith(str(REPO))
 
 
@@ -65,9 +69,9 @@ def test_render_4k_tiny_frame(tmp_path, capsys):
     out = tmp_path / "frame.png"
     img = render_4k.main(["--size", "32x18", "--spp", "2", "--device", "cpu", "--out", str(out)])
     text = capsys.readouterr().out
-    assert "32x18 @2spp d8, 5000 spheres: 2 samples a chunk (--spp-chunk 8)" in text
-    want = render_forward_wavefront(rt_tpu_torch.scene.make_procedural_scene(5000), (32, 18),
-                                    seed=0, spp=2, spp_chunk=8, max_bounces=8, device="cpu")
+    assert "32x18 @2spp d8, 5000 spheres: the blockwise route, 2 samples a chunk" in text
+    scene = rt_tpu_torch.scene.make_procedural_scene(5000)
+    want = render_forward_blockwise(scene, (32, 18), seed=0, spp=2, max_bounces=8, device="cpu")
     assert torch.equal(img, want)
     # the PNG holds the half-resolution preview, and nothing else was written
     assert sorted(p.name for p in tmp_path.iterdir()) == ["frame.png"]

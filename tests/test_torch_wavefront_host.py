@@ -116,7 +116,11 @@ def test_chunk_resolution_and_schedule_match_jax(monkeypatch):
 
 
 def test_auto_route_matches_jax():
-    seen = set()
+    """The port's forward gates are JAX's at every size; where JAX's TPU
+    crossover (a sphere table of 2048 rows: 1536 spheres) sends a scene to
+    the wavefront, the port keeps it on blockwise, on both sides of that
+    threshold (the H100 measured no crossover below the 16384 cap)."""
+    seen, got = set(), set()
     for n in SIZES:
         js = rt_tpu.scene.make_procedural_scene(n)
         ts = rt_tpu_torch.from_jax_scene(js)
@@ -124,13 +128,19 @@ def test_auto_route_matches_jax():
         assert twg.wf_grad_supported(ts) == jwg.wf_grad_supported(js), n
         want, _ = jreg.auto_route(js, "tpu")
         seen.add(want)
-        assert treg.auto_route(ts, "cuda") == want == treg.auto_route(ts, "cpu"), n
+        route = treg.auto_route(ts, "cuda")
+        assert route == ("blockwise" if want == "wavefront" else want), n
+        assert route == treg.auto_route(ts, "cpu"), n
+        got.add(route)
     assert seen == {"pallas", "blockwise", "wavefront", "jnp"}
+    assert got == {"pallas", "blockwise", "jnp"}
 
 
 def test_train_router_matches_jax(monkeypatch):
-    """make_kernel_train_step picks the step rt_tpu.train picks (both
-    packages' step builders replaced by spies) at the routing sizes."""
+    """make_kernel_train_step takes the blockwise step at the routing sizes
+    (both packages' step builders replaced by spies), on both sides of the
+    JAX router's crossover (1024 sphere rows: 512 spheres), where rt_tpu.
+    train picks the wavefront step past it."""
     class Picked(Exception):
         pass
 
@@ -150,7 +160,7 @@ def test_train_router_matches_jax(monkeypatch):
         with pytest.raises(Picked) as got:
             ttrain.make_kernel_train_step(opt, rt_tpu_torch.from_jax_scene(js), None, (8, 8),
                                           device="cpu")
-        assert str(got.value) == str(want.value), n
+        assert str(got.value) == "make_bw_train_step", n
         seen.add(str(want.value))
     assert seen == {"make_bw_train_step", "make_wf_train_step"}
 
