@@ -125,6 +125,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -417,6 +418,7 @@ def kernel_cases(trees, fns, windows, result, ablations, card, only=()):
     from rt_tpu_torch.ops import blockwise_grad as BG
     from rt_tpu_torch.ops import grad as G
     from rt_tpu_torch.ops import render as R
+    from rt_tpu_torch.ops import tables as T
     from rt_tpu_torch.ops import wavefront as WF
     from rt_tpu_torch.ops import wavefront_grad as WG
 
@@ -439,14 +441,13 @@ def kernel_cases(trees, fns, windows, result, ablations, card, only=()):
     proc5000 = rt_tpu_torch.scene.make_procedural_scene(5000)
 
     def camera(scene, size):
-        return torch.from_numpy(R._pack_camera(scene.camera, size)).to(dev)
+        return torch.from_numpy(T._pack_camera(scene.camera, size)).to(dev)
 
     def render_args(scene, personality="mg"):
-        s_cols, p_cols = R._flatten_primitives(scene, personality)
-        return [torch.from_numpy(c.T.copy()).to(dev) for c in (s_cols, p_cols)]
+        return list(T._unrolled_tables(scene, personality, False, dev)[:2])
 
     def bw_args(scene, size):
-        return (*BW._device_tables(scene, "mg", False, dev), camera(scene, size), seeds)
+        return (*T._padded_tables(scene, "mg", False, dev), camera(scene, size), seeds)
 
     def pixels(size, scale=1.0):  # chip_smoke.grad_inputs' target
         w, h = size
@@ -459,7 +460,7 @@ def kernel_cases(trees, fns, windows, result, ablations, card, only=()):
                  torch.from_numpy(G._sample_seeds(11, 4)).to(dev), pixels(hd))
     ps_args = (*render_args(dielectric, "sm"), camera(dielectric, hd),
                torch.from_numpy(G._sample_seeds(0, 2)[1:]).to(dev), pixels(hd, 1e-6))
-    bw500 = BW._device_tables(proc500, "mg", False, dev)
+    bw500 = T._padded_tables(proc500, "mg", False, dev)
     d8 = dict(max_bounces=8)
     one = dict(d8, spp=1, center_sample=False)
 
@@ -474,7 +475,7 @@ def kernel_cases(trees, fns, windows, result, ablations, card, only=()):
                words_of(fhd))
 
     # the config-5 slice's 2-spp chunk: the tables each bounce entered
-    wf_tables = BW._device_tables(proc5000, "mg", False, dev)
+    wf_tables = T._padded_tables(proc5000, "mg", False, dev)
     wf_size, wf_depth = (960, 540), 8
     wf_cam = camera(proc5000, wf_size)
     wf_n = wf_size[0] * wf_size[1] * 2
@@ -599,11 +600,11 @@ def kernel_cases(trees, fns, windows, result, ablations, card, only=()):
          dict(d8, size=hd, center_sample=True), 16, None),
         ("blockwise_record_kernel 660 spheres + 24 boxes 960x540 1 sample d8 (a box-scene "
          "records-step launch)", ("rt_blockwise_record",), BW.render_record_blockwise_tile,
-         (*BW._device_tables(bigbox, "mg", True, dev), camera(bigbox, wf_size), seeds),
+         (*T._padded_tables(bigbox, "mg", True, dev), camera(bigbox, wf_size), seeds),
          dict(d8, size=wf_size, center_sample=False), 4, None),
         ("blockwise_record_kernel 2100 spheres + 24 boxes 960x540 1 sample d8 (rows from device "
          "memory)", ("rt_blockwise_record",), BW.render_record_blockwise_tile,
-         (*BW._device_tables(box2100, "mg", True, dev), camera(box2100, wf_size), seeds),
+         (*T._padded_tables(box2100, "mg", True, dev), camera(box2100, wf_size), seeds),
          dict(d8, size=wf_size, center_sample=False), 2, None),
         ("wf_rev proc5000 960x540 2spp d8 chunk: bounce 0", ("rt_wf_rev",),
          lambda: wf_rev_chunk(rev0), (), {}, 8,
@@ -704,6 +705,14 @@ def package_cases(packages, windows, result, card, only=()):
         package."""
         R, G, BW, WF = (mod(pkg, f"ops.{m}") for m in ("render", "grad", "blockwise",
                                                          "wavefront"))
+        try:
+            T = mod(pkg, "ops.tables")
+        except ModuleNotFoundError:  # an older package: its helpers in render and blockwise
+            T = types.SimpleNamespace(
+                _pack_camera=R._pack_camera, _padded_tables=BW._device_tables,
+                _unrolled_tables=lambda sc, pers, boxes, dev: [
+                    R._upload(c.T, dev)
+                    for c in (*R._flatten_primitives(sc, pers), np.zeros((12, 0), np.float32))])
         train, diff = mod(pkg, "train"), mod(pkg, "diff")
         load = lambda name: pkg.load(str(ROOT / "scenes" / name))
         basic, dielectric = load("basic.toml"), load("dielectric.toml")
@@ -741,10 +750,8 @@ def package_cases(packages, windows, result, card, only=()):
         out["headline records step (basic 800x600 4spp d8)"] = (
             lambda i: diff.records_loss_and_grad(hd_params, basic, t_hd, hd, seed=i, spp=4,
                                                  max_bounces=8, device="cuda"), 2)
-        s_cols, p_cols = R._flatten_primitives(basic, "mg")
-        rec_args = [torch.from_numpy(c.T.copy()).cuda() for c in (s_cols, p_cols)]
-        rec_args += [torch.zeros((0, 12), device="cuda"),
-                     torch.from_numpy(R._pack_camera(basic.camera, hd)).cuda()]
+        rec_args = [*T._unrolled_tables(basic, "mg", False, torch.device("cuda")),
+                    torch.from_numpy(T._pack_camera(basic.camera, hd)).cuda()]
         rec_seeds = torch.from_numpy(G._sample_seeds(11, 4)).cuda()
         rec_kw = dict(size=hd, max_bounces=8)
         if hasattr(mod(pkg, "ops._build").load_library("render_kernel"),
@@ -781,8 +788,8 @@ def package_cases(packages, windows, result, card, only=()):
                                                   max_bounces=8, device="cuda"), 3)
 
         # the device ms of each launch of one config-5 record chunk
-        tables = BW._device_tables(proc5000, "mg", False, torch.device("cuda"))
-        cam = torch.from_numpy(R._pack_camera(proc5000.camera, (960, 540))).cuda()
+        tables = T._padded_tables(proc5000, "mg", False, torch.device("cuda"))
+        cam = torch.from_numpy(T._pack_camera(proc5000.camera, (960, 540))).cuda()
         seeds = torch.tensor([21], dtype=torch.int32, device="cuda")
         sched, shrink = WF._schedule(8, None, -1)
 

@@ -593,16 +593,11 @@ def kernel_device_ms(fn, name, iters=16):
 
 def card_tables(scene, personality, size, include_boxes=False):
     """The kernels' tables (spheres, planes, boxes) and camera vector, on the card."""
-    import numpy as np
     import torch
-    from rt_tpu_torch.ops import render as R
+    from rt_tpu_torch.ops import tables as T
 
-    s_cols, p_cols = R._flatten_primitives(scene, personality)
-    b_cols = (R._flatten_boxes(scene, personality) if include_boxes
-              else np.zeros((12, 0), np.float32))
-    sp, pl, bx = (torch.from_numpy(np.ascontiguousarray(c.T)).cuda()
-                  for c in (s_cols, p_cols, b_cols))
-    return sp, pl, bx, torch.from_numpy(R._pack_camera(scene.camera, size)).cuda()
+    sp, pl, bx = T._unrolled_tables(scene, personality, include_boxes, torch.device("cuda"))
+    return sp, pl, bx, torch.from_numpy(T._pack_camera(scene.camera, size)).cuda()
 
 
 def grad_inputs(scene, personality, size, seed=1):
@@ -898,9 +893,9 @@ def grad_timing(scenes, step, step3, card, report):
 def bw_tables(scene, personality, include_boxes=False):
     """The blockwise kernels' padded tables and counts, on the card."""
     import torch
-    from rt_tpu_torch.ops import blockwise as BW
+    from rt_tpu_torch.ops import tables as T
 
-    return BW._device_tables(scene, personality, include_boxes, torch.device("cuda"))
+    return T._padded_tables(scene, personality, include_boxes, torch.device("cuda"))
 
 
 def blockwise_parity(scenes, report):
@@ -912,6 +907,7 @@ def blockwise_parity(scenes, report):
     from rt_tpu_torch.ops import blockwise_grad as BG
     from rt_tpu_torch.ops import grad as G
     from rt_tpu_torch.ops import render as R
+    from rt_tpu_torch.ops import tables as T
 
     errs = {"blockwise_kernel": 0.0, "bw_grad_kernel": 0.0}
     report["bw_parity"], report["bw_grad_parity"] = [], []
@@ -937,7 +933,7 @@ def blockwise_parity(scenes, report):
     words_of = {}  # (scene, size, centre) -> the words form's winner words, checked
     for label, key, pers, size, boxes, spp, center in cases:
         sp, pl, bx, counts = bw_tables(scenes[key], pers, boxes)
-        cam = torch.from_numpy(R._pack_camera(scenes[key].camera, size)).cuda()
+        cam = torch.from_numpy(T._pack_camera(scenes[key].camera, size)).cuda()
         kw = dict(size=size, spp=spp, max_bounces=8, center_sample=center)
         got = BW.render_blockwise_tile(sp, pl, bx, counts, cam, seeds, **kw)
         if spp == 1:  # the train step's launch: its words form too, frame and words
@@ -987,7 +983,7 @@ def blockwise_parity(scenes, report):
                    2.0 / (3 * 1920 * 1080 * 16))]
     for label, key, pers, size, center, scale in grad_cases:
         sp, pl, bx, counts = bw_tables(scenes[key], pers)
-        cam = torch.from_numpy(R._pack_camera(scenes[key].camera, size)).cuda()
+        cam = torch.from_numpy(T._pack_camera(scenes[key].camera, size)).cuda()
         w, h = size
         cot = torch.from_numpy(np.random.default_rng(3).uniform(0.0, 0.5, (h, w, 3))
                                .astype(np.float32)).cuda() * scale
@@ -1187,13 +1183,14 @@ def blockwise_timing(scenes, step, params, card, report):
     from rt_tpu_torch.ops import blockwise_grad as BG
     from rt_tpu_torch.ops import grad as G
     from rt_tpu_torch.ops import render as R
+    from rt_tpu_torch.ops import tables as T
 
     scene, size = scenes["proc500"], (320, 180)
     w, h = size
     n = w * h
     sp, pl, bx, counts = bw_tables(scene, "mg")
     ns, npl = counts[:2]
-    cam = torch.from_numpy(R._pack_camera(scene.camera, size)).cuda()
+    cam = torch.from_numpy(T._pack_camera(scene.camera, size)).cuda()
     seeds = torch.tensor([11], dtype=torch.int32, device="cuda")
     kw = dict(size=size, spp=4, max_bounces=8, center_sample=True)
     fk = profiling.sustained(lambda i: BW.render_blockwise_tile(sp, pl, bx, counts, cam, seeds,
@@ -1239,7 +1236,7 @@ def blockwise_timing(scenes, step, params, card, report):
     m_size = (1920, 1080)
     mw, mh = m_size
     m_n = mw * mh
-    m_cam = torch.from_numpy(R._pack_camera(scene.camera, m_size)).cuda()
+    m_cam = torch.from_numpy(T._pack_camera(scene.camera, m_size)).cuda()
     m_kw = dict(size=m_size, max_bounces=8, center_sample=False)
     m_seeds = torch.from_numpy(G._sample_seeds(100, 16)).cuda()
     s1 = m_seeds[1:2]
@@ -1601,7 +1598,7 @@ def wavefront_parity(scenes, report):
     import numpy as np
     import torch
     from rt_tpu_torch.ops import blockwise as BW
-    from rt_tpu_torch.ops import render as R
+    from rt_tpu_torch.ops import tables as T
     from rt_tpu_torch.ops import wavefront as WF
 
     errs = {"wf_bounce": 0.0, "wf_rev": 0.0}
@@ -1614,7 +1611,7 @@ def wavefront_parity(scenes, report):
     ]
     for label, key, pers, size, boxes, rev in cases:
         tables = bw_tables(scenes[key], pers, boxes)
-        cam = torch.from_numpy(R._pack_camera(scenes[key].camera, size)).cuda()
+        cam = torch.from_numpy(T._pack_camera(scenes[key].camera, size)).cuda()
         for record in (False, True):
             state, ids, saved, plain_s, err = wf_checked_chunk(tables, cam, seeds, size, 2, 8,
                                                                record)
@@ -1647,7 +1644,7 @@ def wavefront_parity(scenes, report):
     # rays (not a multiple of 32)
     size = (37, 23)
     tables = bw_tables(scenes["proc2000"], "mg")
-    cam = torch.from_numpy(R._pack_camera(scenes["proc2000"].camera, size)).cuda()
+    cam = torch.from_numpy(T._pack_camera(scenes["proc2000"].camera, size)).cuda()
     _, _, saved, _, err = wf_checked_chunk(tables, cam, seeds, size, 1, 8, True)
     errs["wf_bounce"] = max(errs["wf_bounce"], err)
     cot_pix = torch.from_numpy(np.random.default_rng(5).uniform(-1, 1, (37 * 23, 3))
@@ -1667,7 +1664,7 @@ def wavefront_parity(scenes, report):
     limits = lane_limits(n)
     for key, boxes in (("ties", True), ("sky", False)):
         tables = bw_tables(scenes[key], "sm", boxes)
-        cam = torch.from_numpy(R._pack_camera(scenes[key].camera, size)).cuda()
+        cam = torch.from_numpy(T._pack_camera(scenes[key].camera, size)).cuda()
         state, ids, saved, _, err = wf_checked_chunk(tables, cam, seeds, size, 1, depth, True)
         errs["wf_bounce"] = max(errs["wf_bounce"], err)
         img = WF._assemble(state, ids, n, 1).reshape(size[1], size[0], 3)
@@ -1732,12 +1729,12 @@ def wavefront_main_shape(scenes, report, errs):
     Returns the per-launch timing inputs for phase 5."""
     import numpy as np
     import torch
-    from rt_tpu_torch.ops import render as R
+    from rt_tpu_torch.ops import tables as T
 
     scene, size = scenes["proc5000"], WF_SLICE["size"]
     spp, depth = WF_SLICE["spp"], WF_SLICE["max_bounces"]
     tables = bw_tables(scene, "mg")
-    cam = torch.from_numpy(R._pack_camera(scene.camera, size)).cuda()
+    cam = torch.from_numpy(T._pack_camera(scene.camera, size)).cuda()
     seeds = torch.tensor([21], dtype=torch.int32, device="cuda")
     state, ids, saved, fwd_plain_s, err = wf_checked_chunk(tables, cam, seeds, size, spp, depth,
                                                            True)
@@ -2153,9 +2150,9 @@ def big_box_scene():
 def record_tables(scene, personality, size, include_boxes, blockwise):
     """(tables..., cam) for the unrolled or the blockwise record kernel, on the card."""
     import torch
-    from rt_tpu_torch.ops import render as R
+    from rt_tpu_torch.ops import tables as T
 
-    cam = torch.from_numpy(R._pack_camera(scene.camera, size)).cuda()
+    cam = torch.from_numpy(T._pack_camera(scene.camera, size)).cuda()
     if blockwise:
         return (*bw_tables(scene, personality, include_boxes), cam)
     return card_tables(scene, personality, size, include_boxes)
@@ -3226,14 +3223,15 @@ def wf_wide_chunk(scene, size, k, label, subset):
     Returns the row for the report."""
     import torch
     from rt_tpu_torch.ops import render as R
+    from rt_tpu_torch.ops import tables as T
     from rt_tpu_torch.ops import wavefront as WF
 
     dev = torch.device("cuda")
     w, h = size
     n = w * h * k
-    sp, pl, bx, counts = WF._device_tables(scene, "mg", False, dev)
-    cam = R._upload(R._pack_camera(scene.camera, size), dev)
-    seeds = R._upload(R._chunk_seeds(0, 1, 1), dev)[0]  # the frame's first chunk
+    sp, pl, bx, counts = T._padded_tables(scene, "mg", False, dev)
+    cam = T._upload(T._pack_camera(scene.camera, size), dev)
+    seeds = T._upload(R._chunk_seeds(0, 1, 1), dev)[0]  # the frame's first chunk
     kw = dict(size=size, max_bounces=8)
     tabs = (sp, pl, bx, counts, cam, seeds)
 
@@ -3307,13 +3305,14 @@ def bw_example_checks(scene, size, spp, depth, tag="[7] (g)"):
     from rt_tpu_torch.ops import blockwise as BW
     from rt_tpu_torch.ops import blockwise_grad as BG
     from rt_tpu_torch.ops import render as R
+    from rt_tpu_torch.ops import tables as T
 
     dev = torch.device("cuda")
     w, h = size
     sp, pl, bx, counts = bw_tables(scene, "mg")
-    cam = R._upload(R._pack_camera(scene.camera, size), dev)
+    cam = T._upload(T._pack_camera(scene.camera, size), dev)
     kw = dict(size=size, max_bounces=depth)
-    fwd_seeds = R._upload(R._chunk_seeds(0, 1, 1), dev)[0]
+    fwd_seeds = T._upload(R._chunk_seeds(0, 1, 1), dev)[0]
     got = BW.render_blockwise_tile(sp, pl, bx, counts, cam, fwd_seeds, spp=spp,
                                    center_sample=True, **kw)
     want = BW.render_blockwise_tile_plain(sp, pl, bx, counts, cam, fwd_seeds, spp=spp,
@@ -3321,7 +3320,7 @@ def bw_example_checks(scene, size, spp, depth, tag="[7] (g)"):
     check(torch.equal(got, want), f"blockwise {w}x{h} {spp}spp d{depth} ({counts} rows): the "
                                   "target's launch differs from its plain version")
     target = want * float(1.0 / spp)
-    seeds = R._upload(BG._sample_seeds(3, spp), dev)
+    seeds = T._upload(BG._sample_seeds(3, spp), dev)
     frames, words = [], []
     for s in range(spp):
         f, wd = BW.render_blockwise_tile(sp, pl, bx, counts, cam, seeds[s:s + 1], spp=1,
@@ -3927,7 +3926,8 @@ def dist_phase(scenes, card, report):
     from rt_tpu_torch.ops import blockwise_grad as BWG
     from rt_tpu_torch.ops import wavefront as WF
     from rt_tpu_torch.ops import wavefront_grad as WFG
-    from rt_tpu_torch.ops.render import WORD_MISS, _pack_camera, _upload
+    from rt_tpu_torch.ops.render import WORD_MISS
+    from rt_tpu_torch.ops.tables import _pack_camera, _padded_tables, _upload
 
     out = {}
     errs = {name: 0.0 for name in P8_KERNELS.values()}
@@ -3937,7 +3937,7 @@ def dist_phase(scenes, card, report):
     sc = scenes["proc500"]
     size = (320, 180)
     n = size[0] * size[1]
-    sp, pl, bx, counts = BW._device_tables(sc, "mg", False, dev)
+    sp, pl, bx, counts = _padded_tables(sc, "mg", False, dev)
     cam = _upload(_pack_camera(sc.camera, size), dev)
     seeds = torch.tensor([7], dtype=torch.int32, device=dev)
     kw = dict(size=size, max_bounces=8, center_sample=False)
@@ -4109,6 +4109,7 @@ def bench_phase(scenes, card, report):
     from rt_tpu_torch import bench_table
     from rt_tpu_torch.ops import grad as G
     from rt_tpu_torch.ops import render as R
+    from rt_tpu_torch.ops import tables as T
 
     wrappers = kernel_wrappers()
     out = {}
@@ -4150,7 +4151,7 @@ def bench_phase(scenes, card, report):
     # row 1 at 16 frames a launch (config 1's batched dispatch: basic 200x150, 1 spp, d4)
     size = (200, 150)
     sp, pl, bx, cam = card_tables(scenes["basic"], "mg", size)
-    seeds = R._upload(R._chunk_seeds(5, 1, 16), dev)[0]
+    seeds = T._upload(R._chunk_seeds(5, 1, 16), dev)[0]
     kw = dict(size=size, spp=1, max_bounces=4, center_sample=True)
     got = R.render_tile(sp, pl, bx, cam, seeds, **kw)
     want = R.render_tile_plain(sp, pl, bx, cam, seeds, **kw)

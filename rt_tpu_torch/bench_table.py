@@ -239,7 +239,7 @@ def _vs_cpu(rate: float, cpu: float) -> str:
 def _scanned_prims(scene) -> int:
     """Primitive tests a ray-bounce of the blockwise kernel: it scans the
     used rows of its tables (``counts``), not the padding of
-    ``ops.blockwise._bucket`` (5120 rows for 5000 spheres), which the TPU
+    ``ops.tables._bucket`` (5120 rows for 5000 spheres), which the TPU
     kernel scans whole and the JAX tool counts."""
     return scene.spheres.count + scene.planes.count
 

@@ -130,9 +130,10 @@ def _record_rays(camera, size, grid, jitter):
     offsets ``jitter`` (N, 2): ``render._raygen_plain`` (trace.cuh
     camera_ray) on the camera's position and rotation tensors, so
     differentiable in them: ``(origins, directions)``, each (N, 3)."""
-    from .ops.render import _inv_size, _pack_camera, _raygen_plain
+    from .ops.render import _inv_size, _raygen_plain
+    from .ops.tables import _camera_tail
 
-    c = [*camera.position, *camera.rotation.reshape(-1), *_pack_camera(camera, size)[12:15]]
+    c = [*camera.position, *camera.rotation.reshape(-1), *_camera_tail(camera, size)[:3]]
     o3, d3 = _raygen_plain(c, grid[:, 0], grid[:, 1], jitter[:, 0], jitter[:, 1],
                            *_inv_size(*size))
     return torch.stack(o3, dim=-1), torch.stack(d3, dim=-1)
@@ -197,27 +198,25 @@ def records_loss_and_grad(params, scene, target, size, seed: int = 0, *, spp: in
     from .integrator import _pixel_grid
     from .ops import blockwise as BW
     from .ops import render as R
+    from .ops import tables as T
     from .ops.grad import _sample_seeds
 
-    dev = R._device(device)
+    dev = T._device(device)
     w, h = size
     scene = scene.to(dev)
     params = {k: torch.as_tensor(v).to(dev) for k, v in params.items()}
     concrete = apply_params(scene, {k: v.detach() for k, v in params.items()})
     use_boxes = include_boxes and scene.boxes.count > 0
-    seeds = R._upload(_sample_seeds(seed, spp), dev)
+    seeds = T._upload(_sample_seeds(seed, spp), dev)
     # the record pass takes the pose as values: the camera reaches the
     # loss only through the replay's camera rays
-    cam = R._upload(R._pack_camera(concrete.camera, size), dev)
+    cam = T._upload(T._pack_camera(concrete.camera, size), dev)
     kw = dict(size=size, max_bounces=max_bounces, rng_mode=rng_mode)
     if R.supported(concrete, include_boxes):
-        s_cols, p_cols = R._flatten_primitives(concrete, personality)
-        b_cols = (R._flatten_boxes(concrete, personality) if use_boxes
-                  else np.zeros((12, 0), np.float32))
-        tables = [R._upload(c.T, dev) for c in (s_cols, p_cols, b_cols)]
+        tables = T._unrolled_tables(concrete, personality, use_boxes, dev)
         raw = R.render_record_tile(*tables, cam, seeds, center_sample=True, **kw)[1]
     elif BW.blockwise_supported(concrete, include_boxes):
-        tables = BW._device_tables(concrete, personality, use_boxes, dev)
+        tables = T._padded_tables(concrete, personality, use_boxes, dev)
         sets = [BW.render_record_blockwise_tile(*tables, cam, seeds[s:s + 1],
                                                 center_sample=(s == 0), **kw)[1]
                 for s in range(spp)]

@@ -90,7 +90,7 @@ def initialize(*, device="cuda", timeout: float = _TIMEOUT, **kwargs) -> Optiona
         return _rank_device(device)
     if not kwargs and "WORLD_SIZE" not in os.environ:
         return None
-    from .ops.render import _device
+    from .ops.tables import _device
 
     dev = _device(device)
     world = int(kwargs.get("world_size", os.environ.get("WORLD_SIZE", 1)))

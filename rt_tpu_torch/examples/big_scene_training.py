@@ -42,7 +42,7 @@ def main(argv=None) -> dict:
 
     import rt_tpu_torch
     from rt_tpu_torch.ops.blockwise import render_forward_blockwise
-    from rt_tpu_torch.ops.render import _device
+    from rt_tpu_torch.ops.tables import _device
     from rt_tpu_torch.train import make_kernel_train_step
 
     dev = _device(args.device)

@@ -79,7 +79,7 @@ def _device(device) -> torch.device:
     """``device`` as a torch device, checked: CUDA must be present when
     asked for, and matrix products on the card must not run in TF32 (the
     camera's rotation is a matrix product)."""
-    from .ops.render import _device as checked
+    from .ops.tables import _device as checked
 
     dev = checked(device)
     if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:

@@ -7,9 +7,10 @@ MSE step (``grad``, two kernels), the blockwise route for scenes of up to
 its record form; ``blockwise_grad``, its fused fwd+bwd kernel and the
 optimizer step), and the wavefront route for the same scenes
 (``wavefront``, the bounce-major forward kernel; ``wavefront_grad``, its
-scan-free reverse and the optimizer step).  ``intersect`` holds the ray
-helpers the replay needs.  ROADMAP.md, queue 2, maps each kernel to its
-TPU original.
+scan-free reverse and the optimizer step).  ``tables`` holds the input
+format they all read (primitive tables, camera vector, uploads), and
+``intersect`` the ray helpers the replay needs.  ROADMAP.md, queue 2, maps
+each kernel to its TPU original.
 """
 
 from .blockwise import (MAX_BLOCKWISE_PRIMS, blockwise_supported, render_forward_blockwise,

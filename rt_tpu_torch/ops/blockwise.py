@@ -20,7 +20,7 @@ comment says what bounds it and where the rows live.  Beside it:
   launches) it also returns each bounce's winner words, which the
   blockwise gradient kernel replays instead of scanning again.
 * :func:`render_forward_blockwise` — the entry point: tables padded to
-  their bucket (:func:`_bucket`, :func:`_padded_table`), samples chunked in
+  their bucket (``tables._padded_tables``), samples chunked in
   calls of 4 with the LCG chunk-seed chain (the JAX ``_meta_rows`` chain,
   which is :func:`rt_tpu_torch.ops.render._chunk_seeds`), the mean and
   gamma.  :func:`render_forward_blockwise_sharded` is its sharded twin
@@ -44,20 +44,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..profiling import span
 from . import render as _render
-from .grad import _check
-from .render import (RECORD_KEYS, _device, _flatten_boxes, _flatten_primitives, _inv_size,
-                     _pack_camera, _record_outputs, _record_plain, _upload, render_tile_plain)
+from .render import RECORD_KEYS, _inv_size, _record_outputs, _record_plain, render_tile_plain
+from .tables import (MAX_BLOCKWISE_PRIMS, _check, _check_tables, _device, _pack_camera,
+                     _padded_tables, _upload)
 
 __all__ = ["MAX_BLOCKWISE_PRIMS", "blockwise_supported", "render_blockwise_tile",
            "render_blockwise_tile_plain", "render_forward_blockwise",
            "render_forward_blockwise_sharded",
            "render_record_blockwise_tile", "render_record_blockwise_tile_plain",
            "render_record_blockwise"]
-
-MAX_BLOCKWISE_PRIMS = 16384  # the JAX kernel's cap (a (16384, 16) f32 table is 1 MB)
-_COLS = 16                   # padded row length (10 used; 12 for boxes)
 
 
 def blockwise_supported(scene, include_boxes: bool = False) -> bool:
@@ -69,43 +65,6 @@ def blockwise_supported(scene, include_boxes: bool = False) -> bool:
     return total <= MAX_BLOCKWISE_PRIMS
 
 
-def _bucket(n: int) -> int:
-    """A table height for ``n`` rows: at least 128, then multiples of 512
-    (pallas_blockwise ``_bucket``)."""
-    if n <= 128:
-        return 128
-    return -(-n // 512) * 512
-
-
-def _padded_table(cols: np.ndarray, bucket: int) -> np.ndarray:
-    """(10, count) columns (``render._flatten_primitives``) -> (bucket, 16)
-    row-major table; padding rows are zero, column 10 holds each row's
-    index (the JAX tie-break column of a Morton-sorted table; no kernel
-    here reads it)."""
-    out = np.zeros((bucket, _COLS), np.float32)
-    out[:cols.shape[1], :10] = cols.T
-    out[:, 10] = np.arange(bucket, dtype=np.float32)
-    return out
-
-
-def _padded_box_table(b_cols: np.ndarray, bucket: int) -> np.ndarray:
-    """(12, count) box columns (``render._flatten_boxes``) -> (bucket, 16)
-    table; column 12 holds each row's index."""
-    out = np.zeros((bucket, _COLS), np.float32)
-    out[:b_cols.shape[1], :12] = b_cols.T
-    out[:, 12] = np.arange(bucket, dtype=np.float32)
-    return out
-
-
-def _box_inputs(scene, personality: str, include_boxes: bool):
-    """``(b_pad, table)``: the padded box table of the ``--boxes``
-    extension, or ``(0, None)`` when boxes are not traced."""
-    if not (include_boxes and scene.boxes.count > 0):
-        return 0, None
-    b_pad = _bucket(scene.boxes.count)
-    return b_pad, _padded_box_table(_flatten_boxes(scene, personality), b_pad)
-
-
 def render_blockwise_tile_plain(spheres, planes, boxes, counts, cam, seeds, *, size, spp,
                                 max_bounces, center_sample, rng_mode="reference", words=False,
                                 pix0=0, count=None):
@@ -113,8 +72,7 @@ def render_blockwise_tile_plain(spheres, planes, boxes, counts, cam, seeds, *, s
 
     Args:
       spheres, planes, boxes: padded (rows, 16) float32 tables
-        (:func:`_padded_table`, :func:`_padded_box_table`); boxes may have
-        0 rows.
+        (``tables._padded_tables``); boxes may have 0 rows.
       counts: (n_spheres, n_planes, n_boxes), the used rows of each table;
         n_boxes = 0 leaves boxes untested.
       cam: (16,) float32 camera vector; seeds: (1,) int32.
@@ -162,17 +120,6 @@ def _words_kernel():
     fn.argtypes = [p, i, p, i, p, i, p, p, p, p, i, i, i, i, f, f, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
-
-
-def _check_tables(fn, tables, counts, dev):
-    """The padded tables: contiguous (rows, 16) float32 on ``dev``, each
-    count within its table and the total within the cap."""
-    for name, t, c in zip(("spheres", "planes", "boxes"), tables, counts):
-        _check(fn, name, t, torch.float32, (None, _COLS), dev)
-        if not 0 <= c <= t.shape[0]:
-            raise ValueError(f"{fn}: {c} {name} for a table of {t.shape[0]} rows")
-    if sum(counts) > MAX_BLOCKWISE_PRIMS:
-        raise ValueError(f"{fn}: more than {MAX_BLOCKWISE_PRIMS} primitives")
 
 
 def render_blockwise_tile(spheres, planes, boxes, counts, cam, seeds, *, size, spp, max_bounces,
@@ -238,20 +185,6 @@ def render_blockwise_tile(spheres, planes, boxes, counts, cam, seeds, *, size, s
 render_blockwise_tile.launches = 0
 
 
-def _device_tables(scene, personality: str, include_boxes: bool, dev):
-    """The padded tables on ``dev`` and their counts: ``(spheres, planes,
-    boxes, (n_spheres, n_planes, n_boxes))``."""
-    with span("rt.tables"):
-        s_cols, p_cols = _flatten_primitives(scene, personality)
-        b_pad, b_tab = _box_inputs(scene, personality, include_boxes)
-        if b_tab is None:
-            b_tab = np.zeros((0, _COLS), np.float32)
-        tabs = [_padded_table(s_cols, _bucket(scene.spheres.count)),
-                _padded_table(p_cols, _bucket(scene.planes.count)), b_tab]
-        counts = (scene.spheres.count, scene.planes.count, scene.boxes.count if b_pad else 0)
-        return (*(_upload(t, dev) for t in tabs), counts)
-
-
 def render_forward_blockwise(
     scene,
     size: tuple[int, int],
@@ -286,7 +219,7 @@ def render_forward_blockwise(
     max_bounces = scene.max_bounces if max_bounces is None else max_bounces
     ax = None if mesh is None else mesh_axis(mesh, axis)
     pixels = {} if ax is None else dict(zip(("pix0", "count"), shard_range(w * h, ax, 128)))
-    spheres, planes, boxes, counts = _device_tables(scene, personality, include_boxes, dev)
+    spheres, planes, boxes, counts = _padded_tables(scene, personality, include_boxes, dev)
 
     def launch(cam, seeds, k, center):
         return render_blockwise_tile(spheres, planes, boxes, counts, cam, seeds, size=size,
@@ -414,7 +347,7 @@ def render_record_blockwise(scene, size, seed: int, *, personality: str = "mg",
         raise ValueError("scene exceeds the blockwise megakernel limits")
     dev = _device(device)
     max_bounces = scene.max_bounces if max_bounces is None else max_bounces
-    spheres, planes, boxes, counts = _device_tables(scene, personality, include_boxes, dev)
+    spheres, planes, boxes, counts = _padded_tables(scene, personality, include_boxes, dev)
     return render_record_blockwise_tile(
         spheres, planes, boxes, counts, _upload(_pack_camera(scene.camera, size), dev),
         _upload(np.asarray([seed], np.int32), dev), size=size, max_bounces=max_bounces,

@@ -33,7 +33,7 @@ Beside it:
   frame (the render dielectric), the gradients from the gradient kernel's
   own sweep (the ``_bounce_forward`` dielectric), as in JAX.
 * :func:`make_bw_train_step` — a whole optimizer step: tables rebuilt on
-  the device from the parameter tensors (:func:`_tables_torch`), the fused
+  the device from the parameter tensors (``tables._param_tables``), the fused
   step, ``.grad`` set for every key of ``params``, ``optimizer.step()``.
   A ``torch.optim`` optimizer stands in for optax (``torch.optim.Adam``
   for ``optax.adam``: same betas and eps; the two round the update in a
@@ -55,22 +55,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..diff import apply_params
-from ..materials import personality_classes
 from ..profiling import span
-from .blockwise import MAX_BLOCKWISE_PRIMS, _COLS, _bucket, _check_tables, render_blockwise_tile
-from .grad import _assemble_grads, _check, _fused_plain, _sample_seeds
-from .render import _device, _inv_size, _upload
+from .blockwise import render_blockwise_tile
+from .grad import _assemble_grads, _fused_plain, _sample_seeds
+from .render import _inv_size
+from .tables import (_COLS, _check, _check_tables, _device, _param_tables, _upload,
+                     bw_grad_supported)
 
 __all__ = ["bw_grad_supported", "bw_grad_tile", "bw_grad_tile_plain", "make_bw_mse_step",
            "bw_mse_loss_and_grad", "make_bw_train_step"]
-
-
-def bw_grad_supported(scene) -> bool:
-    """Whether the blockwise gradient step takes this scene: at most
-    ``MAX_BLOCKWISE_PRIMS`` spheres and planes, and no boxes."""
-    return (scene.spheres.count + scene.planes.count <= MAX_BLOCKWISE_PRIMS
-            and scene.boxes.count == 0)
 
 
 def bw_grad_tile_plain(spheres, planes, counts, cam, seeds, cot, words, *, size, max_bounces,
@@ -80,7 +73,7 @@ def bw_grad_tile_plain(spheres, planes, counts, cam, seeds, cot, words, *, size,
 
     Args:
       spheres, planes: padded (rows, 16) float32 tables
-        (``blockwise._padded_table``); counts: (n_spheres, n_planes), their
+        (``tables._padded_tables``); counts: (n_spheres, n_planes), their
         used rows.
       cam: (16,) float32 camera vector; seeds: (1,) int32, the sample's
         seed (``center_sample`` puts it at the pixel centre).
@@ -190,62 +183,8 @@ bw_grad_tile.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# tables and the pipeline
+# the pipeline
 # ---------------------------------------------------------------------------
-
-
-def _tables_torch(scene, personality: str, s_pad: int, p_pad: int, size, device):
-    """The twin of ``_tables_jnp``: returns ``build(params) -> (s_tab,
-    p_tab, cam)``, the padded (pad, 16) tables and the camera vector rebuilt
-    on ``device`` from the parameter tensors with torch ops — no host round
-    trip and no upload per call.  Material indices and classes, which never
-    train, are looked up once here.  Column 10 stays zero, as in
-    ``_tables_jnp``; ``build`` writes into the same two tables each call."""
-    sc0 = scene.to(device)
-    dev = sc0.spheres.center.device  # with its index
-    w, h = size
-    classes = personality_classes(personality).to(dev)
-    ns, npl = scene.spheres.count, scene.planes.count
-    s_m = sc0.spheres.material[:ns].long()
-    p_m = sc0.planes.material[:npl].long()
-    s_cls = classes[sc0.materials.type[s_m].long()].float()
-    p_cls = classes[sc0.materials.type[p_m].long()].float()
-    tail = _upload(np.asarray([np.tan(scene.camera.vfov * 0.5), w / h, scene.camera.near, 0.0],
-                              np.float32), dev)
-    s_tab = torch.zeros((s_pad, _COLS), dtype=torch.float32, device=dev)
-    p_tab = torch.zeros((p_pad, _COLS), dtype=torch.float32, device=dev)
-
-    def rows(geom, d, m, cls, mats):
-        return torch.cat([geom, d[:, None], mats.albedo[m][:, :3], mats.reflectivity[m][:, None],
-                          mats.roughness[m][:, None], cls[:, None]], dim=1)
-
-    def build(params):
-        for k, v in params.items():
-            if v.device != dev:
-                raise ValueError(f"param {k} is on {v.device}, the step on {dev}")
-        with span("rt.tables"), torch.no_grad():
-            sc = apply_params(sc0, {k: v.detach() for k, v in params.items()})
-            if ns:
-                s_tab[:ns, :10] = rows(sc.spheres.center[:ns], sc.spheres.radius[:ns], s_m,
-                                       s_cls, sc.materials)
-            if npl:
-                p_tab[:npl, :10] = rows(sc.planes.normal[:npl], sc.planes.d[:npl], p_m, p_cls,
-                                        sc.materials)
-            cam = torch.cat([sc.camera.position.float(), sc.camera.rotation.float().reshape(-1),
-                             tail])
-        return s_tab, p_tab, cam
-
-    return build
-
-
-def _table_builder(scene, personality: str, size, dev):
-    """:func:`_tables_torch` at the scene's buckets, once the scene passes
-    :func:`bw_grad_supported`."""
-    if not bw_grad_supported(scene):
-        raise ValueError("scene exceeds the blockwise grad kernel limits "
-                         f"({MAX_BLOCKWISE_PRIMS} spheres and planes, no boxes)")
-    return _tables_torch(scene, personality, _bucket(scene.spheres.count),
-                         _bucket(scene.planes.count), size, dev)
 
 
 def _sum_over(axis, acc):
@@ -339,7 +278,7 @@ def make_bw_mse_step(
 
     ``params`` (a dict of tensors, as :func:`rt_tpu_torch.diff.extract_params`
     gives, or a subset) go to ``device`` and the tables and camera are
-    built there from them once (:func:`_tables_torch`, as the train step
+    built there from them once (``tables._param_tables``, as the train step
     does); ``target`` ((H, W, 3) pre-gamma radiance) goes to ``device``
     once, and each call ships the per-sample seeds.  The loss is the MSE of
     the spp-mean frame against the target; ``grads`` holds the
@@ -350,7 +289,7 @@ def make_bw_mse_step(
     """
     dev = _device(device)
     max_bounces = scene.max_bounces if max_bounces is None else max_bounces
-    build = _table_builder(scene, personality, size, dev)
+    build = _param_tables(scene, personality, size, dev)
     tables = build({k: torch.as_tensor(v).to(dev) for k, v in params.items()})
     run = _bw_pipeline(scene, target, size, spp=spp, max_bounces=max_bounces,
                        rng_mode=rng_mode, dev=dev, mesh=mesh, axis=axis)
@@ -398,7 +337,7 @@ def make_bw_train_step(
     """
     dev = _device(device)
     max_bounces = scene.max_bounces if max_bounces is None else max_bounces
-    build = _table_builder(scene, personality, size, dev)
+    build = _param_tables(scene, personality, size, dev)
     run = _bw_pipeline(scene, target, size, spp=spp, max_bounces=max_bounces,
                        rng_mode=rng_mode, dev=dev, mesh=mesh, axis=axis)
 

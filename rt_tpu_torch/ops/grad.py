@@ -42,8 +42,8 @@ import torch
 
 from ..diff import apply_params
 from . import _grad_math as gm
-from .render import (MAX_UNROLL_PRIMS, _device, _flatten_primitives, _inv_size, _pack_camera,
-                     _upload, hash_u01, render_tile)
+from .render import MAX_UNROLL_PRIMS, _inv_size, hash_u01, render_tile
+from .tables import _check, _device, _pack_camera, _unrolled_tables, _upload
 
 __all__ = ["MAX_GRAD_PRIMS", "MAX_GRAD_PRIMS_LEAN", "grad_supported", "route",
            "mse_step_tile", "mse_step_tile_plain", "grad_tile", "grad_tile_plain",
@@ -204,8 +204,8 @@ def mse_step_tile_plain(spheres, planes, cam, seeds, target, *, size, max_bounce
     """Plain PyTorch version of the mono kernel, on the device of ``cam``.
 
     Args:
-      spheres, planes: (S, 10) / (P, 10) float32 rows of
-        ``render._flatten_primitives`` (transposed).
+      spheres, planes: (S, 10) / (P, 10) float32 rows
+        (``tables._unrolled_tables``).
       cam: (16,) float32 camera vector; seeds: (spp,) int32, one per sample
         (sample 0 at the pixel centre).
       target: (H, W, 3) float32 pre-gamma target.
@@ -246,14 +246,6 @@ def _kernel():
     fn.argtypes = [i, p, i, p, i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, f, f, f, p]
     fn.restype = ctypes.c_int
     return fn
-
-
-def _check(fn, name, t, dtype, shape, device):
-    if t.device != device or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(f"{fn}: {name} must be a contiguous {dtype} tensor on {device}, "
-                         f"got {t.dtype} on {t.device}")
-    if t.dim() != len(shape) or any(s is not None and s != d for s, d in zip(shape, t.shape)):
-        raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected {shape}")
 
 
 def _launch(fn, spheres, planes, cam, seeds, pix_in, *, size, max_bounces, center0, rng_mode,
@@ -423,14 +415,12 @@ def make_mse_step(
     concrete = apply_params(scene, params)
     mode = route(concrete.spheres.count + concrete.planes.count, spp, max_bounces, mode)
 
-    s_cols, p_cols = _flatten_primitives(concrete, personality)
-    spheres, planes = (_upload(c.T, dev) for c in (s_cols, p_cols))
+    spheres, planes, no_boxes = _unrolled_tables(concrete, personality, False, dev)
     cam = _upload(_pack_camera(concrete.camera, size), dev)
     tgt = torch.as_tensor(target, dtype=torch.float32).reshape(h, w, 3).to(dev).contiguous()
     s_mat = concrete.spheres.material[:concrete.spheres.count].to(device=dev, dtype=torch.int64)
     p_mat = concrete.planes.material[:concrete.planes.count].to(device=dev, dtype=torch.int64)
     tables = (scene.spheres.center.shape[0], scene.materials.albedo.shape[0])
-    no_boxes = torch.zeros((0, 12), dtype=torch.float32, device=dev)
     kw = dict(size=size, max_bounces=max_bounces, rng_mode=rng_mode)
 
     def step(seed: int = 0):

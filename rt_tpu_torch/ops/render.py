@@ -34,8 +34,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..materials import personality_classes
 from ..profiling import span
+from .tables import _check, _device, _pack_camera, _unrolled_tables, _upload
 
 __all__ = ["MAX_UNROLL_PRIMS", "supported", "hash_u01", "render_tile",
            "render_tile_plain", "render_forward", "make_render_step"]
@@ -60,60 +60,6 @@ def supported(scene, include_boxes: bool = False) -> bool:
     if include_boxes:
         n += scene.boxes.count
     return n <= MAX_UNROLL_PRIMS
-
-
-def _np(t) -> np.ndarray:
-    return t.detach().cpu().numpy()
-
-
-def _flatten_primitives(scene, personality: str):
-    """Per-primitive columns with the material payload baked in, as
-    (10, count) float32 arrays for spheres and planes.
-
-    Rows: [cx/nx, cy/ny, cz/nz, r/d, alb_r, alb_g, alb_b, refl, rough, cls].
-    Only the first ``count`` entries are returned (padding is dropped)."""
-    classes = _np(personality_classes(personality))
-    mat_t = _np(scene.materials.type)
-    mat_alb = _np(scene.materials.albedo)
-    mat_refl = _np(scene.materials.reflectivity)
-    mat_rough = _np(scene.materials.roughness)
-
-    def build(geom_cols, mats, count):
-        m = mats[:count]
-        cols = np.zeros((10, count), np.float32)
-        for i, g in enumerate(geom_cols):
-            cols[i] = g[:count]
-        if count:
-            cols[4:7] = mat_alb[m][:, :3].T
-            cols[7] = mat_refl[m]
-            cols[8] = mat_rough[m]
-            cols[9] = classes[mat_t[m]]
-        return cols
-
-    sc, sr = _np(scene.spheres.center), _np(scene.spheres.radius)
-    s_cols = build([sc[:, 0], sc[:, 1], sc[:, 2], sr], _np(scene.spheres.material),
-                   scene.spheres.count)
-    pn, pd = _np(scene.planes.normal), _np(scene.planes.d)
-    p_cols = build([pn[:, 0], pn[:, 1], pn[:, 2], pd], _np(scene.planes.material),
-                   scene.planes.count)
-    return s_cols, p_cols
-
-
-def _flatten_boxes(scene, personality: str) -> np.ndarray:
-    """Per-box columns for the ``--boxes`` extension, (12, count) float32.
-    Rows: [cx, cy, cz, ex, ey, ez, alb_r, alb_g, alb_b, refl, rough, cls]."""
-    classes = _np(personality_classes(personality))
-    count = scene.boxes.count
-    cols = np.zeros((12, count), np.float32)
-    if count:
-        m = _np(scene.boxes.material)[:count]
-        cols[0:3] = _np(scene.boxes.center)[:count].T
-        cols[3:6] = _np(scene.boxes.extents)[:count].T
-        cols[6:9] = _np(scene.materials.albedo)[m][:, :3].T
-        cols[9] = _np(scene.materials.reflectivity)[m]
-        cols[10] = _np(scene.materials.roughness)[m]
-        cols[11] = classes[_np(scene.materials.type)[m]]
-    return cols
 
 
 _M32 = 0xFFFFFFFF
@@ -436,11 +382,9 @@ def render_tile_plain(spheres, planes, boxes, cam, seeds, *, size, spp,
     """Plain PyTorch version of the kernel, on the device of ``cam``.
 
     Args:
-      spheres, planes: (S, 10) / (P, 10) float32 rows of
-        :func:`_flatten_primitives` (transposed).
-      boxes: (B, 12) float32 rows of :func:`_flatten_boxes`; B = 0 leaves
-        boxes untested.
-      cam: (16,) float32 camera vector (:func:`_pack_camera`).
+      spheres, planes, boxes: (S, 10) / (P, 10) / (B, 12) float32 rows
+        (``tables._unrolled_tables``); B = 0 leaves boxes untested.
+      cam: (16,) float32 camera vector (``tables._pack_camera``).
       seeds: (frames,) int32, one seed per frame.
       size: (width, height).
       spp: samples in this call; ``center_sample`` puts sample 0 at the
@@ -528,24 +472,17 @@ def _kernel():
     return fn
 
 
-def _check(name, t, dtype, shape, device):
-    if t.device != device or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(f"render_tile: {name} must be a contiguous {dtype} tensor on "
-                         f"{device}, got {t.dtype} on {t.device}")
-    if t.dim() != len(shape) or any(s is not None and s != d for s, d in zip(shape, t.shape)):
-        raise ValueError(f"render_tile: {name} has shape {tuple(t.shape)}, expected {shape}")
-
-
 def render_tile(spheres, planes, boxes, cam, seeds, *, size, spp, max_bounces,
                 center_sample, rng_mode="reference"):
     """One call of the megakernel; arguments and result as
     :func:`render_tile_plain`.  CPU tensors run the plain version; CUDA
     tensors launch the kernel on the current stream (without
     synchronizing) or raise."""
+    fn = "render_tile"
     dev = cam.device
     for name, t in (("spheres", spheres), ("planes", planes), ("boxes", boxes), ("seeds", seeds)):
         if t.device != dev:
-            raise ValueError(f"render_tile: {name} is on {t.device} but cam on {dev}")
+            raise ValueError(f"{fn}: {name} is on {t.device} but cam on {dev}")
     if rng_mode not in ("reference", "sphere"):
         raise ValueError(f"unknown rng_mode {rng_mode!r}")
     if dev.type == "cpu":
@@ -556,11 +493,11 @@ def render_tile(spheres, planes, boxes, cam, seeds, *, size, spp, max_bounces,
         raise ValueError(f"render_tile: no kernel for device {dev}")
     w, h = size
     f32 = torch.float32
-    _check("spheres", spheres, f32, (None, 10), dev)
-    _check("planes", planes, f32, (None, 10), dev)
-    _check("boxes", boxes, f32, (None, 12), dev)
-    _check("cam", cam, f32, (16,), dev)
-    _check("seeds", seeds, torch.int32, (None,), dev)
+    _check(fn, "spheres", spheres, f32, (None, 10), dev)
+    _check(fn, "planes", planes, f32, (None, 10), dev)
+    _check(fn, "boxes", boxes, f32, (None, 12), dev)
+    _check(fn, "cam", cam, f32, (16,), dev)
+    _check(fn, "seeds", seeds, torch.int32, (None,), dev)
     frames = seeds.shape[0]
     if spheres.shape[0] + planes.shape[0] + boxes.shape[0] > MAX_UNROLL_PRIMS:
         raise ValueError(f"render_tile: more than {MAX_UNROLL_PRIMS} primitives")
@@ -586,38 +523,6 @@ def render_tile(spheres, planes, boxes, cam, seeds, *, size, spp, max_bounces,
 render_tile.launches = 0
 
 
-def _pack_camera(camera, size) -> np.ndarray:
-    """The 16-float camera vector: position, row-major rotation, then
-    tan(vfov/2), w/h and near computed in float64 and rounded to float32
-    (pallas_render.py:833-839)."""
-    w, h = size
-    return np.concatenate([
-        _np(camera.position).astype(np.float32),
-        _np(camera.rotation).astype(np.float32).reshape(-1),
-        np.asarray([np.tan(camera.vfov * 0.5), w / h, camera.near, 0.0], np.float32),
-    ])
-
-
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but CUDA is not available "
-                           "(pass device='cpu' for the plain PyTorch version)")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
-
-
-def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """Host array → tensor on ``dev``; a CUDA copy goes through pinned
-    memory without blocking the host."""
-    with span("rt.upload"):
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if dev.type == "cuda":
-            return t.pin_memory().to(dev, non_blocking=True)
-        return t
-
-
 def _frame_renderer(scene, size, *, personality, spp, max_bounces, gamma, rng_mode,
                     include_boxes, frames, device):
     """Shared body of the entry points: uploads the tables once and returns
@@ -631,12 +536,7 @@ def _frame_renderer(scene, size, *, personality, spp, max_bounces, gamma, rng_mo
     w, h = size
     spp = scene.samples_per_pixel if spp is None else spp
     max_bounces = scene.max_bounces if max_bounces is None else max_bounces
-
-    with span("rt.tables"):
-        s_cols, p_cols = _flatten_primitives(scene, personality)
-        b_cols = (_flatten_boxes(scene, personality) if include_boxes
-                  else np.zeros((12, 0), np.float32))
-        spheres, planes, boxes = (_upload(c.T, dev) for c in (s_cols, p_cols, b_cols))
+    spheres, planes, boxes = _unrolled_tables(scene, personality, include_boxes, dev)
 
     def launch(cam, seeds, k, center):
         return render_tile(spheres, planes, boxes, cam, seeds, size=(w, h), spp=k,
@@ -857,11 +757,11 @@ def render_record_tile(spheres, planes, boxes, cam, seeds, *, size, max_bounces,
         raise ValueError(f"{fn}: no kernel for device {dev}")
     w, h = size
     f32 = torch.float32
-    _check("spheres", spheres, f32, (None, 10), dev)
-    _check("planes", planes, f32, (None, 10), dev)
-    _check("boxes", boxes, f32, (None, 12), dev)
-    _check("cam", cam, f32, (16,), dev)
-    _check("seeds", seeds, torch.int32, (None,), dev)
+    _check(fn, "spheres", spheres, f32, (None, 10), dev)
+    _check(fn, "planes", planes, f32, (None, 10), dev)
+    _check(fn, "boxes", boxes, f32, (None, 12), dev)
+    _check(fn, "cam", cam, f32, (16,), dev)
+    _check(fn, "seeds", seeds, torch.int32, (None,), dev)
     samples = seeds.shape[0]
     if spheres.shape[0] + planes.shape[0] + boxes.shape[0] > MAX_UNROLL_PRIMS:
         raise ValueError(f"{fn}: more than {MAX_UNROLL_PRIMS} primitives")
@@ -900,10 +800,7 @@ def render_record(scene, size, seed: int, *, personality: str = "mg",
         raise ValueError("scene exceeds the unrolled megakernel limits")
     dev = _device(device)
     max_bounces = scene.max_bounces if max_bounces is None else max_bounces
-    s_cols, p_cols = _flatten_primitives(scene, personality)
-    b_cols = (_flatten_boxes(scene, personality) if include_boxes
-              else np.zeros((12, 0), np.float32))
-    spheres, planes, boxes = (_upload(c.T, dev) for c in (s_cols, p_cols, b_cols))
+    spheres, planes, boxes = _unrolled_tables(scene, personality, include_boxes, dev)
     rad, recs = render_record_tile(spheres, planes, boxes,
                                    _upload(_pack_camera(scene.camera, size), dev),
                                    _upload(np.asarray([seed], np.int32), dev), size=size,

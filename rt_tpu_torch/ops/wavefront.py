@@ -57,10 +57,9 @@ import torch
 
 from ..profiling import count_live, recording, span
 from . import _grad_math as gm
-from .blockwise import _check_tables, _device_tables, blockwise_supported
-from .grad import _check
-from .render import (WORD_MISS, _bounce_plain, _chunked_frame, _device, _inv_size, _pack_camera,
-                     _upload, hash_u01)
+from .blockwise import blockwise_supported
+from .render import WORD_MISS, _bounce_plain, _chunked_frame, _inv_size, hash_u01
+from .tables import _check, _check_tables, _device, _pack_camera, _padded_tables, _upload
 
 __all__ = ["STATE_ROWS", "wavefront_supported", "wf_bounce", "wf_bounce_plain",
            "render_forward_wavefront", "render_forward_wavefront_sharded"]
@@ -145,7 +144,7 @@ def wf_bounce_plain(spheres, planes, boxes, counts, cam, seeds, state, ids, limi
 
     Args:
       spheres, planes, boxes: padded (rows, 16) float32 tables
-        (``blockwise._padded_table``); counts: (n_spheres, n_planes,
+        (``tables._padded_tables``); counts: (n_spheres, n_planes,
         n_boxes), their used rows (n_boxes = 0 leaves boxes untested).
       cam: (16,) float32 camera vector; seeds: (1,) int32, the chunk's seed.
       state: (13, N) float32, ids: (N,) int32, updated in place.
@@ -415,7 +414,7 @@ def render_forward_wavefront(
     sched, shrink_at = _schedule(max_bounces, sort_schedule, shrink_at)
     center_first = True if center_sample is None else center_sample
     ax = None if mesh is None else mesh_axis(mesh, axis)
-    spheres, planes, boxes, counts = _device_tables(scene, personality, include_boxes, dev)
+    spheres, planes, boxes, counts = _padded_tables(scene, personality, include_boxes, dev)
 
     def launch(cam, seeds, k, first):
         total = n_pix * k

@@ -20,7 +20,7 @@ hand-written adjoint of ``_bounce_smooth``.  Beside it:
   grads)`` at fixed params; :func:`make_wf_train_step` — a whole optimizer
   step with a ``torch.optim`` optimizer, as ``make_bw_train_step``.  Both
   build the tables on the device from the params with the blockwise
-  step's builder (``blockwise_grad._tables_torch``).
+  step's builder (``tables._param_tables``).
 
 Cotangents in ray-id order.  JAX keeps its cotangent table in the layout of
 the sorted state and carries it back through every sort with a recorded
@@ -57,11 +57,11 @@ import torch
 
 from ..profiling import span
 from . import _grad_math as gm
-from .blockwise import _COLS, _bucket, _check_tables
-from .blockwise_grad import _table_builder, bw_grad_supported
-from .grad import _assemble_grads, _check
-from .render import (_BIG, _MIN_HIT, WORD_MISS, WORD_PLANE, WORD_ROW, _chunk_seeds, _device,
-                     _inv_size, _upload, hash_u01)
+from .grad import _assemble_grads
+from .render import (_BIG, _MIN_HIT, WORD_MISS, WORD_PLANE, WORD_ROW, _chunk_seeds, _inv_size,
+                     hash_u01)
+from .tables import (_COLS, _bucket, _check, _check_tables, _device, _param_tables, _upload,
+                     bw_grad_supported)
 from .wavefront import (_ID_MASK, STATE_ROWS, _forward_chunk, _radiance_by_id, _schedule,
                         _sum_samples, wf_bounce)
 
@@ -430,7 +430,7 @@ def make_wf_mse_step(
     """
     dev = _device(device)
     max_bounces = scene.max_bounces if max_bounces is None else max_bounces
-    tables = _table_builder(scene, personality, size, dev)(
+    tables = _param_tables(scene, personality, size, dev)(
         {k: torch.as_tensor(v).to(dev) for k, v in params.items()})
     run, n_chunks = _wf_pipeline(scene, target, size, spp=spp, spp_chunk=spp_chunk,
                                  max_bounces=max_bounces, rng_mode=rng_mode, dev=dev, mesh=mesh,
@@ -474,7 +474,7 @@ def make_wf_train_step(
     goes to the device per call.  ``target`` must be PRE-gamma radiance."""
     dev = _device(device)
     max_bounces = scene.max_bounces if max_bounces is None else max_bounces
-    build = _table_builder(scene, personality, size, dev)
+    build = _param_tables(scene, personality, size, dev)
     run, n_chunks = _wf_pipeline(scene, target, size, spp=spp, spp_chunk=spp_chunk,
                                  max_bounces=max_bounces, rng_mode=rng_mode, dev=dev, mesh=mesh,
                                  axis=axis)

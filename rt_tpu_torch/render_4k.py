@@ -76,7 +76,8 @@ def main(argv=None):
 
     import rt_tpu_torch
     from rt_tpu_torch.ops.blockwise import _kernel
-    from rt_tpu_torch.ops.render import _SPP_CHUNK, _device
+    from rt_tpu_torch.ops.render import _SPP_CHUNK
+    from rt_tpu_torch.ops.tables import _device
 
     dev = _device(args.device)
     w, h = (int(v) for v in args.size.lower().split("x"))

@@ -144,7 +144,8 @@ def measure_scan_rates(windows: int = 5) -> dict:
     """The config-5 slice through the blockwise and the wavefront forward
     entry points in interleaved windows: the median frame times and the
     primitive-test rates (the wavefront's per live ray-bounce)."""
-    from .ops.blockwise import _bucket, render_forward_blockwise
+    from .ops.blockwise import render_forward_blockwise
+    from .ops.tables import _bucket
     from .ops.wavefront import render_forward_wavefront
     from .scene import make_procedural_scene
 

@@ -15,6 +15,7 @@ import rt_tpu_torch
 from rt_tpu_torch.ops import _grad_math as gm
 from rt_tpu_torch.ops import blockwise as tb
 from rt_tpu_torch.ops import render as tr
+from rt_tpu_torch.ops import tables as tt
 from test_torch_common import SCENES
 from test_torch_grad_mono import assert_step_matches_jax
 
@@ -39,8 +40,8 @@ def test_forward_words_are_the_gradient_sweeps_winners(name, seed, center):
     size, depth = (40, 30), 8
     w, h = size
     n = w * h
-    sp, pl, bx, counts = tb._device_tables(scene, "sm", False, torch.device("cpu"))
-    cam = torch.from_numpy(tr._pack_camera(scene.camera, size))
+    sp, pl, bx, counts = tt._padded_tables(scene, "sm", False, torch.device("cpu"))
+    cam = torch.from_numpy(tt._pack_camera(scene.camera, size))
     _, words = tb.render_blockwise_tile_plain(sp, pl, bx, counts, cam,
                                               torch.tensor([seed], dtype=torch.int32), size=size,
                                               spp=1, max_bounces=depth, center_sample=center,

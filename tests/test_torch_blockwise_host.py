@@ -24,6 +24,7 @@ from rt_tpu_torch import train as ttrain
 from rt_tpu_torch.ops import blockwise as tb
 from rt_tpu_torch.ops import blockwise_grad as tbg
 from rt_tpu_torch.ops import render as tr
+from rt_tpu_torch.ops import tables as tt
 from test_torch_common import BOX_TOML, SCENES
 from test_torch_ops import jax_scene
 
@@ -47,7 +48,7 @@ def _scenes():
 
 def test_bucket_matches_jax():
     for n in (0, 1, 127, 128, 129, 511, 512, 513, 700, 1024, 1025, 2047, 2048, 16384):
-        assert tb._bucket(n) == jb._bucket(n), n
+        assert tt._bucket(n) == jb._bucket(n), n
 
 
 @pytest.mark.parametrize("name", ["basic.toml", "cornell_spheres.toml", "box", "proc700"])
@@ -55,18 +56,19 @@ def test_bucket_matches_jax():
 def test_padded_tables_match_jax(name, personality):
     js = rt_tpu.scene.make_procedural_scene(700) if name == "proc700" else jax_scene(name)
     ts = rt_tpu_torch.from_jax_scene(js)
-    for want, got in zip(jb._flatten_primitives(js, personality),
-                         tr._flatten_primitives(ts, personality)):
-        np.testing.assert_array_equal(tb._padded_table(got, tb._bucket(got.shape[1])),
-                                      jb._padded_table(want, jb._bucket(want.shape[1])))
     for include_boxes in (False, True):
+        *got, counts = tt._padded_tables(ts, personality, include_boxes, torch.device("cpu"))
+        for want, tab, n in zip(jb._flatten_primitives(js, personality), got, counts):
+            assert n == want.shape[1]
+            np.testing.assert_array_equal(tab.numpy(),
+                                          jb._padded_table(want, jb._bucket(want.shape[1])))
         want_pad, want_tab = jb._box_inputs(js, personality, include_boxes)
-        got_pad, got_tab = tb._box_inputs(ts, personality, include_boxes)
-        assert got_pad == want_pad
+        assert got[2].shape == (want_pad, 16)
         if want_pad:
-            np.testing.assert_array_equal(got_tab, np.asarray(want_tab[0]))
+            assert counts[2] == js.boxes.count
+            np.testing.assert_array_equal(got[2].numpy(), np.asarray(want_tab[0]))
         else:
-            assert got_tab is None and want_tab == ()
+            assert counts[2] == 0 and want_tab == ()
 
 
 @pytest.mark.parametrize("seed,n_chunks", [(0, 1), (7, 3), (-5, 4), (2**31 - 2, 5)])
@@ -143,28 +145,40 @@ def test_train_step_router_matches_jax(monkeypatch):
                     ("make_bw_train_step", False)}
 
 
-@pytest.mark.parametrize("name,personality", [("proc700", "mg"), ("cornell_spheres.toml", "sm")])
+@pytest.mark.parametrize("name,personality", [("proc700", "mg"), ("cornell_spheres.toml", "sm"),
+                                              ("box", "mg")])
 def test_tables_torch_match_tables_jnp(name, personality):
+    """The params builder against ``_tables_jnp``, and every builder against
+    the forward route's host set-up of the scene at those params: the
+    padded tables but for the index column (no kernel reads it), and the
+    render kernel's tables, which are the padded tables' used rows (with
+    boxes: the box scene, which the params builder refuses)."""
     js = rt_tpu.scene.make_procedural_scene(700) if name == "proc700" else jax_scene(name)
     ts = rt_tpu_torch.from_jax_scene(js)
     size = (40, 30)
     jp = jdiff.extract_params(js)
     jp = dict(jp, **{"materials.albedo": jp["materials.albedo"] * 0.7,
                      "spheres.radius": jp["spheres.radius"] * 1.1})
-    s_pad, p_pad = jb._bucket(js.spheres.count), jb._bucket(js.planes.count)
-    want = jbg._tables_jnp(js, jp, personality, s_pad, p_pad, size)
-    build = tbg._tables_torch(ts, personality, s_pad, p_pad, size, "cpu")
-    got = build(tdiff.params_from_numpy({k: np.asarray(v) for k, v in jp.items()}, device="cpu"))
+    tp = tdiff.params_from_numpy({k: np.asarray(v) for k, v in jp.items()}, device="cpu")
+    concrete = tdiff.apply_params(ts, tp)
+    cpu = torch.device("cpu")
+    *padded, counts = tt._padded_tables(concrete, personality, True, cpu)
+    for tab, rows, n, used in zip(padded, tt._unrolled_tables(concrete, personality, True, cpu),
+                                  counts, (10, 10, 12)):
+        assert rows.shape == (n, used) and torch.equal(rows, tab[:n, :used])
+    cam = torch.from_numpy(tt._pack_camera(concrete.camera, size))
+    if name == "box":
+        assert counts[2] == js.boxes.count > 0
+        with pytest.raises(ValueError, match="no boxes"):
+            tt._param_tables(ts, personality, size, "cpu")
+        return
+    want = jbg._tables_jnp(js, jp, personality, jb._bucket(js.spheres.count),
+                           jb._bucket(js.planes.count), size)
+    got = tt._param_tables(ts, personality, size, "cpu")(tp)
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    # the same tables as the forward route's host set-up of the scene at
-    # those params, but for the index column (the kernels do not read it)
-    concrete = tdiff.apply_params(ts, tdiff.params_from_numpy(
-        {k: np.asarray(v) for k, v in jp.items()}, device="cpu"))
-    s_tab, p_tab, _, _ = tb._device_tables(concrete, personality, False, torch.device("cpu"))
-    cam = torch.from_numpy(tr._pack_camera(concrete.camera, size))
-    for g, w in zip(got, (s_tab, p_tab, cam)):
+    for g, w in zip(got, (*padded[:2], cam)):
         w = w.clone()
         if w.ndim == 2:
             w[:, 10] = 0.0
@@ -218,9 +232,9 @@ def test_tiles_dispatch_by_device():
     """CPU tensors run the plain versions (no launch is counted, ``out`` is
     added to); another device is refused."""
     ts = rt_tpu_torch.scene.make_procedural_scene(30)
-    sp, pl, bx, counts = tb._device_tables(ts, "mg", False, torch.device("cpu"))
+    sp, pl, bx, counts = tt._padded_tables(ts, "mg", False, torch.device("cpu"))
     assert sp.shape == (128, 16) and counts == (30, 0, 0)
-    cam = torch.from_numpy(tr._pack_camera(ts.camera, (8, 6)))
+    cam = torch.from_numpy(tt._pack_camera(ts.camera, (8, 6)))
     seeds = torch.tensor([3], dtype=torch.int32)
     before = (tb.render_blockwise_tile.launches, tbg.bw_grad_tile.launches)
     img = tb.render_blockwise_tile(sp, pl, bx, counts, cam, seeds, size=(8, 6), spp=2,

@@ -18,6 +18,7 @@ import rt_tpu_torch
 from rt_tpu_torch import diff
 from rt_tpu_torch.ops import grad as tg
 from rt_tpu_torch.ops import render as tr
+from rt_tpu_torch.ops import tables as tt
 from test_torch_common import (BOX_TOML, PLANES_TOML, SCENES, assert_frames_close,
                                box_scene_toml, grazing_scene_toml, tie_scene_toml)
 
@@ -51,13 +52,10 @@ def _scene(name):
 ])
 def test_kernel_matches_plain(cuda, name, personality, include_boxes, rng_mode):
     scene = _scene(name)
-    s_cols, p_cols = tr._flatten_primitives(scene, personality)
-    b_cols = (tr._flatten_boxes(scene, personality) if include_boxes
-              else np.zeros((12, 0), np.float32))
     size = (48, 32)
-    args = [torch.from_numpy(np.ascontiguousarray(c.T)).to(cuda) for c in (s_cols, p_cols, b_cols)]
-    args += [torch.from_numpy(tr._pack_camera(scene.camera, size)).to(cuda),
-             torch.tensor([5, -9], dtype=torch.int32, device=cuda)]
+    args = [*tt._unrolled_tables(scene, personality, include_boxes, cuda),
+            torch.from_numpy(tt._pack_camera(scene.camera, size)).to(cuda),
+            torch.tensor([5, -9], dtype=torch.int32, device=cuda)]
     kw = dict(size=size, spp=3, max_bounces=5, center_sample=True, rng_mode=rng_mode)
     before = tr.render_tile.launches
     got = tr.render_tile(*args, **kw)
@@ -88,11 +86,8 @@ def test_entry_points_launch_the_kernel(cuda):
 
 def test_wrapper_rejects_bad_inputs(cuda):
     scene = _scene("basic.toml")
-    s_cols, p_cols = tr._flatten_primitives(scene, "mg")
-    sp = torch.from_numpy(np.ascontiguousarray(s_cols.T)).to(cuda)
-    pl = torch.from_numpy(np.ascontiguousarray(p_cols.T)).to(cuda)
-    bx = torch.zeros((0, 12), device=cuda)
-    cam = torch.from_numpy(tr._pack_camera(scene.camera, (8, 8))).to(cuda)
+    sp, pl, bx = tt._unrolled_tables(scene, "mg", False, cuda)
+    cam = torch.from_numpy(tt._pack_camera(scene.camera, (8, 8))).to(cuda)
     seeds = torch.tensor([0], dtype=torch.int32, device=cuda)
     kw = dict(size=(8, 8), spp=1, max_bounces=1, center_sample=True)
     with pytest.raises(ValueError, match="seeds"):
@@ -105,9 +100,8 @@ def test_wrapper_rejects_bad_inputs(cuda):
 
 def _grad_args(cuda, name, personality, size, seed=1):
     scene = _scene(name)
-    s_cols, p_cols = tr._flatten_primitives(scene, personality)
-    sp, pl = (torch.from_numpy(np.ascontiguousarray(c.T)).to(cuda) for c in (s_cols, p_cols))
-    cam = torch.from_numpy(tr._pack_camera(scene.camera, size)).to(cuda)
+    sp, pl, _ = tt._unrolled_tables(scene, personality, False, cuda)
+    cam = torch.from_numpy(tt._pack_camera(scene.camera, size)).to(cuda)
     w, h = size
     pix = torch.from_numpy(np.random.default_rng(seed).uniform(0, 0.5, (h, w, 3))
                            .astype(np.float32)).to(cuda)
@@ -217,9 +211,7 @@ def test_make_mse_step_launches(cuda):
 
 
 def _bw_tables(cuda, scene, personality, include_boxes=False):
-    from rt_tpu_torch.ops import blockwise as tb
-
-    return tb._device_tables(scene, personality, include_boxes, cuda)
+    return tt._padded_tables(scene, personality, include_boxes, cuda)
 
 
 @pytest.mark.parametrize("name,personality,include_boxes,rng_mode", [
@@ -235,7 +227,7 @@ def test_blockwise_kernel_matches_plain(cuda, name, personality, include_boxes, 
              else _scene(name))
     sp, pl, bx, counts = _bw_tables(cuda, scene, personality, include_boxes)
     size = (48, 32)
-    cam = torch.from_numpy(tr._pack_camera(scene.camera, size)).to(cuda)
+    cam = torch.from_numpy(tt._pack_camera(scene.camera, size)).to(cuda)
     seeds = torch.tensor([-9], dtype=torch.int32, device=cuda)
     kw = dict(size=size, spp=3, max_bounces=5, center_sample=True, rng_mode=rng_mode)
     before = tb.render_blockwise_tile.launches
@@ -265,7 +257,7 @@ def test_rejecting_scan_kernels_match_plain(cuda, name, include_boxes):
              "grazing": lambda: rt_tpu_torch.loads(grazing_scene_toml()),
              "proc2100": lambda: rt_tpu_torch.scene.make_procedural_scene(2100)}[name]()
     size = (96, 64) if name != "proc2100" else (32, 24)
-    cam = torch.from_numpy(tr._pack_camera(scene.camera, size)).to(cuda)
+    cam = torch.from_numpy(tt._pack_camera(scene.camera, size)).to(cuda)
     seeds = torch.tensor([23], dtype=torch.int32, device=cuda)
     kw = dict(size=size, max_bounces=8 if name != "proc2100" else 3)
     sp, pl, bx, counts = _bw_tables(cuda, scene, "mg", include_boxes)
@@ -281,11 +273,7 @@ def test_rejecting_scan_kernels_match_plain(cuda, name, include_boxes):
     assert torch.equal(got, want), (got - want).abs().max().item()
     assert torch.equal(img, img_p) and torch.equal(words, words_p)
     if sum(counts) <= tr.MAX_UNROLL_PRIMS:
-        s_cols, p_cols = tr._flatten_primitives(scene, "mg")
-        b_cols = (tr._flatten_boxes(scene, "mg") if include_boxes
-                  else np.zeros((12, 0), np.float32))
-        args = [torch.from_numpy(np.ascontiguousarray(c.T)).to(cuda)
-                for c in (s_cols, p_cols, b_cols)]
+        args = tt._unrolled_tables(scene, "mg", include_boxes, cuda)
         r_got = tr.render_tile(*args, cam, seeds, spp=3, center_sample=True, **kw)
         r_want = tr.render_tile_plain(*args, cam, seeds, spp=3, center_sample=True, **kw)
         torch.cuda.synchronize()
@@ -304,7 +292,7 @@ def test_bw_grad_kernel_matches_plain(cuda, name, personality, center):
              else _scene(name))
     sp, pl, bx, counts = _bw_tables(cuda, scene, personality)
     size = (48, 32)
-    cam = torch.from_numpy(tr._pack_camera(scene.camera, size)).to(cuda)
+    cam = torch.from_numpy(tt._pack_camera(scene.camera, size)).to(cuda)
     cot = torch.from_numpy(np.random.default_rng(4).uniform(0, 1e-4, (32, 48, 3))
                            .astype(np.float32)).to(cuda)
     seeds = torch.tensor([77], dtype=torch.int32, device=cuda)
@@ -382,7 +370,7 @@ def _wf_record(cuda, scene, personality, include_boxes, size, spp, max_bounces, 
     from rt_tpu_torch.ops import wavefront as twf
 
     sp, pl, bx, counts = _bw_tables(cuda, scene, personality, include_boxes)
-    cam = torch.from_numpy(tr._pack_camera(scene.camera, size)).to(cuda)
+    cam = torch.from_numpy(tt._pack_camera(scene.camera, size)).to(cuda)
     seeds = torch.tensor([-77], dtype=torch.int32, device=cuda)
     kw = dict(size=size, max_bounces=max_bounces, center_sample=True, rng_mode=rng_mode,
               record=True)
@@ -650,11 +638,8 @@ def test_record_kernels_match_plain(cuda, name, personality, include_boxes, rng_
 
     scene = _scene(name)
     size = (48, 32)
-    s_cols, p_cols = tr._flatten_primitives(scene, personality)
-    b_cols = (tr._flatten_boxes(scene, personality) if include_boxes
-              else np.zeros((12, 0), np.float32))
-    tabs = [torch.from_numpy(np.ascontiguousarray(c.T)).to(cuda) for c in (s_cols, p_cols, b_cols)]
-    cam = torch.from_numpy(tr._pack_camera(scene.camera, size)).to(cuda)
+    tabs = tt._unrolled_tables(scene, personality, include_boxes, cuda)
+    cam = torch.from_numpy(tt._pack_camera(scene.camera, size)).to(cuda)
     seeds = torch.tensor([-77], dtype=torch.int32, device=cuda)
     kw = dict(size=size, max_bounces=6, center_sample=center, rng_mode=rng_mode)
     bw_tabs = _bw_tables(cuda, scene, personality, include_boxes)
@@ -687,11 +672,8 @@ def test_record_kernel_samples_in_one_launch(cuda, name, personality, include_bo
     scene = _scene(name)
     size, spp, depth = (37, 23), 4, 6
     n = size[0] * size[1]
-    s_cols, p_cols = tr._flatten_primitives(scene, personality)
-    b_cols = (tr._flatten_boxes(scene, personality) if include_boxes
-              else np.zeros((12, 0), np.float32))
-    tabs = [torch.from_numpy(np.ascontiguousarray(c.T)).to(cuda) for c in (s_cols, p_cols, b_cols)]
-    cam = torch.from_numpy(tr._pack_camera(scene.camera, size)).to(cuda)
+    tabs = tt._unrolled_tables(scene, personality, include_boxes, cuda)
+    cam = torch.from_numpy(tt._pack_camera(scene.camera, size)).to(cuda)
     seeds = torch.from_numpy(tg._sample_seeds(-5, spp)).to(cuda)
     kw = dict(size=size, max_bounces=depth)
     before = tr.render_record_tile.launches
@@ -741,7 +723,7 @@ def test_blockwise_record_kernel_rejecting_scan(cuda, name, size, include_boxes)
                                 "box2100": lambda: box_scene_toml(2100, 24),
                                 "ties": tie_scene_toml, "grazing": grazing_scene_toml}[name]())
     tabs = _bw_tables(cuda, scene, "mg", include_boxes)
-    cam = torch.from_numpy(tr._pack_camera(scene.camera, size)).to(cuda)
+    cam = torch.from_numpy(tt._pack_camera(scene.camera, size)).to(cuda)
     seeds = torch.tensor([29], dtype=torch.int32, device=cuda)
     for center in (True, False):
         kw = dict(size=size, max_bounces=8, center_sample=center)
@@ -950,11 +932,9 @@ def test_spans_share_the_device_clock(cuda, tmp_path):
 
 
 def _offset_inputs(cuda, size):
-    from rt_tpu_torch.ops import blockwise as tbw
-
     scene = rt_tpu_torch.scene.make_procedural_scene(500)
-    sp, pl, bx, counts = tbw._device_tables(scene, "mg", False, cuda)
-    cam = tr._upload(tr._pack_camera(scene.camera, size), cuda)
+    sp, pl, bx, counts = tt._padded_tables(scene, "mg", False, cuda)
+    cam = tt._upload(tt._pack_camera(scene.camera, size), cuda)
     return sp, pl, bx, counts, cam, torch.tensor([7], dtype=torch.int32, device=cuda)
 
 

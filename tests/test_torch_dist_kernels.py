@@ -45,7 +45,8 @@ from rt_tpu_torch.ops import blockwise as BW
 from rt_tpu_torch.ops import blockwise_grad as BG
 from rt_tpu_torch.ops import wavefront as WF
 from rt_tpu_torch.ops import wavefront_grad as WG
-from rt_tpu_torch.ops.render import WORD_MISS, _pack_camera, _upload
+from rt_tpu_torch.ops.render import WORD_MISS
+from rt_tpu_torch.ops.tables import _pack_camera, _padded_tables, _upload
 
 SIZE = (37, 23)  # 851 pixels
 N = SIZE[0] * SIZE[1]
@@ -59,7 +60,7 @@ JAX_CASE = dict(n_spheres=24, size=(32, 24), spp=1, max_bounces=2)
 @pytest.fixture(scope="module")
 def inputs():
     s = rt_tpu_torch.scene.make_procedural_scene(60)
-    sp, pl, bx, counts = BW._device_tables(s, "mg", False, torch.device("cpu"))
+    sp, pl, bx, counts = _padded_tables(s, "mg", False, torch.device("cpu"))
     cam = _upload(_pack_camera(s.camera, SIZE), torch.device("cpu"))
     return sp, pl, bx, counts, cam, torch.tensor([9], dtype=torch.int32)
 

@@ -15,7 +15,7 @@ from rt_tpu import diff as jdiff
 from rt_tpu.ops import pallas_grad as jpg
 from rt_tpu_torch import diff as tdiff
 from rt_tpu_torch.ops import grad as tg
-from rt_tpu_torch.ops import render as tr
+from rt_tpu_torch.ops import tables as tt
 from test_torch_common import BOX_TOML, SCENES
 
 # spheres and planes sharing materials, and a box (extra param keys)
@@ -118,7 +118,7 @@ def test_params_carry_bit_for_bit():
     moved = tdiff.apply_params(ts, tp)
     want = jdiff.apply_params(js, dict(jp, **{"materials.albedo": jp["materials.albedo"] * 0.5}))
     for pers in ("mg", "sm"):
-        for a, b in zip(tr._flatten_primitives(moved, pers), jpg._flatten_primitives(want, pers)):
+        for a, b in zip(tt._flatten(moved, pers)[:2], jpg._flatten_primitives(want, pers)):
             np.testing.assert_array_equal(a, b)
 
 
@@ -169,9 +169,8 @@ def test_tiles_dispatch_by_device():
     """CPU tensors run the plain versions (no launch is counted); another
     device is refused; a CUDA step without CUDA raises."""
     ts = rt_tpu_torch.load(str(SCENES / "basic.toml"))
-    s_cols, p_cols = tr._flatten_primitives(ts, "mg")
-    sp, pl = (torch.from_numpy(np.ascontiguousarray(c.T)) for c in (s_cols, p_cols))
-    cam = torch.from_numpy(tr._pack_camera(ts.camera, (8, 6)))
+    sp, pl, _ = tt._unrolled_tables(ts, "mg", False, torch.device("cpu"))
+    cam = torch.from_numpy(tt._pack_camera(ts.camera, (8, 6)))
     seeds = torch.tensor([3, 4], dtype=torch.int32)
     tgt = torch.zeros((6, 8, 3))
     kw = dict(size=(8, 6), max_bounces=2)

@@ -16,6 +16,7 @@ import rt_tpu
 import rt_tpu_torch
 from rt_tpu.ops import pallas_render as jr
 from rt_tpu_torch.ops import render as tr
+from rt_tpu_torch.ops import tables as tt
 from test_torch_common import BOX_TOML, PLANES_TOML, SCENES
 
 
@@ -67,12 +68,11 @@ def test_chunk_seeds_equal(seed, n_chunks, frames):
 def test_flatten_tables_equal(name, personality):
     js = jax_scene(name)
     ts = rt_tpu_torch.from_jax_scene(js)
-    for want, got in zip(jr._flatten_primitives(js, personality),
-                         tr._flatten_primitives(ts, personality)):
+    s_cols, p_cols, b_cols = tt._flatten(ts, personality, include_boxes=True)
+    for want, got in zip(jr._flatten_primitives(js, personality), (s_cols, p_cols)):
         assert got.dtype == np.float32
         np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(tr._flatten_boxes(ts, personality),
-                                  jr._flatten_boxes(js, personality))
+    np.testing.assert_array_equal(b_cols, jr._flatten_boxes(js, personality))
 
 
 def test_pack_camera_matches_jax():
@@ -84,7 +84,7 @@ def test_pack_camera_matches_jax():
         np.asarray(js.camera.rotation, np.float32).reshape(-1),
         np.asarray([np.tan(js.camera.vfov * 0.5), w / h, js.camera.near, 0.0], np.float32),
     ])
-    np.testing.assert_array_equal(tr._pack_camera(ts.camera, (w, h)), want)
+    np.testing.assert_array_equal(tt._pack_camera(ts.camera, (w, h)), want)
 
 
 def test_supported_gates():
@@ -116,10 +116,8 @@ def test_render_tile_dispatch_by_device():
     """A CPU tensor runs the plain version (and counts no launch); another
     device is refused."""
     basic = rt_tpu_torch.load(str(SCENES / "basic.toml"))
-    s_cols, p_cols = tr._flatten_primitives(basic, "mg")
-    sp, pl = (torch.from_numpy(np.ascontiguousarray(c.T)) for c in (s_cols, p_cols))
-    bx = torch.zeros((0, 12))
-    cam = torch.from_numpy(tr._pack_camera(basic.camera, (8, 6)))
+    sp, pl, bx = tt._unrolled_tables(basic, "mg", False, torch.device("cpu"))
+    cam = torch.from_numpy(tt._pack_camera(basic.camera, (8, 6)))
     seeds = torch.tensor([3], dtype=torch.int32)
     kw = dict(size=(8, 6), spp=2, max_bounces=2, center_sample=True)
     before = tr.render_tile.launches

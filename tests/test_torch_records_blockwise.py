@@ -11,6 +11,7 @@ import rt_tpu_torch
 from rt_tpu.ops import pallas_blockwise as jb
 from rt_tpu_torch.ops import blockwise as tb
 from rt_tpu_torch.ops import render as tr
+from rt_tpu_torch.ops import tables as tt
 from test_torch_common import (BOX_TOML, PLANES_TOML, SCENES, assert_frames_close,
                                assert_records_match, box_scene_toml, tiles_to_flat)
 from test_torch_ops import jax_scene
@@ -60,9 +61,8 @@ def test_blockwise_and_unrolled_records_agree(name, personality, boxes, rng_mode
     kernel leaves it 0)."""
     scene = _scene(name)
     size = (32, 24)
-    s_cols, p_cols = tr._flatten_primitives(scene, personality)
-    has_die = 2.0 in np.concatenate(
-        [s_cols[9], p_cols[9], tr._flatten_boxes(scene, personality)[11] if boxes else []])
+    s_cols, p_cols, b_cols = tt._flatten(scene, personality, boxes)
+    has_die = 2.0 in np.concatenate([s_cols[9], p_cols[9], b_cols[11]])
     kw = dict(personality=personality, max_bounces=5, rng_mode=rng_mode, include_boxes=boxes,
               device="cpu")
     for center in (True, False):

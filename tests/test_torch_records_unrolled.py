@@ -11,6 +11,7 @@ import torch
 import rt_tpu_torch
 from rt_tpu.ops import pallas_render as jr
 from rt_tpu_torch.ops import render as tr
+from rt_tpu_torch.ops import tables as tt
 from test_torch_common import (SCENES, assert_frames_close, assert_records_match,
                                tiles_to_flat)
 from test_torch_ops import jax_scene
@@ -85,10 +86,8 @@ def test_record_radiance_is_the_one_spp_frame(cid):
     and a bounce after the path's end writes kind/idx/bits 0."""
     name, pers, boxes, center, rng_mode = CASES[cid]
     ts = rt_tpu_torch.from_jax_scene(jax_scene(name))
-    s_cols, p_cols = tr._flatten_primitives(ts, pers)
-    b_cols = tr._flatten_boxes(ts, pers) if boxes else np.zeros((12, 0), np.float32)
-    tabs = [torch.from_numpy(np.ascontiguousarray(c.T)) for c in (s_cols, p_cols, b_cols)]
-    cam = torch.from_numpy(tr._pack_camera(ts.camera, SIZE))
+    tabs = tt._unrolled_tables(ts, pers, boxes, torch.device("cpu"))
+    cam = torch.from_numpy(tt._pack_camera(ts.camera, SIZE))
     seeds = torch.tensor([-3], dtype=torch.int32)
     kw = dict(size=SIZE, max_bounces=5, center_sample=center, rng_mode=rng_mode)
     rad, recs = tr.render_record_tile(*tabs, cam, seeds, **kw)
@@ -122,10 +121,8 @@ def _tile_args(cid):
     keywords but the centre setting."""
     name, pers, boxes, _, rng_mode = CASES[cid]
     ts = rt_tpu_torch.from_jax_scene(jax_scene(name))
-    s_cols, p_cols = tr._flatten_primitives(ts, pers)
-    b_cols = tr._flatten_boxes(ts, pers) if boxes else np.zeros((12, 0), np.float32)
-    tabs = [torch.from_numpy(np.ascontiguousarray(c.T)) for c in (s_cols, p_cols, b_cols)]
-    cam = torch.from_numpy(tr._pack_camera(ts.camera, SIZE))
+    tabs = tt._unrolled_tables(ts, pers, boxes, torch.device("cpu"))
+    cam = torch.from_numpy(tt._pack_camera(ts.camera, SIZE))
     return tabs, cam, dict(size=SIZE, max_bounces=BOUNCES, rng_mode=rng_mode)
 
 

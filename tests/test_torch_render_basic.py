@@ -6,6 +6,7 @@ import torch
 
 import rt_tpu_torch
 from rt_tpu_torch.ops import render as tr
+from rt_tpu_torch.ops import tables as tt
 from test_torch_common import assert_frames_close
 from test_torch_ops import jax_frame, jax_scene
 
@@ -18,10 +19,9 @@ def test_basic_mg_one_chunk():
     ts = rt_tpu_torch.from_jax_scene(js)
     want = jax_frame(js, size, spp=spp, max_bounces=bounces, gamma=False)
 
-    s_cols, p_cols = tr._flatten_primitives(ts, "mg")
-    sp, pl = (torch.from_numpy(np.ascontiguousarray(c.T)) for c in (s_cols, p_cols))
     tile = tr.render_tile_plain(
-        sp, pl, torch.zeros((0, 12)), torch.from_numpy(tr._pack_camera(ts.camera, size)),
+        *tt._unrolled_tables(ts, "mg", False, torch.device("cpu")),
+        torch.from_numpy(tt._pack_camera(ts.camera, size)),
         torch.tensor([0], dtype=torch.int32), size=size, spp=spp, max_bounces=bounces,
         center_sample=True)
     assert tile.shape == (1, 24, 32, 3)

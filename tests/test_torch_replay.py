@@ -27,6 +27,7 @@ from rt_tpu_torch import materials as tmat
 from rt_tpu_torch import replay as trep
 from rt_tpu_torch.ops import intersect as tisect
 from rt_tpu_torch.ops import render as tr
+from rt_tpu_torch.ops import tables as tt
 from test_torch_common import REPLAY_BOX_TOML, tiles_to_flat
 from test_torch_ops import jax_scene
 
@@ -208,7 +209,7 @@ def test_replay_retraces_the_record_kernel(name, personality, boxes):
     flat = tr.records_to_flat(raw)
     grid = tint._pixel_grid(size)
     o, d = tdiff._record_rays(ts.camera, size, grid, flat["jitter"])
-    ro, rd = tr._raygen_plain(torch.from_numpy(tr._pack_camera(ts.camera, size)).tolist(),
+    ro, rd = tr._raygen_plain(torch.from_numpy(tt._pack_camera(ts.camera, size)).tolist(),
                               grid[:, 0], grid[:, 1], flat["jitter"][:, 0], flat["jitter"][:, 1],
                               *tr._inv_size(*size))
     assert torch.equal(o, torch.stack(ro, dim=-1)) and torch.equal(d, torch.stack(rd, dim=-1))

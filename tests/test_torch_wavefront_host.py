@@ -20,6 +20,7 @@ from rt_tpu.ops import pallas_wavefront_grad as jwg
 from rt_tpu_torch import renderer as treg
 from rt_tpu_torch import train as ttrain
 from rt_tpu_torch.ops import render as tr
+from rt_tpu_torch.ops import tables as tt
 from rt_tpu_torch.ops import wavefront as twf
 from rt_tpu_torch.ops import wavefront_grad as twg
 from test_torch_common import SCENES
@@ -285,8 +286,8 @@ def test_plain_bounce_on_some_columns():
     scene = rt_tpu_torch.load(str(SCENES / "basic.toml"))
     size, k = (16, 12), 2
     n = size[0] * size[1] * k
-    sp, pl, bx, counts = twf._device_tables(scene, "mg", False, torch.device("cpu"))
-    cam = torch.from_numpy(tr._pack_camera(scene.camera, size))
+    sp, pl, bx, counts = tt._padded_tables(scene, "mg", False, torch.device("cpu"))
+    cam = torch.from_numpy(tt._pack_camera(scene.camera, size))
     seeds = torch.tensor([7], dtype=torch.int32)
     kw = dict(size=size, max_bounces=4)
     state, ids = torch.empty((13, n)), torch.empty(n, dtype=torch.int32)
